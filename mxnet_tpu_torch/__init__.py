@@ -9,7 +9,10 @@ never jax.
 Ported so far: GPT-2 continuous-batching serving over a ragged paged KV
 cache (`serving.ServingEngine`, `models.GPT2ForCausalLM`,
 `models.PagedKVCache`, `ops.ragged_span_attention`,
-`ops.ragged_decode_attention`). ROADMAP.md lists what is still to come.
+`ops.ragged_decode_attention`), and the single-device BERT MLM training
+step (`models.BertForMaskedLM`, `loss.SoftmaxCrossEntropyLoss`,
+`optimizer.AdamW`, `parallel.TrainStep`, `ops.fused_attention`).
+ROADMAP.md lists what is still to come.
 """
 from .base import MXNetError, resolve_device
 

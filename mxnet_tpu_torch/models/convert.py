@@ -4,14 +4,16 @@ the JAX package.
 `load_jax_params(model, arrays)` takes the JAX model's parameters as
 numpy arrays keyed by structure path, as produced by
 `{n: p.data().asnumpy() for n, p in jax_net.collect_params().items()}`
-(e.g. `backbone.layer3.attn.query.weight`). The port's modules carry the
-same names, so the copy is by name; any missing, extra or mis-shaped key
-raises. The tied LM head has no parameter of its own in either package
-and stays tied.
+(e.g. `backbone.layer3.attn.query.weight` for GPT-2,
+`backbone.encoder.layer0.attn.query.weight` and `mlm.decoder_bias` for
+BERT). The port's modules carry the same names, so the copy is by name;
+any missing, extra or mis-shaped key raises. The tied LM head / MLM
+decoder has no weight of its own in either package and stays tied.
 
 `init_params(model, seed, std)` draws weights from N(0, std) with a
-generator seeded on the model's own device (gamma 1, beta and biases
-0), so a full-width model is made on the card without a host copy.
+generator seeded on the model's own device (gamma 1; beta, biases and
+BERT's `decoder_bias` 0, as the reference's `init="zeros"`), so a
+full-width model is made on the card without a host copy.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def load_jax_params(model, arrays):
 
 def init_params(model, seed=0, std=0.02):
     """Seeded N(0, std) weights in parameter-name order; LayerNorm gamma
-    1, beta and biases 0."""
+    1, beta, biases and decoder_bias 0."""
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -53,7 +55,7 @@ def init_params(model, seed=0, std=0.02):
             leaf = name.rsplit(".", 1)[-1]
             if leaf == "gamma":
                 p.fill_(1.0)
-            elif leaf in ("beta", "bias"):
+            elif leaf in ("beta", "bias", "decoder_bias"):
                 p.zero_()
             else:
                 p.normal_(0.0, std, generator=gen)

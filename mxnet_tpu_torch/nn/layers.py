@@ -1,11 +1,13 @@
-"""Layers of the serving path as torch modules.
+"""Basic layers as torch modules.
 
-Counterparts of mxnet_tpu/gluon/nn/basic_layers.py `Dense`, `LayerNorm`
-and `Embedding`, with the reference's parameter names (weight/bias,
-gamma/beta) so that a structure path such as
+Counterparts of mxnet_tpu/gluon/nn/basic_layers.py `Dense`, `LayerNorm`,
+`Embedding` and `Dropout`, with the reference's parameter names
+(weight/bias, gamma/beta) so that a structure path such as
 `backbone.layer0.attn.query.weight` names the same tensor in both
-packages. Parameters are allocated uninitialised on the given device;
-models/convert.py fills them (seeded random, or from the JAX package).
+packages. Parameters are trainable and allocated uninitialised on the
+given device; models/convert.py fills them (seeded random, or from the
+JAX package). Inference paths (the serving engine) run under
+torch.no_grad.
 """
 from __future__ import annotations
 
@@ -14,12 +16,11 @@ from torch import nn
 
 from ..ops import nn as _ops
 
-__all__ = ["Dense", "LayerNorm", "Embedding"]
+__all__ = ["Dense", "LayerNorm", "Embedding", "Dropout"]
 
 
 def _param(*shape, device, dtype):
-    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
 
 
 class Dense(nn.Module):
@@ -61,3 +62,16 @@ class Embedding(nn.Module):
 
     def forward(self, ids):
         return self.weight[ids]
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, active only in train() mode (the reference's is
+    active only under autograd training). Draws from the current
+    generator (mxnet_tpu_torch.rng)."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        return _ops.dropout(x, self.rate) if self.training else x

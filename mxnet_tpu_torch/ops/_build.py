@@ -23,7 +23,8 @@ from ..base import MXNetError
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"ragged_attention": _PKG / "csrc" / "ragged_attention.cu"}
+SOURCES = {"ragged_attention": _PKG / "csrc" / "ragged_attention.cu",
+           "fused_attention": _PKG / "csrc" / "fused_attention.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
