@@ -13,12 +13,19 @@ script then exits non-zero without the final `ok` line):
   3. span     ragged_span_attention's kernel against its plain PyTorch
               version at GPT-2 774M serving shapes (B=8, Sq=64, H=20,
               D=64, page 64, 16 pages per slot, 128 pages, permuted
-              table, mixed q_counts and lengths), float32 (tol 1e-5)
-              and bfloat16 (tol 2e-2), dead rows and idle slots exactly
-              0, plus edge cases; times of kernel, plain version and the
+              table, mixed q_counts and lengths), float32 (tol 1e-5
+              absolute) and bfloat16 (tol 1.2e-2 of the largest plain
+              value), dead rows and idle slots exactly 0, plus edge
+              cases; times of kernel, plain version and the
               F.scaled_dot_product_attention yardstick, and the bound.
-  4. decode   the same for ragged_decode_attention, and whether it
-              agrees bit for bit with the span kernel at Sq=1.
+  3b. span_int8  the int8 span kernel (int8 pools, per-(page, head)
+              float32 scales) against its plain version at the same
+              shapes and edge cases, float32 q (1e-5 absolute) and
+              bfloat16 q (1.2e-2 of the largest plain value); the
+              yardstick is SDPA on the dequantized gathered view.
+  4. decode   the same for ragged_decode_attention (bfloat16 at 1.2e-2
+              of the largest plain value), and whether it agrees bit for
+              bit with the span kernel at Sq=1.
   5. gpt2     GPT-2 774M at full width (36 layers, 1280 units, 20
               heads, vocab 50257, 1024 positions; seeded random
               weights) served by ServingEngine(num_slots=8,
@@ -33,6 +40,30 @@ script then exits non-zero without the final `ok` line):
               kernel path serves the same traffic in bfloat16, timed.
               The float32 and bfloat16 kernel paths each serve once more
               under torch.profiler: device busy share and top kernels.
+  5b. gpt2_int8  the same model and traffic on int8 KV pages
+              (kv_dtype="int8", chunk_tokens 64): float32 through the
+              kernels (the int8 span kernel exactly 36 times a dispatch,
+              the float ragged kernels never) and through the plain
+              versions (streams agree under the 1e-4 top-2 rule, the gap
+              read on the int8 path's own write schedule); against phase
+              5's float32 streams: d = the largest |int8 - float32|
+              first-token logit of each prompt is measured, and the first
+              tokens must agree wherever float32's top-2 gap exceeds 2*d,
+              the engine's token must be the int8 path's argmax wherever
+              that path's gap exceeds 1e-2; the cache quantizer writes
+              the CPU's bytes on the card; one single-token forward on
+              the served cache through the span kernel (logits within
+              1e-4 of the plain path); then bfloat16 on int8 pages, timed
+              and profiled, and KV bytes per token of each page dtype.
+  5c. prefix  the 774M model in float32 on the kernel path, float and
+              int8 pages, the prefix cache off and on: every prompt is a
+              256-token shared prefix (4 pages) and a unique tail
+              U[16, 128]; request 0 alone, then requests 1-7 together,
+              then the bare prefix (the copy-on-write split), 32 greedy
+              tokens each. Streams equal with the cache on and off,
+              7*256 + 255 prompt tokens saved, prefill(on) + saved =
+              prefill(off), the page audit clean, the tree's pages
+              untouched by the split; ms per serve.
   6. fused    fused_attention's CUDA forward and backward against its
               plain PyTorch version (forward output, dq, dk, dv) at
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
@@ -68,9 +99,9 @@ script then exits non-zero without the final `ok` line):
               tokens/s, peak memory and bert_base_mlm_mfu; then one more
               bfloat16 step under torch.profiler.
   8. kernels  one line listing every ported kernel with its launches on
-              its main path (phase 5 for the ragged kernels, phase 7's
-              float32 kernel run for the fused pair), errors, times and
-              bound.
+              its main path (phase 5 for the float ragged kernels, phase
+              5b for the int8 span kernel, phase 7's float32 kernel run
+              for the fused pair), errors, times and bound.
 Then the last line: {"ok": true, "device": {...}}.
 """
 import json
@@ -89,12 +120,15 @@ PEAK_FLOPS = {"float32": 67e12,    # H100 SXM, outside the tensor cores
 # spacing is at most 2**-7 of a value); both round once from float32
 BF16_REL_TOL = 1.2e-2
 SOURCE = "mxnet_tpu_torch/csrc/ragged_attention.cu"
+INT8 = "ragged_span_attention_int8"
 FUSED_SOURCE = "mxnet_tpu_torch/csrc/fused_attention.cu"
 REPLACES = {
     "ragged_span_attention":
         "mxnet_tpu/ops/pallas_attention.py:576 _ragged_span_kernel",
     "ragged_decode_attention":
         "mxnet_tpu/ops/pallas_attention.py:402 _ragged_decode_kernel",
+    INT8:
+        "mxnet_tpu/ops/pallas_attention.py:633 _ragged_span_quant_kernel",
     "fused_attention_fwd":
         "mxnet_tpu/ops/pallas_attention.py:201 _fwd_kernel_packed (BTHD); "
         "mxnet_tpu/ops/pallas_attention.py:104 _fwd_kernel (BHTD)",
@@ -160,17 +194,21 @@ def time_ms(torch, fn, iters=25, warmup=3):
     return float(np.median(times))
 
 
-def attention_work(lengths, q_counts, S, P, H, D, itemsize, out_rows):
+def attention_work(lengths, q_counts, S, P, H, D, itemsize, out_rows,
+                   kv_itemsize=None, scale_bytes=0):
     """Bytes the function must move and the operations it must do for
     these inputs: live q rows, the live K/V pages of each slot (each read
-    once), the whole output written once; 4*D flops per (live row,
-    visible key) pair and head."""
+    once, at kv_itemsize bytes an element, plus `scale_bytes` per live
+    (page, head) for int8 pages), the whole output written once; 4*D
+    flops per (live row, visible key) pair and head."""
+    kv_itemsize = itemsize if kv_itemsize is None else kv_itemsize
     kv_bytes = q_bytes = pairs = 0
     for length, qc in zip(lengths, q_counts):
         if qc <= 0:
             continue
         pages = min(-(-(length + qc - 1) // S), P)
-        kv_bytes += 2 * pages * S * H * D * itemsize
+        kv_bytes += 2 * pages * S * H * D * kv_itemsize \
+            + pages * H * scale_bytes
         q_bytes += qc * H * D * itemsize
         pairs += sum(min(max(length + j, 0), P * S) for j in range(qc))
     nbytes = kv_bytes + q_bytes + out_rows * H * D * itemsize
@@ -194,97 +232,141 @@ def smi():
 # phases 3 and 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def make_pool(torch, B, Sq, H, D, S, P, N, dtype, seed):
+def make_pool(torch, B, Sq, H, D, S, P, N, dtype, seed, quant=False):
+    """q (B, Sq, H, D) in `dtype`, k/v pools (N, S, H, D), a permuted
+    (B, P) table and the (N, H) k/v scales: None for float pools; with
+    `quant` the pools are int8 codes of the same gaussian slabs with
+    per-(page, head) absmax/127 float32 scales (tests/test_quant_kv.py's
+    construction)."""
     rng = np.random.default_rng(seed)
     q = torch.tensor(rng.standard_normal((B, Sq, H, D)), dtype=dtype,
                      device=DEV)
-    kp = torch.tensor(rng.standard_normal((N, S, H, D)), dtype=dtype,
-                      device=DEV)
-    vp = torch.tensor(rng.standard_normal((N, S, H, D)), dtype=dtype,
-                      device=DEV)
+    k = rng.standard_normal((N, S, H, D))
+    v = rng.standard_normal((N, S, H, D))
     table = torch.tensor(rng.permutation(N)[:B * P].reshape(B, P),
                          dtype=torch.int32, device=DEV)
-    return q, kp, vp, table
+    if not quant:
+        return (q, torch.tensor(k, dtype=dtype, device=DEV),
+                torch.tensor(v, dtype=dtype, device=DEV), table, None, None)
+    codes, scales = [], []
+    for x in (k, v):
+        s = (np.abs(x).max(axis=(1, 3)) / 127.0).astype(np.float32)
+        c = np.clip(np.round(x / s[:, None, :, None]), -127, 127)
+        codes.append(torch.tensor(c.astype(np.int8), device=DEV))
+        scales.append(torch.tensor(s, device=DEV))
+    return (q, *codes, table, *scales)
 
 
-def dense_yardstick(torch, kp, vp, table, lengths, Sq):
+def dense_yardstick(torch, kp, vp, table, lengths, Sq, ks=None, vs=None,
+                    dtype=None):
     """The inputs of the library yardstick: the gathered dense (B, H, T,
-    D) view and the same causal-offset mask. Built outside the timing."""
+    D) view (int8 pools dequantized, in q's dtype) and the same
+    causal-offset mask. Built outside the timing."""
     B, P = table.shape
     S, H, D = kp.shape[1:]
-    k = kp[table.long()].reshape(B, P * S, H, D).transpose(1, 2)
-    v = vp[table.long()].reshape(B, P * S, H, D).transpose(1, 2)
+    tbl = table.long()
+    k, v = kp[tbl], vp[tbl]
+    if ks is not None:
+        k = (k.float() * ks[tbl][:, :, None, :, None]).to(dtype)
+        v = (v.float() * vs[tbl][:, :, None, :, None]).to(dtype)
+    k = k.reshape(B, P * S, H, D).transpose(1, 2)
+    v = v.reshape(B, P * S, H, D).transpose(1, 2)
     pos = torch.arange(P * S, device=DEV)
     limit = lengths.long()[:, None] + torch.arange(Sq, device=DEV)
     mask = (pos[None, None, :] < limit[:, :, None])[:, None]
     return k.contiguous(), v.contiguous(), mask
 
 
-def phase_span(torch, F, ra):
+def check_close(got, ref, f32, name):
+    """Kernel against plain: float32 within 1e-5 absolute, bfloat16
+    within BF16_REL_TOL of the largest plain magnitude; finite. Returns
+    (max abs error, that error over the largest plain magnitude)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    rel = err / top if top else err
+    require((err <= 1e-5) if f32 else (rel <= BF16_REL_TOL),
+            f"{name}: max abs err {err} (relative {rel})")
+    require(bool(got.float().isfinite().all()), f"{name}: non-finite")
+    return err, rel
+
+
+def phase_span(torch, F, ra, quant=False):
+    """Phase 3 (float pools) or, with `quant`, 3b (int8 pools)."""
     B, Sq, H, D, S, P, N = 8, 64, 20, 64, 64, 16, 128
     lengths = [1, 1000, 3, 960, 500, 1, 1023, 64]
     q_counts = [1, 4, 64, 17, 0, 64, 1, 33]
-    out = {"phase": "span", "shape": dict(B=B, Sq=Sq, H=H, D=D, S=S, P=P,
-                                          N=N),
+    label = "span_int8" if quant else "span"
+    out = {"phase": label, "shape": dict(B=B, Sq=Sq, H=H, D=D, S=S, P=P,
+                                         N=N),
            "lengths": lengths, "q_counts": q_counts}
     L = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     qc = torch.tensor(q_counts, dtype=torch.int32, device=DEV)
     dead = (torch.arange(Sq, device=DEV)[None, :] >= qc[:, None])
-    for dtype, name, tol in ((torch.float32, "float32", 1e-5),
-                             (torch.bfloat16, "bfloat16", 2e-2)):
-        q, kp, vp, table = make_pool(torch, B, Sq, H, D, S, P, N, dtype, 0)
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        q, kp, vp, table, ks, vs = make_pool(torch, B, Sq, H, D, S, P, N,
+                                             dtype, 0, quant)
+        kw = dict(q_counts=qc, k_scale=ks, v_scale=vs)
 
         def kernel():
             return ra.ragged_span_attention(q, kp, vp, table, L,
-                                            q_counts=qc, impl="auto")
+                                            impl="auto", **kw)
 
         def plain():
             return ra.ragged_span_attention(q, kp, vp, table, L,
-                                            q_counts=qc, impl="torch")
+                                            impl="torch", **kw)
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        require(err <= tol, f"span {name}: max abs err {err} > {tol}")
+        f32 = dtype == torch.float32
+        err, rel = check_close(got, ref, f32, f"{label} {name}")
         require(bool((got[dead] == 0).all()),
-                f"span {name}: dead rows / idle slots are not exactly 0")
-        require(bool(torch.isfinite(got).all()), f"span {name}: non-finite")
-        k, v, mask = dense_yardstick(torch, kp, vp, table, L, Sq)
+                f"{label} {name}: dead rows / idle slots are not exactly 0")
+        k, v, mask = dense_yardstick(torch, kp, vp, table, L, Sq, ks, vs,
+                                     dtype)
         qt = q.transpose(1, 2).contiguous()
-        nbytes, flops = attention_work(lengths, q_counts, S, P, H, D,
-                                       q.element_size(), B * Sq)
+        nbytes, flops = attention_work(
+            lengths, q_counts, S, P, H, D, q.element_size(), B * Sq,
+            kv_itemsize=kp.element_size(), scale_bytes=8 if quant else 0)
         bms, by = bound(nbytes, flops, name)
         out[name] = {
-            "max_abs_err": err, "tol": tol,
+            "max_abs_err": err, "rel_err": rel,
+            "tol": 1e-5 if f32 else BF16_REL_TOL,
+            "tol_kind": "absolute" if f32 else "relative",
             "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, k, v, attn_mask=mask)),
             "bound_ms": bms, "bound_by": by, "bytes": nbytes,
             "flops": flops}
+        del k, v, mask, q, kp, vp
     # edge cases at small shapes: all idle, all decode, ragged tails,
     # lengths 0, a head dim and page size off the 32 grid
     edges = [(5, 8, 2, 16, 8, 4, [5, 1, 24, 13, 8], qcs)
              for qcs in ([0] * 5, [1] * 5, [8] * 5, [3, 7, 2, 6, 1])]
     edges += [(3, 20, 3, 40, 12, 3, [0, 20, 36], [20, 17, 3]),
               (2, 33, 1, 128, 64, 2, [60, 100], [33, 29])]
-    worst = 0.0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
     for i, (b, sq, h, d, s, p, lens, qcs) in enumerate(edges):
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            q, kp, vp, table = make_pool(torch, b, sq, h, d, s, p,
-                                         b * p + 1, dtype, 10 + i)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, table, ks, vs = make_pool(
+                torch, b, sq, h, d, s, p, b * p + 1, dtype, 10 + i, quant)
             Le = torch.tensor(lens, dtype=torch.int32, device=DEV)
             qce = torch.tensor(qcs, dtype=torch.int32, device=DEV)
+            kw = dict(q_counts=qce, k_scale=ks, v_scale=vs)
             got = ra.ragged_span_attention(q, kp, vp, table, Le,
-                                           q_counts=qce, impl="auto")
+                                           impl="auto", **kw)
             ref = ra.ragged_span_attention(q, kp, vp, table, Le,
-                                           q_counts=qce, impl="torch")
-            err = (got.float() - ref.float()).abs().max().item()
-            require(err <= tol, f"span edge {i} {dtype}: err {err}")
+                                           impl="torch", **kw)
+            f32 = dtype == torch.float32
+            err, rel = check_close(got, ref, f32,
+                                   f"{label} edge {i} {dtype}")
             deadm = torch.arange(sq, device=DEV)[None, :] >= qce[:, None]
-            require(bool((got[deadm] == 0).all()), f"span edge {i}: dead")
-            if dtype == torch.float32:
-                worst = max(worst, err)
+            require(bool((got[deadm] == 0).all()),
+                    f"{label} edge {i}: dead rows are not exactly 0")
+            key = "float32" if f32 else "bfloat16"
+            worst[key] = max(worst[key], err if f32 else rel)
     out["edge_cases"] = len(edges)
-    out["edge_max_abs_err_f32"] = worst
+    out["edge_max_abs_err_f32"] = worst["float32"]
+    out["edge_max_rel_err_bf16"] = worst["bfloat16"]
     emit(out)
     return out
 
@@ -296,9 +378,10 @@ def phase_decode(torch, F, ra):
            "lengths": lengths}
     L = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     ones = torch.ones(B, dtype=torch.int32, device=DEV)
-    for dtype, name, tol in ((torch.float32, "float32", 1e-5),
-                             (torch.bfloat16, "bfloat16", 2e-2)):
-        q4, kp, vp, table = make_pool(torch, B, 1, H, D, S, P, N, dtype, 1)
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        q4, kp, vp, table, _, _ = make_pool(torch, B, 1, H, D, S, P, N,
+                                            dtype, 1)
         q = q4[:, 0].contiguous()
 
         def kernel():
@@ -309,11 +392,9 @@ def phase_decode(torch, F, ra):
             return ra.ragged_decode_attention(q, kp, vp, table, L,
                                               impl="torch")
         got, ref = kernel(), plain()
-        err = (got.float() - ref.float()).abs().max().item()
-        require(err <= tol, f"decode {name}: max abs err {err} > {tol}")
+        f32 = dtype == torch.float32
+        err, rel = check_close(got, ref, f32, f"decode {name}")
         require(bool((got[4] == 0).all()), f"decode {name}: length 0 != 0")
-        require(bool(torch.isfinite(got).all()),
-                f"decode {name}: non-finite")
         span1 = ra.ragged_span_attention(q4, kp, vp, table, L,
                                          q_counts=ones, impl="auto")[:, 0]
         k, v, mask = dense_yardstick(torch, kp, vp, table, L, 1)
@@ -322,7 +403,9 @@ def phase_decode(torch, F, ra):
                                        q.element_size(), B)
         bms, by = bound(nbytes, flops, name)
         out[name] = {
-            "max_abs_err": err, "tol": tol,
+            "max_abs_err": err, "rel_err": rel,
+            "tol": 1e-5 if f32 else BF16_REL_TOL,
+            "tol_kind": "absolute" if f32 else "relative",
             "span_sq1_bit_identical": bool(torch.equal(span1, got)),
             "span_sq1_max_abs_diff":
                 (span1.float() - got.float()).abs().max().item(),
@@ -477,13 +560,18 @@ def phase_fused(torch, F, fa):
 # phase 5: GPT-2 774M served end to end
 # ---------------------------------------------------------------------------
 
-def serve(torch, eng, prompts, n_new, Request):
+def serve(torch, eng, prompts, n_new, Request, reqs_out=None):
+    """Serve greedy requests for `prompts`; their token streams and the
+    wall seconds (ending in a device sync). The Request objects are
+    appended to `reqs_out` when given."""
     reqs = [Request(p, n_new, request_id=i) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if reqs_out is not None:
+        reqs_out.extend(reqs)
     return [r.output_tokens for r in reqs], wall
 
 
@@ -512,12 +600,17 @@ def profiled(torch, run, top):
                              ProfilerActivity.CUDA]) as prof:
         wall = run()
     cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    # kernel launches issued by the host in the window
+    launches = sum(e.count for e in events
+                   if e.key.startswith("cudaLaunchKernel"))
     rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type == cuda and e.self_device_time_total),
                   reverse=True)
     if not rows:
-        return {"wall_s": wall, "device_busy_share": "not measured"}
+        return {"wall_s": wall, "device_busy_share": "not measured",
+                "cuda_launches": launches}
     dev_ms = sum(r[0] for r in rows) / 1e3
     classes = {}
     for d, k, _ in rows:
@@ -525,6 +618,7 @@ def profiled(torch, run, top):
         classes[label] = classes.get(label, 0.0) + d / 1e3
     return {"wall_s": wall, "device_ms": dev_ms,
             "device_busy_share": dev_ms / (wall * 1e3),
+            "cuda_launches": launches,
             "device_ms_by_class": classes,
             "top_kernels": [{"name": k[:90], "ms": d / 1e3, "count": c}
                             for d, k, c in rows[:top]]}
@@ -536,15 +630,19 @@ def trace_serve(torch, eng, prompts, n_new, Request):
                     lambda: serve(torch, eng, prompts, n_new, Request)[1], 8)
 
 
-def top2_gap(torch, model, tokens):
-    """The plain path's gap between the two largest next-token logits
-    after `tokens` (one slot, the whole prefix as one span)."""
+def float_logits(torch, model, tokens):
+    """The plain float path's next-token logits after `tokens` (one slot,
+    the whole prefix as one span)."""
     cache = model.make_cache(1, 1024, page_size=64, lengths=[0],
                              attn_impl="torch")
-    ids = torch.tensor([tokens], dtype=torch.int64, device=DEV)
     with torch.no_grad():
-        logits, _ = model(ids, cache)
-    top = torch.topk(logits[0, -1].float(), 2).values
+        logits, _ = model(torch.tensor([tokens], device=DEV), cache)
+    return logits[0, -1].float()
+
+
+def gap2(logits):
+    """The gap between the two largest logits."""
+    top = logits.topk(2).values
     return (top[0] - top[1]).item()
 
 
@@ -602,6 +700,8 @@ def phase_gpt2(torch, ra, card):
     dlog = (logits["auto"] - logits["torch"]).abs().max().item()
     require(dlog <= 1e-4, f"decode forward logits differ by {dlog}")
     require(bool(torch.isfinite(logits["auto"]).all()), "non-finite logits")
+    out["page_bytes"] = {"float32": eng.page_pool.page_bytes}
+    out["streams_float32"] = got
     out["float32_kernel"] = {"card": card, "wall_s": wall,
                              "dispatches": dispatches,
                              "tokens": sum(map(len, got)),
@@ -627,7 +727,7 @@ def phase_gpt2(torch, ra, card):
     for i, (a, b) in enumerate(zip(got, want)):
         if a != b:
             j = next(k for k in range(n_new) if a[k] != b[k])
-            gap = top2_gap(torch, model, prompts[i] + b[:j])
+            gap = gap2(float_logits(torch, model, prompts[i] + b[:j]))
             divergences.append({"request": i, "token": j, "top2_gap": gap})
             require(gap < 1e-4, f"request {i} diverges at token {j} where "
                     f"the plain top-2 gap is {gap}")
@@ -641,6 +741,7 @@ def phase_gpt2(torch, ra, card):
     eng.stats["decode_dispatches"] = 0
     got16, wall = serve(torch, eng, prompts, n_new, Request)
     d16 = eng.stats["decode_dispatches"]
+    out["page_bytes"]["bfloat16"] = eng.page_pool.page_bytes
     require(all(len(t) == n_new for t in got16), "short bf16 streams")
     out["bfloat16_kernel"] = {
         "card": card, "wall_s": wall, "dispatches": d16,
@@ -652,6 +753,309 @@ def phase_gpt2(torch, ra, card):
     out["bfloat16_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
                                                Request)
     del eng, model
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def gpt2_774m(torch):
+    """GPT-2 774M at full width with seeded random weights, float32."""
+    from mxnet_tpu_torch.models import (GPT2ForCausalLM, gpt2_774m_config,
+                                        init_params)
+    cfg = gpt2_774m_config(dropout=0.0, attention_dropout=0.0)
+    require(cfg.num_layers == GPT2_LAYERS, "774M config changed")
+    model = GPT2ForCausalLM(cfg, device=DEV)
+    init_params(model, seed=0, std=0.02)
+    return model, cfg
+
+
+def int8_logits(torch, model, prompt, emitted, history):
+    """The plain int8 path's next-token logits after `prompt + emitted`,
+    on one slot replaying the engine's write schedule: the prompt in its
+    recorded chunks (`history`, Request.kv_history), then each emitted
+    token as a one-row write (int8 numerics depend on the chunking)."""
+    cache = model.make_cache(1, 1024, page_size=64, lengths=[0],
+                             attn_impl="torch", kv_dtype="int8")
+    cuts = np.cumsum([0] + list(history))
+    feeds = [prompt[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    feeds += [[t] for t in emitted]
+    with torch.no_grad():
+        for toks in feeds:
+            logits, cache = model(torch.tensor([toks], device=DEV), cache)
+    return logits[0, -1].float()
+
+
+def quantizer_bytes_match(torch):
+    """The cache quantizer on the card writes the CPU's bytes: the same
+    random write schedule (chunks of 1, 3 and 5 rows over pages of 4,
+    dead span rows, locked pages, writes past capacity, growing
+    magnitudes) into an int8 PagedKVCache on each device; codes and
+    scales compared byte for byte (the CPU side is held to the JAX
+    reference by tests/test_torch_quant_kv.py)."""
+    from mxnet_tpu_torch.models import PagedKVCache
+    rng = np.random.default_rng(7)
+    L, B, H, D, S, P = 2, 4, 20, 64, 4, 3
+    N = B * P + 2
+    table = rng.permutation(N)[:B * P].reshape(B, P).astype(np.int32)
+    caches = {dev: PagedKVCache.create(L, B, H, P * S, D, page_size=S,
+                                       num_pages=N, page_table=table,
+                                       lengths=np.zeros(B), kv_dtype="int8",
+                                       device=dev) for dev in ("cpu", DEV)}
+    for step in range(12):
+        t = (1, 3, 5)[step % 3]
+        lengths = rng.integers(0, P * S + 3, B).astype(np.int32)
+        spans = rng.integers(0, t + 1, B).astype(np.int32)
+        lock = rng.random(N) < 0.25
+        k = ((1.0 + step) * rng.standard_normal((B, H, t, D))).astype(
+            np.float32)
+        v = ((1.0 + step) * rng.standard_normal((B, H, t, D))).astype(
+            np.float32)
+        for dev, c in caches.items():
+            w = PagedKVCache(c.k_pages, c.v_pages, c.page_table,
+                             torch.tensor(lengths, device=dev),
+                             page_lock=torch.tensor(lock, device=dev),
+                             spans=torch.tensor(spans, device=dev),
+                             k_scale=c.k_scale, v_scale=c.v_scale)
+            w.write_decode(step % L, torch.tensor(k, device=dev),
+                           torch.tensor(v, device=dev))
+    a, b = caches["cpu"], caches[DEV]
+    return all(bool(torch.equal(x[:, :N], y[:, :N].cpu()))
+               for x, y in ((a.k_pages, b.k_pages), (a.v_pages, b.v_pages),
+                            (a.k_scale, b.k_scale), (a.v_scale, b.v_scale)))
+
+
+def phase_gpt2_int8(torch, ra, card, gpt2):
+    """Phase 5b: the 774M serve on int8 KV pages."""
+    from mxnet_tpu_torch.models import PagedKVCache
+    from mxnet_tpu_torch.serving import Request, ServingEngine
+
+    model, cfg = gpt2_774m(torch)
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 129, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in plens]
+    require([int(n) for n in plens] == gpt2["prompt_lens"],
+            "phase gpt2 and gpt2_int8 traffic differ")
+    n_new = 32
+    out = {"phase": "gpt2_int8", "card": card, "config": "gpt2_774m_config",
+           "kv_dtype": "int8", "prompt_lens": gpt2["prompt_lens"],
+           "new_tokens": n_new}
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64,
+               kv_dtype="int8")
+
+    # the int8 main path: float32 through the kernels; counts read here
+    eng = ServingEngine(model, device=DEV, **ekw)
+    ra.reset_launches()
+    got, wall = serve(torch, eng, prompts, n_new, Request)
+    launches = dict(ra.LAUNCHES)
+    dispatches = eng.stats["decode_dispatches"]
+    require(launches[INT8] == GPT2_LAYERS * dispatches,
+            f"int8 span launches {launches[INT8]} != 36 x {dispatches}")
+    require(launches["ragged_span_attention"] == 0
+            and launches["ragged_decode_attention"] == 0,
+            f"float ragged kernels ran on int8 pages: {launches}")
+    require(all(len(t) == n_new for t in got), "short int8 streams")
+    require(eng.audit_pages() == [], "int8 page audit failed")
+    # one ragged single-token forward on the served int8 cache: every
+    # t == 1 call takes the span kernel. Each path starts from the same
+    # pools and scales (a forward writes, and scales never go down)
+    lengths = torch.tensor([int(n) + n_new - 1 for n in plens],
+                           dtype=torch.int32, device=DEV)
+    last = torch.tensor([[s[-1]] for s in got], device=DEV)
+    saved = [x.clone() for x in (eng._kp, eng._vp, eng._ks, eng._vs)]
+    logits = {}
+    for impl in ("auto", "torch"):
+        for x, y in zip((eng._kp, eng._vp, eng._ks, eng._vs), saved):
+            x.copy_(y)
+        cache = PagedKVCache(eng._kp, eng._vp, eng._dstate["table"],
+                             lengths, k_scale=eng._ks, v_scale=eng._vs,
+                             attn_impl=impl)
+        with torch.no_grad():
+            logits[impl] = model(last, cache)[0].float()
+        if impl == "auto":
+            require(ra.LAUNCHES[INT8] - launches[INT8] == GPT2_LAYERS,
+                    "the single-token int8 forward missed the span kernel")
+    del saved, cache
+    dlog = (logits["auto"] - logits["torch"]).abs().max().item()
+    require(dlog <= 1e-4, f"int8 single-token logits differ by {dlog}")
+    require(bool(torch.isfinite(logits["auto"]).all()), "non-finite logits")
+    out["float32_kernel"] = {"card": card, "wall_s": wall,
+                             "dispatches": dispatches,
+                             "ms_per_dispatch": wall / dispatches * 1e3}
+    out["launches"] = launches
+    out["single_token_logits_max_abs_diff"] = dlog
+    out["page_bytes"] = dict(gpt2["page_bytes"],
+                             int8=eng.page_pool.page_bytes)
+    out["kv_bytes_per_token"] = {k: v / 64
+                                 for k, v in out["page_bytes"].items()}
+    del eng, logits
+    torch.cuda.empty_cache()
+
+    # the same traffic through the plain versions
+    eng = ServingEngine(model, attn_impl="torch", device=DEV, **ekw)
+    plain_reqs = []
+    want, wall = serve(torch, eng, prompts, n_new, Request, plain_reqs)
+    out["float32_plain"] = {"wall_s": wall, "ms_per_dispatch": wall
+                            / eng.stats["decode_dispatches"] * 1e3}
+    require(ra.LAUNCHES[INT8] == launches[INT8] + GPT2_LAYERS,
+            "the plain path launched a kernel")
+    del eng
+    torch.cuda.empty_cache()
+    divergences = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            j = next(k for k in range(n_new) if a[k] != b[k])
+            gap = gap2(int8_logits(torch, model, prompts[i], b[:j],
+                                   plain_reqs[i].kv_history))
+            divergences.append({"request": i, "token": j, "top2_gap": gap})
+            require(gap < 1e-4, f"int8 request {i} diverges at token {j} "
+                    f"where the plain top-2 gap is {gap}")
+    out["streams_identical"] = not divergences
+    out["divergences"] = divergences
+
+    # int8 against phase gpt2's float32 streams, first tokens. With d the
+    # largest |int8 - float32| logit of the prompt (plain paths, the
+    # engine's write schedule), a float32 top-2 gap above 2*d leaves no
+    # room for a flip: there the tokens must agree. Wherever the int8
+    # path's own gap exceeds 1e-2 the engine's token must be its argmax.
+    # (The reference's tiny-model rule, agreement wherever float32's gap
+    # exceeds 1e-2, assumes d < 5e-3; at 774M d is measured instead.)
+    f32 = gpt2["streams_float32"]
+    first = []
+    for i, p in enumerate(prompts):
+        lf = float_logits(torch, model, p)
+        l8 = int8_logits(torch, model, p, [], plain_reqs[i].kv_history)
+        gap, gap8 = gap2(lf), gap2(l8)
+        d = (l8 - lf).abs().max().item()
+        row = {"request": i, "float32_top2_gap": gap, "int8_top2_gap": gap8,
+               "max_abs_logit_diff": d, "max_abs_logit": lf.abs().max().item(),
+               "equal": got[i][0] == f32[i][0],
+               "int8_argmax_equal": int(l8.argmax()) == got[i][0]}
+        first.append(row)
+        if gap > 2 * d:
+            require(row["equal"], f"int8 first token of request {i} differs "
+                    f"from float32 where its gap {gap} exceeds 2 x {d}")
+        if gap8 > 1e-2:
+            require(row["int8_argmax_equal"], f"int8 first token of request "
+                    f"{i} is not the int8 path's argmax (gap {gap8})")
+    # the cache quantizer on the card against the CPU's bytes
+    require(quantizer_bytes_match(torch),
+            "the int8 cache quantizer writes other bytes on the card")
+    out["vs_float32"] = {
+        "tokens_equal": sum(x == y for a, b in zip(got, f32)
+                            for x, y in zip(a, b)),
+        "tokens": sum(map(len, f32)),
+        "streams_equal": sum(a == b for a, b in zip(got, f32)),
+        "first_tokens": first}
+
+    # bfloat16 weights on int8 pages, timed and profiled
+    model.to(torch.bfloat16)
+    eng = ServingEngine(model, device=DEV, **ekw)
+    serve(torch, eng, prompts, n_new, Request)          # warm-up
+    eng.stats["decode_dispatches"] = 0
+    got16, wall = serve(torch, eng, prompts, n_new, Request)
+    d16 = eng.stats["decode_dispatches"]
+    require(all(len(t) == n_new for t in got16), "short bf16 int8 streams")
+    out["bfloat16_kernel"] = {
+        "card": card, "wall_s": wall, "dispatches": d16,
+        "tokens_per_s": sum(map(len, got16)) / wall,
+        "ms_per_dispatch": wall / d16 * 1e3,
+        "greedy_tokens_equal_to_float32_int8":
+            sum(x == y for a, b in zip(got16, got) for x, y in zip(a, b))}
+    out["bfloat16_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
+                                               Request)
+    del eng, model
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_prefix(torch, ra, card):
+    """Phase 5c: shared-prefix traffic with the prefix cache off and on,
+    float32 and int8 pages, the kernel path."""
+    from mxnet_tpu_torch.serving import Request, ServingEngine
+
+    model, cfg = gpt2_774m(torch)
+    rng = np.random.default_rng(1)
+    S, n_pre, n_new = 64, 256, 32
+    prefix = rng.integers(0, cfg.vocab_size, n_pre).tolist()
+    tails = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+             for n in rng.integers(16, 129, 8)]
+    prompts = [prefix + t for t in tails]
+    # a non-binding prefill budget keeps each prompt on the chunk_tokens
+    # grid whoever shares the dispatch: int8 numerics depend on where
+    # chunks end, and a page-aligned prefix hit starts on that grid
+    ekw = dict(num_slots=8, max_length=1024, page_size=S, chunk_tokens=S,
+               prefill_chunk_budget=8 * S)
+    out = {"phase": "prefix", "card": card, "config": "gpt2_774m_config",
+           "prefix_tokens": n_pre, "tail_lens": [len(t) for t in tails],
+           "new_tokens": n_new}
+    f32_pool_bytes = None
+    for kv in ("float32", "int8"):
+        runs = {}
+        for on in (False, True):
+            kw = dict(ekw, kv_dtype="int8" if kv == "int8" else None,
+                      prefix_cache=on)
+            if kv == "int8" and on:
+                # the float32 cache-on pool's bytes as the int8 budget
+                kw["hbm_budget_bytes"] = f32_pool_bytes
+            eng = ServingEngine(model, device=DEV, **kw)
+            if kv == "float32" and on:
+                f32_pool_bytes = eng.page_pool.num_pages \
+                    * eng.page_pool.page_bytes
+            ra.reset_launches()
+            walls, streams = [], []
+            for group in ([prompts[0]], prompts[1:]):
+                toks, wall = serve(torch, eng, group, n_new, Request)
+                streams += toks
+                walls.append(wall)
+            tree = before = None
+            if on:
+                pc = eng.prefix_cache
+                tree = sorted(pc._by_page)
+                leaves = [eng._kp, eng._vp] + (
+                    [eng._ks, eng._vs] if kv == "int8" else [])
+                before = [x[:, tree].clone() for x in leaves]
+            toks, wall = serve(torch, eng, [prefix], n_new, Request)
+            streams += toks
+            walls.append(wall)
+            if on:
+                same = all(bool(torch.equal(b, x[:, tree]))
+                           for b, x in zip(before, leaves))
+                require(same, f"prefix {kv}: the CoW request wrote into "
+                        "the tree's pages")
+                del before
+            audit = eng.audit_pages()
+            require(audit == [], f"prefix {kv} on={on}: audit {audit}")
+            key = INT8 if kv == "int8" else "ragged_span_attention"
+            require(ra.LAUNCHES[key] == GPT2_LAYERS
+                    * eng.stats["decode_dispatches"],
+                    f"prefix {kv}: the span kernel missed dispatches")
+            st = eng.stats
+            runs[on] = {"streams": streams, "wall_s": walls,
+                        "ms_per_serve": [w * 1e3 for w in walls],
+                        "dispatches": st["decode_dispatches"],
+                        "prefill_tokens": st["prefill_tokens"],
+                        "prefix_hits": st["prefix_hits"],
+                        "prefix_misses": st["prefix_misses"],
+                        "prefix_tokens_saved": st["prefix_tokens_saved"],
+                        "pool_pages": eng.page_pool.num_pages,
+                        "page_bytes": eng.page_pool.page_bytes,
+                        "hbm_budget_bytes": kw.get("hbm_budget_bytes")}
+            del eng
+            torch.cuda.empty_cache()
+        off, on = runs[False], runs[True]
+        require(on["streams"] == off["streams"],
+                f"prefix {kv}: streams differ with the cache on and off")
+        saved = 7 * n_pre + (n_pre - 1)
+        require(on["prefix_tokens_saved"] == saved,
+                f"prefix {kv}: saved {on['prefix_tokens_saved']} != {saved}")
+        require(on["prefill_tokens"] + on["prefix_tokens_saved"]
+                == off["prefill_tokens"], f"prefix {kv}: prefill identity")
+        for r in (off, on):
+            del r["streams"]
+        out[kv] = {"off": off, "on": on, "streams_identical": True}
+    del model
     torch.cuda.empty_cache()
     emit(out)
     return out
@@ -822,6 +1226,7 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": f32["max_abs_err"],
             "max_abs_err_bf16": b16["max_abs_err"],
+            "rel_err_bf16": b16.get("rel_err"),
             "ms": f32["ms"], "kernel_ms": f32["ms"],
             "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
@@ -888,8 +1293,11 @@ def main():
                     if "registers" in ln or "spill" in ln]})
 
     span = phase_span(torch, F, ra)
+    span8 = phase_span(torch, F, ra, quant=True)
     decode = phase_decode(torch, F, ra)
     gpt2 = phase_gpt2(torch, ra, card)
+    gpt2_int8 = phase_gpt2_int8(torch, ra, card, gpt2)
+    phase_prefix(torch, ra, card)
     fused = phase_fused(torch, F, fa)
     bert = phase_bert(torch, fa, card)
 
@@ -897,6 +1305,8 @@ def main():
                             res["float32"], res["bfloat16"], card)
                for name, res in (("ragged_span_attention", span),
                                  ("ragged_decode_attention", decode))]
+    kernels.append(kernel_entry(INT8, SOURCE, gpt2_int8["launches"][INT8],
+                                span8["float32"], span8["bfloat16"], card))
     kernels += fused_entries(fused, bert["launches"], card)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

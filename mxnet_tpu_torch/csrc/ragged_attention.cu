@@ -1,10 +1,15 @@
 // Ragged paged attention for the serving engine: the span kernel (any
-// number of live query rows per slot) and the single-query decode
-// kernel, for float32 and bfloat16 page pools.
+// number of live query rows per slot) over float32, bfloat16 or int8
+// page pools, and the single-query decode kernel over float pools.
 //
 // Replaces the Pallas TPU kernels of mxnet_tpu/ops/pallas_attention.py:
-//   ragged_span_kernel   <- _ragged_span_kernel   (ragged_span_attention)
-//   ragged_decode_kernel <- _ragged_decode_kernel (ragged_decode_attention)
+//   ragged_span_kernel<T, T>      <- _ragged_span_kernel
+//                                    (ragged_span_attention)
+//   ragged_span_kernel<T, int8_t> <- _ragged_span_quant_kernel
+//                                    (ragged_span_attention(k_scale=,
+//                                    v_scale=))
+//   ragged_decode_kernel          <- _ragged_decode_kernel
+//                                    (ragged_decode_attention)
 //
 // Layouts (all contiguous):
 //   q          (B, Sq, H, D) span, (B, H, D) decode
@@ -12,6 +17,9 @@
 //   page_table (B, P) int32   physical page of each slot's logical page
 //   lengths    (B,) int32     live keys of query row 0, its own included
 //   q_counts   (B,) int32     live query rows per slot (span only)
+//   k/v scale  (>= N, H) f32  int8 pools only: the dequant scale of each
+//                             (physical page, head); row N and beyond
+//                             (the cache's trash page) are never read
 //   out        like q, in q's dtype
 // Query row j of slot b attends key positions < lengths[b] + j. Rows at
 // or past q_counts[b] are dead and come out as exact zeros; a slot with
@@ -31,9 +39,20 @@
 // staged once in shared memory and reused by every row of the tile.
 // The products are plain FMA loops; wgmma, TMA, split-K over pages and
 // vectorised loads are later work.
+//
+// int8 pools: the page is read from HBM as one byte per element and
+// widened to f32 times its (page, head) scale while it is staged into
+// shared memory, so the traffic that bounds the kernel shrinks 4x
+// against float32 pages and everything after staging (scores, online
+// softmax, P.V with p kept in f32) is the float kernel's math. The scale
+// is looked up through the page table (the physical page), as the
+// Pallas kernel does with its remapped page index. q keeps its own
+// dtype; it is never cast to the pool's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -52,6 +71,9 @@ constexpr int DEC_WARPS = DEC_THREADS / 32;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -79,29 +101,45 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Stage one page's (S, D) slices of head h into shared memory as f32.
 // K rows are padded to D + 1 floats so that lanes reading different
-// rows at the same column hit different banks.
-template <typename T>
+// rows at the same column hit different banks. int8 pages (TP = int8_t)
+// are dequantized here: code * scale[page, h], one f32 multiply each,
+// as the plain version does on its gathered view. Loads are scalar, so
+// any D (40 included) needs no tail.
+template <typename TP>
 __device__ __forceinline__ void stage_page(
-    const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+    const TP* __restrict__ k_pages, const TP* __restrict__ v_pages,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     int page, int h, int S, int H, int D, float* k_s, float* v_s,
     int tid, int nthreads) {
   const size_t base = ((size_t)page * S * H + h) * D;
   const size_t row_stride = (size_t)H * D;
+  float ks = 1.f, vs = 1.f;
+  if constexpr (std::is_same<TP, int8_t>::value) {
+    ks = k_scale[(size_t)page * H + h];
+    vs = v_scale[(size_t)page * H + h];
+  }
   for (int i = tid; i < S * D; i += nthreads) {
     const int s = i / D, d = i - s * D;
     const size_t g = base + (size_t)s * row_stride + d;
-    k_s[s * (D + 1) + d] = to_f32(k_pages[g]);
-    v_s[s * D + d] = to_f32(v_pages[g]);
+    if constexpr (std::is_same<TP, int8_t>::value) {
+      k_s[s * (D + 1) + d] = to_f32(k_pages[g]) * ks;
+      v_s[s * D + d] = to_f32(v_pages[g]) * vs;
+    } else {
+      k_s[s * (D + 1) + d] = to_f32(k_pages[g]);
+      v_s[s * D + d] = to_f32(v_pages[g]);
+    }
   }
 }
 
 // One block per (slot b, head h, tile of SPAN_ROWS query rows); each
 // warp owns ROWS_PER_WARP rows of the tile and keeps their running
-// max, denominator and D-wide accumulator in registers.
-template <typename T>
+// max, denominator and D-wide accumulator in registers. T is q's and
+// the output's type, TP the pools' (T itself, or int8_t with scales).
+template <typename T, typename TP>
 __global__ void __launch_bounds__(SPAN_THREADS) ragged_span_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ page_table,
+    const T* __restrict__ q, const TP* __restrict__ k_pages,
+    const TP* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ page_table,
     const int* __restrict__ lengths, const int* __restrict__ q_counts,
     T* __restrict__ out, int Sq, int H, int D, int S, int P,
     float scale) {
@@ -153,8 +191,8 @@ __global__ void __launch_bounds__(SPAN_THREADS) ragged_span_kernel(
 
   for (int p = 0; p < n_pages; ++p) {
     __syncthreads();  // the previous page is fully consumed
-    stage_page<T>(k_pages, v_pages, table_b[p], h, S, H, D, k_s, v_s, tid,
-                  SPAN_THREADS);
+    stage_page<TP>(k_pages, v_pages, k_scale, v_scale, table_b[p], h, S, H,
+                   D, k_s, v_s, tid, SPAN_THREADS);
     __syncthreads();
     const int col0 = p * S;
 #pragma unroll
@@ -266,8 +304,8 @@ __global__ void __launch_bounds__(DEC_THREADS) ragged_decode_kernel(
 
   for (int p = 0; p < n_pages; ++p) {
     __syncthreads();
-    stage_page<T>(k_pages, v_pages, table_b[p], h, S, H, D, k_s, v_s, tid,
-                  DEC_THREADS);
+    stage_page<T>(k_pages, v_pages, nullptr, nullptr, table_b[p], h, S, H,
+                  D, k_s, v_s, tid, DEC_THREADS);
     __syncthreads();
     const int col0 = p * S;
     float mx = NEG_INF;
@@ -324,21 +362,22 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
+template <typename T, typename TP>
 int launch_span(const void* q, const void* k_pages, const void* v_pages,
+                const float* k_scale, const float* v_scale,
                 const int* page_table, const int* lengths,
                 const int* q_counts, void* out, int B, int Sq, int H,
                 int D, int S, int P, float scale, cudaStream_t stream) {
   if (D < 1 || D > MAX_D || S < 1) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
   const size_t smem = span_smem_bytes(D, S);
-  cudaError_t err = allow_smem(ragged_span_kernel<T>, smem);
+  cudaError_t err = allow_smem(ragged_span_kernel<T, TP>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Sq + SPAN_ROWS - 1) / SPAN_ROWS);
-  ragged_span_kernel<T><<<grid, SPAN_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), page_table, lengths, q_counts,
-      static_cast<T*>(out), Sq, H, D, S, P, scale);
+  ragged_span_kernel<T, TP><<<grid, SPAN_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TP*>(k_pages),
+      static_cast<const TP*>(v_pages), k_scale, v_scale, page_table,
+      lengths, q_counts, static_cast<T*>(out), Sq, H, D, S, P, scale);
   return (int)cudaGetLastError();
 }
 
@@ -377,11 +416,36 @@ int mxt_ragged_span(const void* q, const void* k_pages, const void* v_pages,
   const int* qc = static_cast<const int*>(q_counts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_span<float>(q, k_pages, v_pages, tbl, lens, qc, out, B, Sq,
-                              H, D, S, P, scale, st);
+    return launch_span<float, float>(q, k_pages, v_pages, nullptr, nullptr,
+                                     tbl, lens, qc, out, B, Sq, H, D, S, P,
+                                     scale, st);
   if (dtype == 1)
-    return launch_span<__nv_bfloat16>(q, k_pages, v_pages, tbl, lens, qc, out,
-                                      B, Sq, H, D, S, P, scale, st);
+    return launch_span<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, tbl, lens, qc, out, B, Sq, H,
+        D, S, P, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 pools with (>= N, H) f32 scales; dtype is q's (and the output's).
+int mxt_ragged_span_quant(const void* q, const void* k_pages,
+                          const void* v_pages, const void* k_scale,
+                          const void* v_scale, const void* page_table,
+                          const void* lengths, const void* q_counts,
+                          void* out, int B, int Sq, int H, int D, int S,
+                          int P, float scale, int dtype, void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* tbl = static_cast<const int*>(page_table);
+  const int* lens = static_cast<const int*>(lengths);
+  const int* qc = static_cast<const int*>(q_counts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_span<float, int8_t>(q, k_pages, v_pages, ks, vs, tbl, lens,
+                                      qc, out, B, Sq, H, D, S, P, scale, st);
+  if (dtype == 1)
+    return launch_span<__nv_bfloat16, int8_t>(q, k_pages, v_pages, ks, vs,
+                                              tbl, lens, qc, out, B, Sq, H,
+                                              D, S, P, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,6 +10,8 @@ writes its rows at its own length (`PagedKVCache.write_decode`) and
 attends over its own pages through the ragged attention kernels: one
 query row per slot goes to `ragged_decode_attention`, anything else to
 `ragged_span_attention` with the cache's per-slot `spans` as q_counts.
+A quantized (int8) cache sends every call, one row included, to
+`ragged_span_attention` with the layer's scales, and q keeps its dtype.
 
 Not ported yet: the `cache=None` training forward (fused attention
 kernels), the lockstep KVCache path, `generate()`, LoRA adapters and
@@ -113,16 +115,22 @@ class GPT2Attention(nn.Module):
                                    v.transpose(1, 2))
         kp, vp = cache.k_pages[layer_idx], cache.v_pages[layer_idx]
         # query 0's own (just written) position counts toward the length;
-        # q is cast to the pool dtype and the output back
+        # over float pools q is cast to the pool dtype and the output
+        # back. int8 pools keep q in its own dtype (a cast would destroy
+        # it) and pass the layer's scales; t == 1 takes the span kernel
+        # too, as in the reference (there is no int8 decode kernel)
         lengths = cache.length + 1
-        if t == 1:
+        quant = cache.quantized
+        if t == 1 and not quant:
             out = ragged_decode_attention(
                 q[:, 0].to(kp.dtype), kp, vp, cache.page_table, lengths,
                 impl=cache.attn_impl)
         else:
             out = ragged_span_attention(
-                q.to(kp.dtype), kp, vp, cache.page_table, lengths,
-                q_counts=cache.spans, impl=cache.attn_impl)
+                q if quant else q.to(kp.dtype), kp, vp, cache.page_table,
+                lengths, q_counts=cache.spans, impl=cache.attn_impl,
+                k_scale=cache.k_scale[layer_idx] if quant else None,
+                v_scale=cache.v_scale[layer_idx] if quant else None)
         out = out.to(q.dtype).reshape(b, t, h * d)
         return self.proj(out), cache
 

@@ -1,4 +1,4 @@
-"""Paged KV cache, ragged float mode: the serving engine's cache.
+"""Paged KV cache, ragged mode: the serving engine's cache.
 
 Counterpart of mxnet_tpu/models/kv_cache.py `PagedKVCache`. A static
 page pool (L, num_pages, page_size, H, D) per k and v, a per-slot page
@@ -6,6 +6,15 @@ table (B, pages_per_slot), and a (B,) vector of live lengths, one per
 slot (the ragged mode of continuous batching). Writes go through
 `write_decode` (each slot appends at its own length) and attention reads
 the pools directly through ops.ragged_attention.
+
+Quantized pages (`kv_dtype="int8"`): int8 code pools plus float32
+per-(layer, page, head) scale leaves `k_scale`/`v_scale`. Writes quantize
+against a MONOTONE scale — position i's scale is the larger of its
+page's current scale and the running same-page absmax / 127 through i —
+so written codes are never re-rounded and are a pure function of the
+token stream, whatever the chunking. Attention dequantizes each page
+where it reads it (the int8 span kernel, or the plain version on the
+gathered view).
 
 Differences from the JAX class, both deliberate:
 
@@ -19,7 +28,8 @@ Differences from the JAX class, both deliberate:
     pools for its whole life, so nothing needs the old values.
 
 Not ported yet (they raise): the lockstep (scalar length) write and
-write_prompt, int8 pages (kv_dtype), and the contiguous KVCache.
+write_prompt, the contiguous KVCache, and the host tier's whole-page
+gather/scatter (gather_kv_pages / scatter_kv_pages).
 """
 from __future__ import annotations
 
@@ -50,7 +60,8 @@ class KVCache:
 
 class PagedKVCache:
     def __init__(self, k_pages, v_pages, page_table, length,
-                 page_lock=None, spans=None, attn_impl="auto"):
+                 page_lock=None, spans=None, k_scale=None, v_scale=None,
+                 attn_impl="auto"):
         if attn_impl not in _ATTN_IMPLS:
             raise MXNetError(f"attn_impl must be one of {_ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
@@ -65,6 +76,11 @@ class PagedKVCache:
         # dispatch (decode 1, prefill chunk C, idle 0); dead rows neither
         # write KV nor attend
         self.spans = spans
+        # optional (L, num_pages + 1, H) f32: per-(page, head) dequant
+        # scales of int8 pools (the last row belongs to the trash page);
+        # None on float caches
+        self.k_scale = k_scale
+        self.v_scale = v_scale
         self.attn_impl = attn_impl
 
     @classmethod
@@ -72,8 +88,9 @@ class PagedKVCache:
                dtype=torch.float32, page_size=64, num_pages=None,
                page_table=None, lengths=None, attn_impl="auto",
                kv_dtype=None, device=None):
-        if kv_dtype is not None:
-            raise not_ported("PagedKVCache(kv_dtype=...)")
+        if kv_dtype not in (None, "int8", torch.int8):
+            raise MXNetError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         if lengths is None:
             raise not_ported("the lockstep (scalar length) PagedKVCache")
         dev = resolve_device(device)
@@ -98,12 +115,23 @@ class PagedKVCache:
                     f"but only pages [0, {num_pages}) exist")
         # + 1: the trash page that dropped writes land in
         shape = (num_layers, num_pages + 1, page_size, num_heads, head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=dev),
-                   torch.zeros(shape, dtype=dtype, device=dev),
+        store = dtype if kv_dtype is None else torch.int8
+        scales = (None, None)
+        if kv_dtype is not None:
+            sshape = (num_layers, num_pages + 1, num_heads)
+            scales = (torch.zeros(sshape, dtype=torch.float32, device=dev),
+                      torch.zeros(sshape, dtype=torch.float32, device=dev))
+        return cls(torch.zeros(shape, dtype=store, device=dev),
+                   torch.zeros(shape, dtype=store, device=dev),
                    torch.as_tensor(tbl, dtype=torch.int32, device=dev),
                    torch.as_tensor(_host(lengths), dtype=torch.int32,
                                    device=dev),
+                   k_scale=scales[0], v_scale=scales[1],
                    attn_impl=attn_impl)
+
+    @property
+    def quantized(self):
+        return self.k_scale is not None
 
     @property
     def ragged(self):
@@ -121,12 +149,45 @@ class PagedKVCache:
     def max_length(self):
         return self.page_table.shape[1] * self.page_size
 
+    def _quant_encode(self, x_t, pages, page_idx, scale, layer):
+        """Quantize an append chunk against the monotone page scales.
+
+        x_t (B, t, H, D) float activations; pages (B, t) physical page
+        per position (num_pages = the trash page: a dropped row);
+        page_idx (B, t) logical page per position; scale the (L, N + 1,
+        H) leaf. Position i's scale is max(old page scale, running
+        same-page absmax * (1/127) through i) — a running max, not the
+        chunk max, so the codes of given values do not depend on how the
+        stream was cut into chunks. Dropped rows count as 0 and cannot
+        raise a live page's scale. Returns (codes int8 (B, t, H, D),
+        scale used f32 (B, t, H))."""
+        N = self.num_pages
+        xf = x_t.float()
+        live = pages < N                               # (B, t)
+        a = xf.abs().amax(dim=-1)                      # (B, t, H)
+        a = torch.where(live[..., None], a, torch.zeros_like(a))
+        t = x_t.shape[1]
+        i = torch.arange(t, device=x_t.device)
+        same = (page_idx[:, :, None] == page_idx[:, None, :]) \
+            & (i[None, :, None] >= i[None, None, :])   # (B, i, j): j <= i
+        run = torch.where(same[..., None], a[:, None, :, :],
+                          torch.zeros((), device=a.device)).amax(dim=2)
+        s_old = scale[layer][pages]            # dropped rows read the trash
+        s_old = torch.where(live[..., None], s_old, torch.zeros_like(s_old))
+        s = torch.maximum(s_old, run * (1.0 / 127.0))
+        q = torch.where(s[..., None] > 0, xf / s[..., None],
+                        torch.zeros_like(xf))
+        q = torch.clamp(torch.round(q), -127, 127).to(torch.int8)
+        return q, s
+
     def write_decode(self, layer, k_new, v_new):
         """Each slot appends its rows at its OWN length: k_new/v_new
         (B, H, t, D), row j of slot b lands at position length[b] + j
         through the page table. Writes past capacity, rows past `spans`
         and writes into pages under `page_lock` are dropped (sent to the
-        trash page). Updates the pools in place; returns self."""
+        trash page). A quantized cache stores int8 codes and raises each
+        written page's scales with a scatter-max (never lowering one).
+        Updates the pools in place; returns self."""
         if not self.ragged:
             raise not_ported("the lockstep (scalar length) cache write")
         B, _, t, _ = k_new.shape
@@ -149,8 +210,24 @@ class PagedKVCache:
             locked = self.page_lock[pages.clamp(max=N - 1)] & (pages < N)
             pages = torch.where(locked, trash, pages)
         kp, vp = self.k_pages[layer], self.v_pages[layer]
-        kp[pages, slot] = k_new.transpose(1, 2).to(kp.dtype)
-        vp[pages, slot] = v_new.transpose(1, 2).to(vp.dtype)
+        k_t, v_t = k_new.transpose(1, 2), v_new.transpose(1, 2)
+        if self.quantized:
+            qk, sk = self._quant_encode(k_t, pages, page_idx,
+                                        self.k_scale, layer)
+            qv, sv = self._quant_encode(v_t, pages, page_idx,
+                                        self.v_scale, layer)
+            kp[pages, slot] = qk
+            vp[pages, slot] = qv
+            # scatter-max: duplicate pages of one chunk keep the largest,
+            # and an existing scale is never lowered
+            flat, H = pages.reshape(-1), sk.shape[-1]
+            self.k_scale[layer].index_reduce_(0, flat, sk.reshape(-1, H),
+                                              "amax", include_self=True)
+            self.v_scale[layer].index_reduce_(0, flat, sv.reshape(-1, H),
+                                              "amax", include_self=True)
+            return self
+        kp[pages, slot] = k_t.to(kp.dtype)
+        vp[pages, slot] = v_t.to(vp.dtype)
         return self
 
     def write(self, *args, **kwargs):
@@ -162,7 +239,8 @@ class PagedKVCache:
     def advance(self, n):
         return PagedKVCache(self.k_pages, self.v_pages, self.page_table,
                             self.length + n, page_lock=self.page_lock,
-                            spans=self.spans, attn_impl=self.attn_impl)
+                            spans=self.spans, k_scale=self.k_scale,
+                            v_scale=self.v_scale, attn_impl=self.attn_impl)
 
     def key_mask(self, extra=0):
         """(B, max_length) bool: True for written positions (+ `extra`

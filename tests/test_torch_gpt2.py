@@ -141,9 +141,11 @@ def test_cache_create_refuses_bad_geometry_and_unported_modes():
                             page_table=[[0, 1], [2, 9]], device="cpu")
     with pytest.raises(MXNetError, match="not ported"):
         PagedKVCache.create(1, 2, 1, 8, 2, page_size=4, device="cpu")
-    with pytest.raises(MXNetError, match="not ported"):
+    # int8 pages are ported (tests/test_torch_quant_kv.py); any other
+    # kv_dtype is refused, as by the reference
+    with pytest.raises(MXNetError, match="kv_dtype"):
         PagedKVCache.create(1, 2, 1, 8, 2, page_size=4, lengths=[0, 0],
-                            kv_dtype="int8", device="cpu")
+                            kv_dtype="bfloat16", device="cpu")
     with pytest.raises(MXNetError):
         PagedKVCache.create(1, 2, 1, 8, 2, page_size=4, lengths=[0, 0],
                             attn_impl="xla", device="cpu")

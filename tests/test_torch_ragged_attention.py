@@ -153,7 +153,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     plain = ra.ragged_span_attention(*args, impl="torch")
     assert torch.equal(auto, plain)
     assert ra.LAUNCHES == {"ragged_span_attention": 0,
-                           "ragged_decode_attention": 0}
+                           "ragged_decode_attention": 0,
+                           "ragged_span_attention_int8": 0}
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas", "cuda"])

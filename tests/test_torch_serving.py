@@ -220,10 +220,9 @@ def test_prefill_chunk_budget_round_robins_concurrent_prompts(pair):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option,value", [
-    ("prefix_cache", True), ("speculative", True), ("kv_dtype", "int8"),
-    ("weight_dtype", "int8"), ("tp", 2), ("adapter_pool", object()),
-    ("policy", object()), ("host_kv_bytes", 1 << 20),
-    ("hbm_budget_bytes", 1 << 30)])
+    ("speculative", True), ("weight_dtype", "int8"), ("tp", 2),
+    ("adapter_pool", object()), ("policy", object()),
+    ("host_kv_bytes", 1 << 20)])
 def test_unported_engine_options_raise(pair, option, value):
     _, net = pair
     with pytest.raises(MXNetError, match="not ported"):
