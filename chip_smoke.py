@@ -69,16 +69,21 @@ script then exits non-zero without the final `ok` line):
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
               valid lengths U[384, 512], dropout 0.1) in BTHD and in
               BHTD, at GPT-2 774M causal shapes (B=8, T=1024, H=20, D=64,
-              dropout 0.1, BTHD), float32 (forward 1e-5 absolute,
-              gradients 1e-4 relative to the largest) and bfloat16
-              (forward and gradients 1.2e-2 relative to the largest),
-              plus edge cases (a fully padded batch row, causal Tq < Tk,
-              D = 40 and 128, T off the 64 grid, T = 1100 past the
-              reference's whole-row limit); every call must pass
-              fused_attention.supported(), the gate dot_product_attention
-              routes by; forward and backward times of kernel, plain
-              version and the F.scaled_dot_product_attention yardstick,
-              and the bound.
+              dropout 0.1, BTHD), float32 through the CUDA-core kernels
+              (forward 1e-5 absolute, gradients 1e-4 relative to the
+              largest) and bfloat16 through the tensor-core kernels
+              (forward and gradients 1.2e-2 relative to the largest), plus
+              edge cases (a fully padded batch row, causal Tq < Tk, D = 40
+              and 128, T off the 64 grid, T = 1100 past the reference's
+              whole-row limit, D = 12, which the route rule sends to the
+              CUDA-core kernels in bfloat16); every call must pass
+              fused_attention.supported(), launch the family
+              fused_attention.kernel_route() names (and count under its
+              keys alone), and in bfloat16 give bit-identical gradients in
+              two backward runs; forward and backward times of kernel,
+              plain version and the F.scaled_dot_product_attention
+              yardstick (and their ratio), and the bound; the CUDA-core
+              kernels in bfloat16 at the BERT-base cell, for the record.
   7. bert     BERT-base MLM training at full width (12 layers, 768 units,
               12 heads, 3072 hidden, vocab 30522, 512 positions; seeded
               random weights) through parallel.TrainStep with AdamW(1e-4,
@@ -86,22 +91,26 @@ script then exits non-zero without the final `ok` line):
               bench_bert traffic (B=32, T=512, 76 masked positions per
               row below its valid length, valid lengths U[384, 512],
               random labels): 5 float32 steps through the kernels (the
-              main path: fused forward and backward 12 times a step) and
+              main path in float32: the CUDA-core fused forward and
+              backward 12 times a step, the tensor-core pair never) and
               5 through the plain versions from the same weights and
               seed (losses agree within 1e-5 relative at every step);
               before them, one float32 forward and backward of each path
               with the same dropout stream: every parameter's gradient
               within 1e-4 of the largest gradient magnitude of the
               layer that owns it (this pins the backward through all
-              12 layers); then 20 timed bfloat16
-              steps (float32 masters) on
-              the kernel path — the loss must fall — with ms per step,
-              tokens/s, peak memory and bert_base_mlm_mfu; then one more
-              bfloat16 step under torch.profiler.
+              12 layers); then 20 timed bfloat16 steps (float32 masters)
+              on the kernel path (the main path in bfloat16: the
+              tensor-core pair 12 times a step, the CUDA-core pair
+              never) — the loss must fall — with ms per step, tokens/s,
+              peak memory and bert_base_mlm_mfu; then one more bfloat16
+              step under torch.profiler (the fused kernels' share of
+              device time).
   8. kernels  one line listing every ported kernel with its launches on
               its main path (phase 5 for the float ragged kernels, phase
-              5b for the int8 span kernel, phase 7's float32 kernel run
-              for the fused pair), errors, times and bound.
+              5b for the int8 span kernel, phase 7's float32 steps for
+              the CUDA-core fused pair, its bfloat16 steps for the
+              tensor-core pair), errors, times and bound.
 Then the last line: {"ok": true, "device": {...}}.
 """
 import json
@@ -119,9 +128,20 @@ PEAK_FLOPS = {"float32": 67e12,    # H100 SXM, outside the tensor cores
 # magnitude of the plain result: 1.5 units in the last place of it (bf16
 # spacing is at most 2**-7 of a value); both round once from float32
 BF16_REL_TOL = 1.2e-2
+# bfloat16 BERT-base, kernel path against plain path, one forward and
+# backward from the same weights and dropout stream (readings in PERF.md
+# section 6): each gradient's difference over its layer's largest
+# float32 gradient may reach this, or the plain path's own bfloat16
+# error against float32 where that is larger (a gradient summed over
+# every token, such as the token-type embedding's, cancels and keeps few
+# bits in bfloat16); the loss, taken in float32 from the logits, agrees
+# to this relative difference
+BF16_MODEL_GRAD_TOL = 5e-2
+BF16_MODEL_LOSS_TOL = 1e-4
 SOURCE = "mxnet_tpu_torch/csrc/ragged_attention.cu"
 INT8 = "ragged_span_attention_int8"
 FUSED_SOURCE = "mxnet_tpu_torch/csrc/fused_attention.cu"
+FUSED_TC_SOURCE = "mxnet_tpu_torch/csrc/fused_attention_tc.cu"
 REPLACES = {
     "ragged_span_attention":
         "mxnet_tpu/ops/pallas_attention.py:576 _ragged_span_kernel",
@@ -136,6 +156,9 @@ REPLACES = {
         "mxnet_tpu/ops/pallas_attention.py:224 _bwd_kernel_packed (BTHD); "
         "mxnet_tpu/ops/pallas_attention.py:120 _bwd_kernel (BHTD)",
 }
+# the tensor-core pair replaces the same Pallas bodies, for bfloat16
+REPLACES["fused_attention_fwd_tc"] = REPLACES["fused_attention_fwd"]
+REPLACES["fused_attention_bwd_tc"] = REPLACES["fused_attention_bwd"]
 GPT2_LAYERS = 36
 BERT_LAYERS = 12
 # phase 6 cells: (B, H, T, D, layout, causal, dropout); the BERT cells
@@ -145,13 +168,21 @@ FUSED_CELLS = {"bert_bthd": (32, 12, 512, 64, "BTHD", False, 0.1),
                "gpt2_774m_causal": (8, 20, 1024, 64, "BTHD", True, 0.1)}
 # edge cases (B, H, Tq, Tk, D, layout, causal, dropout, valid lengths): a
 # fully padded batch row, causal Tq < Tk, head dims 40 and 128, T off
-# the 64 grid, T past the reference's whole-row limit (MAX_FUSED_T)
+# the 64 grid, T past the reference's whole-row limit (MAX_FUSED_T), and
+# head dim 12, whose 24-byte rows send bfloat16 to the CUDA-core kernels
+# (padded keys BTHD, and causal Tq < Tk BHTD)
 FUSED_EDGES = [(3, 2, 200, 200, 64, "BTHD", False, 0.1, [0, 150, 200]),
                (2, 3, 100, 200, 64, "BHTD", True, 0.1, None),
                (2, 3, 130, 130, 40, "BTHD", False, 0.1, [77, 130]),
                (2, 2, 130, 130, 128, "BTHD", True, 0.1, None),
                (2, 2, 70, 70, 128, "BHTD", False, 0.0, [70, 1]),
-               (1, 2, 1100, 1100, 64, "BTHD", False, 0.1, [700])]
+               (1, 2, 1100, 1100, 64, "BTHD", False, 0.1, [700]),
+               (2, 3, 90, 90, 12, "BTHD", False, 0.1, [0, 90]),
+               (2, 3, 70, 150, 12, "BHTD", True, 0.1, None)]
+# launch-count keys of each kernel family, forward and backward
+FAMILY_KEYS = {"tensor_core": ("fused_attention_fwd_tc",
+                               "fused_attention_bwd_tc"),
+               "cuda_core": ("fused_attention_fwd", "fused_attention_bwd")}
 # phase 7 traffic (bench.py bench_bert): batch, sequence, masked per row
 BERT_TRAFFIC = dict(B=32, T=512, M=76)
 DEV = "cuda"
@@ -422,31 +453,52 @@ def phase_decode(torch, F, ra):
 # phase 6: the fused training attention against its plain version
 # ---------------------------------------------------------------------------
 
-def fused_work(B, H, Tq, Tk, D, itemsize, causal):
-    """(forward, backward) x (bytes, flops) of fused attention: q, k, v
-    (and bias) read once and o written once forward; q, k, v, dO read and
-    dq, dk, dv written once backward; 4·D flops per (query, key) pair
-    forward and 10·D backward, half the pairs when causal."""
-    pairs = B * H * Tq * Tk // (2 if causal else 1)
-    q_bytes, kv_bytes = B * Tq * H * D * itemsize, B * Tk * H * D * itemsize
+def fused_work(B, H, Tq, Tk, D, itemsize, causal, lens):
+    """(forward, backward) x (bytes, flops) of fused attention on these
+    inputs, counting only what the function needs: a (query, key) pair
+    only where the key is live (below the batch row's valid length in
+    `lens`, all Tk when None) and, when causal, at or below the query's
+    diagonal (key <= query + Tk - Tq); the K and V rows of live keys and
+    the q and dO rows with at least one live pair read once, the bias
+    read once, o forward and dq, dk, dv backward written whole; 4·D flops
+    a pair forward and 10·D backward."""
+    off = Tk - Tq
+    pairs = live_q = live_kv = 0
+    for b in range(B):
+        n = Tk if lens is None else lens[b]
+        seen = [min(max(i + off + 1, 0), n) if causal else n
+                for i in range(Tq)]
+        pairs += sum(seen)
+        live_q += sum(1 for x in seen if x > 0)
+        live_kv += max(seen, default=0)
+    row = H * D * itemsize
+    q_in, kv_in = live_q * row, live_kv * row
+    q_out, kv_out = B * Tq * row, B * Tk * row
+    pairs *= H
     bias = B * Tk * 4
-    return ((2 * q_bytes + 2 * kv_bytes + bias, 4 * D * pairs),
-            (3 * q_bytes + 4 * kv_bytes + bias, 10 * D * pairs))
+    return ((q_in + 2 * kv_in + bias + q_out, 4 * D * pairs),
+            (2 * q_in + 2 * kv_in + bias + q_out + 2 * kv_out,
+             10 * D * pairs))
 
 
 def fused_case(torch, F, fa, B, H, Tq, Tk, D, layout, causal, p, lens,
-               dtype, seed, timed):
+               dtype, seed, timed, pad=0):
     """Kernel against plain version on one set of inputs: forward output
-    and the three gradients; with `timed`, forward and backward times of
-    the kernel, the plain version and F.scaled_dot_product_attention."""
+    and the three gradients, the kernel family that ran (each launch
+    counted under its key, the other family's keys untouched), and for
+    bfloat16 whether two backward runs agree bit for bit; with `timed`,
+    forward and backward times of the kernel, the plain version and
+    F.scaled_dot_product_attention. `pad` > 0 lays q, k, v out as
+    slices of rows D + pad elements apart."""
     rng = np.random.default_rng(seed)
 
-    def shape(t):
-        return (B, t, H, D) if layout == "BTHD" else (B, H, t, D)
+    def shape(t, d=D):
+        return (B, t, H, d) if layout == "BTHD" else (B, H, t, d)
 
     def leaf(t):
-        return torch.tensor(rng.standard_normal(shape(t)), dtype=dtype,
-                            device=DEV, requires_grad=True)
+        x = torch.tensor(rng.standard_normal(shape(t, D + pad)), dtype=dtype,
+                         device=DEV)[..., :D]
+        return x.detach().requires_grad_(True)
     q, k, v = leaf(Tq), leaf(Tk), leaf(Tk)
     do = torch.tensor(rng.standard_normal(shape(Tq)), dtype=dtype,
                       device=DEV)
@@ -459,6 +511,9 @@ def fused_case(torch, F, fa, B, H, Tq, Tk, D, layout, causal, p, lens,
     # the gate dot_product_attention routes by must take every call here
     require(fa.supported(q, k, mask, layout=layout),
             f"{name}: supported() refuses a call the kernel takes")
+    route = fa.kernel_route(q, k, v, layout)
+    require(route == "cuda_core" or dtype == torch.bfloat16,
+            f"{name}: float32 routed to {route}")
 
     def run(impl):
         return fa.fused_attention(q, k, v, mask=mask, causal=causal,
@@ -466,8 +521,14 @@ def fused_case(torch, F, fa, B, H, Tq, Tk, D, layout, causal, p, lens,
                                   impl=impl)
     res = {}
     for impl in ("auto", "torch"):
+        fa.reset_launches()
         o = run(impl)
         res[impl] = (o, torch.autograd.grad(o, (q, k, v), do))
+        launches = dict(fa.LAUNCHES)
+        want = dict.fromkeys(launches, 0)
+        if impl == "auto":
+            want.update(dict.fromkeys(FAMILY_KEYS[route], 1))
+        require(launches == want, f"{name} impl={impl}: launches {launches}")
     torch.cuda.synchronize()
     (o, g), (o_ref, g_ref) = res["auto"], res["torch"]
     err = (o.float() - o_ref.float()).abs().max().item()
@@ -488,15 +549,23 @@ def fused_case(torch, F, fa, B, H, Tq, Tk, D, layout, causal, p, lens,
         b = lens.index(0)
         require(bool((o[b] == 0).all()),
                 f"{name}: the fully padded batch row is not exactly 0")
-    out = {"max_abs_err": err, "rel_err": rel, "tol": tol,
+    out = {"route": route, "max_abs_err": err, "rel_err": rel, "tol": tol,
            "tol_kind": "absolute" if f32 else "relative",
            "grad_max_abs_err": gabs, "grad_rel_err": grel, "grad_tol": gtol}
+    if not f32:
+        # the backward is deterministic: no atomics, a fixed sum order
+        g2 = torch.autograd.grad(run("auto"), (q, k, v), do)
+        out["bwd_bit_identical"] = all(bool(torch.equal(a, b))
+                                       for a, b in zip(g, g2))
+        require(out["bwd_bit_identical"],
+                f"{name}: two backward runs differ")
+        del g2
     if not timed:
         return out
     del res
     name_t = "float32" if dtype == torch.float32 else "bfloat16"
     (fb, ff), (bb, bf) = fused_work(B, H, Tq, Tk, D, q.element_size(),
-                                    causal)
+                                    causal, lens)
     out["bound_ms"], out["bound_by"] = bound(fb, ff, name_t)
     out["bwd_bound_ms"], out["bwd_bound_by"] = bound(bb, bf, name_t)
     out.update(bytes=fb, flops=ff, bwd_bytes=bb, bwd_flops=bf)
@@ -522,6 +591,8 @@ def fused_case(torch, F, fa, B, H, Tq, Tk, D, layout, causal, p, lens,
     o = sdpa()
     out["library_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
         o, bhtd, dob, retain_graph=True))
+    out["ms_over_library"] = out["ms"] / out["library_ms"]
+    out["bwd_ms_over_library"] = out["bwd_ms"] / out["library_bwd_ms"]
     del o, bhtd
     torch.cuda.empty_cache()
     return out
@@ -538,10 +609,28 @@ def phase_fused(torch, F, fa):
                                     causal=causal, dropout=p)}
         for dtype, name in ((torch.float32, "float32"),
                             (torch.bfloat16, "bfloat16")):
-            out[label][name] = fused_case(
-                torch, F, fa, B, H, T, T, D, layout, causal, p,
-                None if causal else lens, dtype, seed=20 + i, timed=True)
+            r = fused_case(torch, F, fa, B, H, T, T, D, layout, causal, p,
+                           None if causal else lens, dtype, seed=20 + i,
+                           timed=True)
+            require(r["route"] == ("cuda_core" if name == "float32"
+                                   else "tensor_core"),
+                    f"fused {label} {name}: routed to {r['route']}")
+            out[label][name] = r
+    # the CUDA-core kernels in bfloat16 at the BERT-base cell, untimed:
+    # rows 68 elements apart are off the 16-byte grid, so the route rule
+    # sends them there
+    B, H, T, D, layout, causal, p = FUSED_CELLS["bert_bthd"]
+    r = fused_case(torch, F, fa, B, H, T, T, D, layout, causal, p, lens,
+                   torch.bfloat16, seed=20, timed=False, pad=4)
+    require(r["route"] == "cuda_core", "padded rows took the tensor cores")
+    out["bert_bthd"]["bfloat16_cuda_core"] = r
+    # (route, layout, causal) of every bfloat16 call held to the plain
+    # version: each family must cover both layouts, causal and not
+    covered = {(out[c]["bfloat16"]["route"], cell[4], cell[5])
+               for c, cell in FUSED_CELLS.items()}
+    covered.add(("cuda_core", layout, causal))
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    routes = []
     for i, args in enumerate(FUSED_EDGES):
         for dtype, name in ((torch.float32, "float32"),
                             (torch.bfloat16, "bfloat16")):
@@ -550,8 +639,19 @@ def phase_fused(torch, F, fa):
             worst[name] = max(worst[name], r["max_abs_err"] if name ==
                               "float32" else r["rel_err"],
                               max(r["grad_rel_err"]))
+            if name == "bfloat16":
+                routes.append(r["route"])
+                covered.add((r["route"], args[5], args[6]))
+    for family in FAMILY_KEYS:
+        mine = sorted((lay, c) for f, lay, c in covered if f == family)
+        require({lay for lay, _ in mine} == {"BTHD", "BHTD"}
+                and {c for _, c in mine} == {False, True},
+                f"bfloat16 calls on the {family} kernels cover only {mine}: "
+                "both layouts, causal and not, are required")
+        out[f"bf16_{family}_covers"] = mine
     out["edge_cases"] = len(FUSED_EDGES)
     out["edge_worst_err"] = worst
+    out["edge_routes_bf16"] = routes
     emit(out)
     return out
 
@@ -1107,16 +1207,33 @@ def phase_bert(torch, fa, card):
                            std=0.02), cfg
 
     def grads(model):
-        """One float32 forward and backward of the training loss in
-        train() mode, dropout drawn from a fixed generator: every
-        parameter's gradient (then cleared)."""
+        """One forward and backward of the training loss (from float32
+        logits) in train() mode, dropout drawn from a fixed generator: the
+        loss and every parameter's gradient (then cleared)."""
         model.train()
         with rng.generator_scope(rng.step_generator(0, 1, DEV)):
-            loss = SoftmaxCrossEntropyLoss()(model(*batch[:4]), batch[4])
-            loss.mean().backward()
+            loss = SoftmaxCrossEntropyLoss()(model(*batch[:4]).float(),
+                                             batch[4]).mean()
+            loss.backward()
         g = {n: p.grad for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
-        return g
+        return float(loss.detach()), g
+
+    def layer_top(g):
+        """The largest gradient magnitude of each layer (a Dense's weight
+        and bias together): the attention key biases' true gradient is 0
+        (a key bias shifts every score of a query alike), so on their own
+        both paths hold only noise."""
+        top = {}
+        for n, x in g.items():
+            owner = n.rsplit(".", 1)[0]
+            top[owner] = max(top.get(owner, 0.0), x.abs().max().item())
+        return top
+
+    def grad_rel(g_a, g_b, top):
+        """Each parameter's largest |g_a - g_b| over its layer's `top`."""
+        return {n: (g_a[n].float() - g.float()).abs().max().item()
+                / (top[n.rsplit(".", 1)[0]] or 1.0) for n, g in g_b.items()}
 
     def train(model, steps):
         rng.seed(0)        # the same dropout stream on every path
@@ -1141,16 +1258,16 @@ def phase_bert(torch, fa, card):
 
     # the main path: float32 through the kernels; launches counted here
     steps = 5
-    g_kernel = grads(model)
+    _, g_kernel = grads(model)
     fa.reset_launches()
     t0 = time.perf_counter()
     _, losses = train(model, steps)
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
-    for name in launches:
-        require(launches[name] == BERT_LAYERS * steps,
-                f"{name} launched {launches[name]} times, not "
-                f"{BERT_LAYERS} x {steps}")
+    want = {k: (BERT_LAYERS * steps if k in FAMILY_KEYS["cuda_core"] else 0)
+            for k in launches}
+    require(launches == want, f"float32 steps launched {launches}, not "
+            f"{BERT_LAYERS} x {steps} of the CUDA-core pair alone")
     out["launches"] = launches
     out["float32_kernel"] = {"losses": losses, "wall_s": wall,
                              "ms_per_step": wall / steps * 1e3}
@@ -1159,25 +1276,15 @@ def phase_bert(torch, fa, card):
 
     # the same steps through the plain versions, from the same weights
     model, _ = make(attention_impl="torch")
-    # each gradient's error over the largest gradient magnitude of the
-    # layer that owns it (a Dense's weight and bias together): the
-    # attention key biases' true gradient is 0 (a key bias shifts every
-    # score of a query alike), so on their own both paths hold only noise
-    g_plain = grads(model)
-    top = {}
-    for n, g in g_plain.items():
-        owner = n.rsplit(".", 1)[0]
-        top[owner] = max(top.get(owner, 0.0), g.abs().max().item())
-    g_rel = {n: (g_kernel[n] - g).abs().max().item()
-             / (top[n.rsplit(".", 1)[0]] or 1.0) for n, g in g_plain.items()}
-    del g_kernel, g_plain
-    worst = max(g_rel, key=g_rel.get)
-    require(g_rel[worst] <= 1e-4, f"float32 gradient of {worst} differs by "
-            f"{g_rel[worst]} of its layer's largest gradient")
-    out["float32_grad_rel_err"] = {"worst": g_rel[worst],
-                                   "worst_param": worst,
-                                   "params": len(g_rel),
-                                   "tol": 1e-4}
+    _, g32 = grads(model)          # kept for the bfloat16 check below
+    top32 = layer_top(g32)
+    rel = grad_rel(g_kernel, g32, top32)
+    del g_kernel
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= 1e-4, f"float32 gradient of {worst} differs by "
+            f"{rel[worst]} of its layer's largest gradient")
+    out["float32_grad_rel_err"] = {"worst": rel[worst], "worst_param": worst,
+                                   "params": len(rel), "tol": 1e-4}
     t0 = time.perf_counter()
     _, plain = train(model, steps)
     wall = time.perf_counter() - t0
@@ -1194,15 +1301,29 @@ def phase_bert(torch, fa, card):
     # bfloat16 weights with float32 masters on the kernel path, timed
     model, _ = make()
     model.to(torch.bfloat16)
+    fa.reset_launches()
+    loss16, g16_kernel = grads(model)
+    once = dict(fa.LAUNCHES)
+    want = {k: (BERT_LAYERS if k in FAMILY_KEYS["tensor_core"] else 0)
+            for k in once}
+    require(once == want, f"a bfloat16 forward and backward launched "
+            f"{once}, not {BERT_LAYERS} of the tensor-core pair alone")
     torch.cuda.reset_peak_memory_stats()
     step, _ = train(model, 1)                       # warm-up
     n = 20
+    fa.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bl = [step(*batch) for _ in range(n)]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / n
     bl = [float(x) for x in bl]
+    launches16 = dict(fa.LAUNCHES)
+    want = {k: (BERT_LAYERS * n if k in FAMILY_KEYS["tensor_core"] else 0)
+            for k in launches16}
+    require(launches16 == want, f"bfloat16 steps launched {launches16}, "
+            f"not {BERT_LAYERS} x {n} of the tensor-core pair alone")
+    out["launches_bf16"] = launches16
     require(all(np.isfinite(bl)), f"non-finite bfloat16 losses {bl}")
     require(bl[-1] < bl[0], f"the bfloat16 loss did not fall: {bl}")
     flops_per_token = 6 * cfg.num_params() \
@@ -1214,9 +1335,46 @@ def phase_bert(torch, fa, card):
         / PEAK_FLOPS["bfloat16"],
         "achieved_tflops": flops_per_token * B * T / dt / 1e12,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    out["bfloat16_kernel_trace"] = trace_step(torch, step, batch)
+    trace = trace_step(torch, step, batch)
+    by_class = trace.get("device_ms_by_class", {})
+    if by_class:
+        trace["fused_attention_share"] = \
+            by_class.get("fused_attention", 0.0) / trace["device_ms"]
+    out["bfloat16_kernel_trace"] = trace
     del step, model
     torch.cuda.empty_cache()
+
+    # one bfloat16 forward and backward of the model on the plain path,
+    # from the same weights and dropout stream: the kernels' calls inside
+    # the model (their strides, dtypes and seeds) against the plain ones
+    model, _ = make(attention_impl="torch")
+    model.to(torch.bfloat16)
+    fa.reset_launches()
+    plain16, g16_plain = grads(model)
+    require(not any(fa.LAUNCHES.values()), "the plain path launched a kernel")
+    del model
+    diff = grad_rel(g16_kernel, g16_plain, top32)
+    own = grad_rel(g16_plain, g32, top32)      # the plain path's bf16 error
+    del g16_kernel, g16_plain, g32
+    torch.cuda.empty_cache()
+    limit = {n: max(BF16_MODEL_GRAD_TOL, own[n]) for n in diff}
+    worst = max(diff, key=lambda n: diff[n] / limit[n])
+    loss_rel = abs(loss16 - plain16) / abs(plain16)
+    out["bfloat16_grad_rel_err"] = {
+        "worst": diff[worst], "worst_param": worst,
+        "worst_limit": limit[worst], "largest": max(diff.values()),
+        "largest_param": max(diff, key=diff.get),
+        "over_tol_by_own_error": sorted(n for n in diff
+                                        if own[n] > BF16_MODEL_GRAD_TOL),
+        "plain_own_error_largest": max(own.values()), "params": len(diff),
+        "tol": BF16_MODEL_GRAD_TOL, "loss_kernel": loss16,
+        "loss_plain": plain16, "loss_rel_diff": loss_rel,
+        "loss_tol": BF16_MODEL_LOSS_TOL}
+    require(diff[worst] <= limit[worst], f"bfloat16 gradient of {worst} "
+            f"differs by {diff[worst]} of its layer's largest float32 "
+            f"gradient, over {limit[worst]}")
+    require(loss_rel <= BF16_MODEL_LOSS_TOL, f"bfloat16 losses {loss16} and "
+            f"{plain16} differ by {loss_rel} relative")
     emit(out)
     return out
 
@@ -1231,37 +1389,61 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
             "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
             "library_ms": f32["library_ms"],
-            "ms_bf16": b16["ms"], "plain_ms_bf16": b16["plain_ms"],
-            "bound_ms_bf16": b16["bound_ms"],
-            "library_ms_bf16": b16["library_ms"], "card": card, **extra}
+            "ms_bf16": b16.get("ms"), "plain_ms_bf16": b16.get("plain_ms"),
+            "bound_ms_bf16": b16.get("bound_ms"),
+            "library_ms_bf16": b16.get("library_ms"), "card": card, **extra}
 
 
-def fused_entries(fused, launches, card):
-    """The fused pair's two kernels-line entries: times at the BERT-base
-    BTHD cell (the main path's shape), the BHTD and GPT-2 cells beside."""
+def fused_entries(fused, launches, launches16, card):
+    """The fused kernels' four kernels-line entries at the BERT-base BTHD
+    cell (the main path's shape), the BHTD and GPT-2 cells beside: the
+    CUDA-core pair (float32; its bfloat16 errors from the untimed
+    padded-row run, its bfloat16 times null; launches from phase 7's
+    float32 kernel steps) and the tensor-core pair (bfloat16; launches
+    from phase 7's bfloat16 steps)."""
     main = fused["bert_bthd"]
     f32, b16 = main["float32"], main["bfloat16"]
-    fwd = kernel_entry(
-        "fused_attention_fwd", FUSED_SOURCE, launches["fused_attention_fwd"],
-        f32, b16, card,
-        other_cells={c: {t: fused[c][t]["ms"] for t in ("float32",
-                                                        "bfloat16")}
-                     for c in ("bert_bhtd", "gpt2_774m_causal")})
+    cells = ("bert_bhtd", "gpt2_774m_causal")
 
     def bwd_view(r):
         return {"max_abs_err": max(r["grad_max_abs_err"]),
-                "ms": r["bwd_ms"], "plain_ms": r["plain_bwd_ms"],
-                "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
-                "library_ms": r["library_bwd_ms"]}
-    bwd = kernel_entry(
-        "fused_attention_bwd", FUSED_SOURCE, launches["fused_attention_bwd"],
-        bwd_view(f32), bwd_view(b16), card,
-        grad_rel_err=max(f32["grad_rel_err"]),
-        grad_rel_err_bf16=max(b16["grad_rel_err"]),
-        other_cells={c: {t: fused[c][t]["bwd_ms"] for t in ("float32",
-                                                            "bfloat16")}
-                     for c in ("bert_bhtd", "gpt2_774m_causal")})
-    return [fwd, bwd]
+                "rel_err": max(r["grad_rel_err"]),
+                "ms": r.get("bwd_ms"), "plain_ms": r.get("plain_bwd_ms"),
+                "bound_ms": r.get("bwd_bound_ms"),
+                "bound_by": r.get("bwd_bound_by"),
+                "library_ms": r.get("library_bwd_ms")}
+
+    def other(dtype, key, lib_key):
+        return {c: {"ms": fused[c][dtype][key],
+                    "library_ms": fused[c][dtype][lib_key]} for c in cells}
+
+    def tc_entry(name, r, n, cells_):
+        return {"name": name, "route": "cuda", "source": FUSED_TC_SOURCE,
+                "replaces": REPLACES[name], "launches": n,
+                "dtype": "bfloat16", "max_abs_err": r["max_abs_err"],
+                "rel_err": r["rel_err"], "ms": r["ms"], "kernel_ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "ms_over_library": r["ms"] / r["library_ms"],
+                "card": card, "other_cells": cells_}
+    cc16 = main["bfloat16_cuda_core"]
+    return [
+        kernel_entry("fused_attention_fwd", FUSED_SOURCE,
+                     launches["fused_attention_fwd"], f32, cc16, card,
+                     other_cells=other("float32", "ms", "library_ms")),
+        kernel_entry("fused_attention_bwd", FUSED_SOURCE,
+                     launches["fused_attention_bwd"], bwd_view(f32),
+                     bwd_view(cc16), card,
+                     grad_rel_err=max(f32["grad_rel_err"]),
+                     grad_rel_err_bf16=max(cc16["grad_rel_err"]),
+                     other_cells=other("float32", "bwd_ms",
+                                       "library_bwd_ms")),
+        tc_entry("fused_attention_fwd_tc", b16,
+                 launches16["fused_attention_fwd_tc"],
+                 other("bfloat16", "ms", "library_ms")),
+        tc_entry("fused_attention_bwd_tc", bwd_view(b16),
+                 launches16["fused_attention_bwd_tc"],
+                 other("bfloat16", "bwd_ms", "library_bwd_ms"))]
 
 
 def main():
@@ -1307,7 +1489,8 @@ def main():
                                  ("ragged_decode_attention", decode))]
     kernels.append(kernel_entry(INT8, SOURCE, gpt2_int8["launches"][INT8],
                                 span8["float32"], span8["bfloat16"], card))
-    kernels += fused_entries(fused, bert["launches"], card)
+    kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
+                             card)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -61,9 +61,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int MAX_D = 128;
 constexpr int BM = 64;               // query rows per tile
 constexpr int BN = 64;               // keys per tile
@@ -104,30 +105,6 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-struct Strides {
-  long long b, t, h;
-};
-
-struct Geometry {
-  int H, Tq, Tk, D;
-  float scale, inv_keep;
-  uint32_t threshold;
-  int dropout, causal;
-};
-
-__device__ __forceinline__ long long at(const Strides& s, int b, int t,
-                                        int h) {
-  return (long long)b * s.b + (long long)t * s.t + (long long)h * s.h;
-}
-
 // Stage rows [t0, t0 + 64) of head (b, h) into shared memory as f32 with
 // row stride ld; rows past n are zero.
 template <typename T>
@@ -141,14 +118,6 @@ __device__ __forceinline__ void stage(const T* __restrict__ x,
     dst[r * ld + d] =
         t < n ? to_f32(x[at(s, b, t, h) + d]) : 0.f;
   }
-}
-
-// The keep decision of (row, col) for cell seeds (s0, s1).
-__device__ __forceinline__ bool keep_bit(uint32_t s0, uint32_t s1, int row,
-                                         int col, int Tk,
-                                         uint32_t threshold) {
-  const uint32_t pos = (uint32_t)row * (uint32_t)Tk + (uint32_t)col;
-  return mix32(mix32(pos ^ s0) ^ s1) >= threshold;
 }
 
 // The masked score of (row, col): scale and bias applied, causal keys
@@ -626,18 +595,6 @@ size_t dkdv_smem_bytes(int D) {
                           2 * (size_t)BN * (BM + 1) + 3 * (size_t)BM);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-Strides strides_at(const long long* s, int i) {
-  return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
-}
-
 template <typename T, int DJ>
 int launch_fwd(const void* q, const void* k, const void* v,
                const float* bias, const int* seed, void* o, float* o32,
@@ -687,11 +644,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* o32,
       qt, kt, vt, dot, bias, seed, m, l, d_row, static_cast<T*>(dk),
       static_cast<T*>(dv), sq, sk, sv, sdo, sdk, sdv, g);
   return (int)cudaGetLastError();
-}
-
-Geometry geometry(int H, int Tq, int Tk, int D, float scale, float inv_keep,
-                  uint32_t threshold, int dropout, int causal) {
-  return Geometry{H, Tq, Tk, D, scale, inv_keep, threshold, dropout, causal};
 }
 
 }  // namespace

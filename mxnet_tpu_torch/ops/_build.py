@@ -6,14 +6,16 @@ wrappers load with ctypes. Nothing is built at import: the first launch
 builds what it needs, and `build_all()` builds every source at once, one
 `nvcc` process per source, all started together. Libraries land in
 `build/kernels/` at the root of the checkout (ignored by git), named by
-a digest of their source and flags, so an edited source is rebuilt and
-an unchanged one is reused.
+a digest of their source, every `csrc/` header it includes (directly or
+through another header) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,8 +25,10 @@ from ..base import MXNetError
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"ragged_attention": _PKG / "csrc" / "ragged_attention.cu",
-           "fused_attention": _PKG / "csrc" / "fused_attention.cu"}
+_CSRC = _PKG / "csrc"
+SOURCES = {"ragged_attention": _CSRC / "ragged_attention.cu",
+           "fused_attention": _CSRC / "fused_attention.cu",
+           "fused_attention_tc": _CSRC / "fused_attention_tc.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,12 +44,29 @@ def _nvcc():
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources_of(path, seen=None):
+    """`path` and every csrc/ file it includes with quotes, recursively,
+    each once, in the order first met."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = _CSRC / inc.decode()
+            if dep.exists():
+                _sources_of(dep, seen)
+    return seen
+
+
 def library_path(name):
     """Where the library of source `name` is (or will be) built."""
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in _sources_of(SOURCES[name]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None):

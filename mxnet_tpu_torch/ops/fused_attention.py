@@ -2,25 +2,40 @@
 with its backward.
 
 Counterpart of the training half of mxnet_tpu/ops/pallas_attention.py
-(`fused_attention`, `supported`, `MAX_FUSED_T`, `_software_bits`). One
-hand-written CUDA kernel pair (`csrc/fused_attention.cu`) replaces the
-four Pallas bodies `_fwd_kernel_packed`/`_bwd_kernel_packed` (layout
-"BTHD") and `_fwd_kernel`/`_bwd_kernel` (layout "BHTD"): the CUDA kernels
-take element strides for (batch, time, head), so both layouts are views
-of one kernel. A plain PyTorch version of the same function sits beside
-it (`_fused_reference`); torch autograd differentiates it.
+(`fused_attention`, `supported`, `MAX_FUSED_T`, `_software_bits`).
+Hand-written CUDA kernels replace the four Pallas bodies
+`_fwd_kernel_packed`/`_bwd_kernel_packed` (layout "BTHD") and
+`_fwd_kernel`/`_bwd_kernel` (layout "BHTD"): they take element strides
+for (batch, time, head), so both layouts are views of one kernel. Two
+kernel families, chosen per call by `kernel_route` before anything is
+launched:
+
+  * "tensor_core" (`csrc/fused_attention_tc.cu`): bfloat16 q/k/v whose
+    rows the 16-byte async copies can stage — head dim D % 8 == 0, every
+    (batch, time, head) element stride of q, k, v (and of the gradient,
+    which the backward copies if it is not) a multiple of 8, every base
+    address 16-byte aligned. wgmma products, float32 accumulators.
+  * "cuda_core" (`csrc/fused_attention.cu`): float32, and bfloat16 that
+    the rule above refuses (D = 12, a misaligned stride or base). Scalar
+    float32 FMAs; float32 is held to 1e-5 against the plain version,
+    which TF32 or bfloat16 products cannot meet.
+
+A plain PyTorch version of the same function sits beside them
+(`_fused_reference`); torch autograd differentiates it.
 
 The dropout keep mask is the reference's interpret-mode counter hash
 (`software_bits`): bit for bit the same mask as the JAX package's
 interpret-mode kernels for the same two seed words, in the plain version
-and in the CUDA kernel alike. Seeds are two int32 words in a (2,) tensor
-on q's device, as the Pallas kernel's `seed`; the cell index b·H + h is
-folded into the second.
+and in both kernel families alike. Seeds are two int32 words in a (2,)
+tensor on q's device, as the Pallas kernel's `seed`; the cell index
+b·H + h is folded into the second.
 
-impl="auto" takes the plain version for a tensor on the CPU and the
-kernel for a tensor on a CUDA card; a CUDA call the kernel cannot take
-raises. impl="torch" takes the plain version anywhere. Each launch adds
-one to LAUNCHES["fused_attention_fwd"] or ["fused_attention_bwd"].
+impl="auto" takes the plain version for a tensor on the CPU and a kernel
+for a tensor on a CUDA card; a CUDA call the kernels cannot take raises.
+impl="torch" takes the plain version anywhere. Each launch adds one to
+LAUNCHES["fused_attention_fwd"] / ["fused_attention_bwd"] (CUDA-core
+kernels) or ["fused_attention_fwd_tc"] / ["fused_attention_bwd_tc"]
+(tensor-core kernels).
 """
 from __future__ import annotations
 
@@ -32,8 +47,8 @@ import torch
 from ..base import MXNetError
 from . import _build
 
-__all__ = ["fused_attention", "supported", "software_bits", "MAX_FUSED_T",
-           "NEG_INF", "LAUNCHES", "reset_launches"]
+__all__ = ["fused_attention", "supported", "kernel_route", "software_bits",
+           "MAX_FUSED_T", "NEG_INF", "LAUNCHES", "reset_launches"]
 
 NEG_INF = -1e30
 # The reference's whole-row limit (its Pallas tile holds a whole row),
@@ -41,7 +56,8 @@ NEG_INF = -1e30
 # tiled and takes any T.
 MAX_FUSED_T = 1024
 
-LAUNCHES = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+LAUNCHES = {"fused_attention_fwd": 0, "fused_attention_bwd": 0,
+            "fused_attention_fwd_tc": 0, "fused_attention_bwd_tc": 0}
 
 _MAX_D = 128                 # head dim limit of the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -186,20 +202,25 @@ def _fused_reference(q, k, v, bias, seed, scale, p_drop, causal, layout):
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _lib():
-    lib = _build.load("fused_attention")
+def _lib(route):
+    """The (forward, backward) C entries of a kernel family, bound. The
+    CUDA-core entries take a dtype code before the stream, the
+    tensor-core ones do not."""
+    tc = route == "tensor_core"
+    lib = _build.load("fused_attention_tc" if tc else "fused_attention")
+    prefix = "mxt_fused_attention_tc" if tc else "mxt_fused_attention"
+    fwd, bwd = getattr(lib, prefix + "_fwd"), getattr(lib, prefix + "_bwd")
     if not getattr(lib, "_mxt_bound", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mxt_fused_attention_fwd.argtypes = (
-            [ptr] * 10 + [i32] * 5 + [f32, f32, ctypes.c_uint32]
-            + [i32] * 3 + [ptr])
-        lib.mxt_fused_attention_fwd.restype = i32
-        lib.mxt_fused_attention_bwd.argtypes = (
-            [ptr] * 14 + [i32] * 5 + [f32, f32, ctypes.c_uint32]
-            + [i32] * 3 + [ptr])
-        lib.mxt_fused_attention_bwd.restype = i32
+        flags = [i32] * (2 if tc else 3)     # dropout, causal[, dtype]
+        fwd.argtypes = ([ptr] * 10 + [i32] * 5
+                        + [f32, f32, ctypes.c_uint32] + flags + [ptr])
+        # the tensor-core backward also takes the keep-bit scratch
+        bwd.argtypes = ([ptr] * (15 if tc else 14) + [i32] * 5
+                        + [f32, f32, ctypes.c_uint32] + flags + [ptr])
+        fwd.restype = bwd.restype = i32
         lib._mxt_bound = True
-    return lib
+    return fwd, bwd
 
 
 def _bth(x, layout):
@@ -223,6 +244,26 @@ def _geometry(q, k, layout):
         B, H, Tq, D = q.shape
         Tk = k.shape[2]
     return B, H, Tq, Tk, D
+
+
+def _stageable(x, layout):
+    """Can 16-byte async copies stage x's rows: its base 16-byte aligned
+    and its (batch, time, head) element strides multiples of 8?"""
+    return x.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 for s in _bth(x, layout))
+
+
+def kernel_route(q, k, v, layout="BHTD"):
+    """The kernel family a CUDA call with these tensors takes, decided
+    before any launch: "tensor_core" for bfloat16 with a head dim that is
+    a multiple of 8 and rows that `_stageable` accepts for each of q, k
+    and v; "cuda_core" for everything else the kernels take (float32,
+    other bfloat16 calls). Reads only dtypes, shapes, strides and
+    addresses, so it also answers for CPU tensors."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0 \
+            and all(_stageable(x, layout) for x in (q, k, v)):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _check_kernel_args(q, k, v, bias, seed, layout):
@@ -259,11 +300,12 @@ def _stream(x):
 
 
 class _FusedAttention(torch.autograd.Function):
-    """The CUDA forward and backward. The forward saves the row max m and
-    the pre-dropout denominator l (float32, (B, H, Tq)) and the output in
-    float32 (for bfloat16 a float32 copy the kernel writes beside it);
-    the backward recomputes the probabilities and the keep mask from
-    them."""
+    """The CUDA forward and backward of one kernel family (`kernel_route`,
+    decided in the forward, kept by the backward). The forward saves the
+    row max m and the pre-dropout denominator l (float32, (B, H, Tq)) and
+    the output in float32 (for bfloat16 a float32 copy the kernel writes
+    beside it); the backward recomputes the probabilities and the keep
+    mask from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, p_drop, causal, layout):
@@ -274,29 +316,32 @@ class _FusedAttention(torch.autograd.Function):
             # are zeros, and so are their gradients; no launch
             ctx.save_for_backward(q, k, v)
             return torch.zeros_like(q)
+        route = kernel_route(q, k, v, layout)
+        tc = route == "tensor_core"
         o = torch.empty_like(q)
         o32 = None if q.dtype == torch.float32 else \
             torch.empty_like(q, dtype=torch.float32)
         stats = torch.empty((2, B, H, Tq), dtype=torch.float32,
                             device=q.device)
         inv_keep = 1.0 / (1.0 - p_drop) if p_drop > 0.0 else 1.0
+        dtype = () if tc else (_DTYPES[q.dtype],)
         with torch.cuda.device(q.device):
-            err = _lib().mxt_fused_attention_fwd(
+            err = _lib(route)[0](
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 seed.data_ptr(), o.data_ptr(),
                 None if o32 is None else o32.data_ptr(), stats[0].data_ptr(),
                 stats[1].data_ptr(), _strides((q, k, v, o), layout),
                 B, H, Tq, Tk, D, scale, inv_keep,
                 _threshold(p_drop) if p_drop > 0.0 else 0,
-                int(p_drop > 0.0), int(causal), _DTYPES[q.dtype],
-                _stream(q))
+                int(p_drop > 0.0), int(causal), *dtype, _stream(q))
         if err:
             raise MXNetError(f"fused_attention forward: kernel launch "
                              f"failed (cudaError {err})")
-        LAUNCHES["fused_attention_fwd"] += 1
+        LAUNCHES["fused_attention_fwd_tc" if tc else "fused_attention_fwd"] \
+            += 1
         ctx.save_for_backward(q, k, v, o if o32 is None else o32, bias,
                               seed, stats)
-        ctx.args = (scale, p_drop, causal, layout, inv_keep)
+        ctx.args = (scale, p_drop, causal, layout, inv_keep, route)
         return o
 
     @staticmethod
@@ -305,32 +350,43 @@ class _FusedAttention(torch.autograd.Function):
             return (*map(torch.zeros_like, ctx.saved_tensors),
                     None, None, None, None, None, None)
         q, k, v, o32, bias, seed, stats = ctx.saved_tensors
-        scale, p_drop, causal, layout, inv_keep = ctx.args
+        scale, p_drop, causal, layout, inv_keep, route = ctx.args
+        tc = route == "tensor_core"
         B, H, Tq, Tk, D = _geometry(q, k, layout)
-        # the kernel reads the gradient with its own strides, but needs
-        # its head dim contiguous (an expanded gradient is not)
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        # the kernels read the gradient with its own strides, but need its
+        # head dim contiguous (an expanded gradient is not); the
+        # tensor-core kernels also need its rows stageable
+        if do.stride(-1) != 1 or (tc and not _stageable(do, layout)):
+            do = do.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
             torch.empty_like(v)
-        d_row = torch.empty((B, H, Tq), dtype=torch.float32,
-                            device=q.device)
+        # scratch: CUDA-core d_row; tensor-core the row's log2-domain
+        # logsumexp and d_row, and with dropout the keep bits the dQ
+        # kernel hands to the dK/dV kernel (32 keys a word)
+        rowbuf = torch.empty((2 if tc else 1, B, H, Tq), dtype=torch.float32,
+                             device=q.device)
+        extra = ()
+        if tc:
+            keep = torch.empty((B, H, Tq, (Tk + 31) // 32), dtype=torch.int32,
+                               device=q.device) if p_drop > 0.0 else None
+            extra = (None if keep is None else keep.data_ptr(),)
+        dtype = () if tc else (_DTYPES[q.dtype],)
         with torch.cuda.device(q.device):
-            err = _lib().mxt_fused_attention_bwd(
+            err = _lib(route)[1](
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
                 do.data_ptr(), bias.data_ptr(), seed.data_ptr(),
                 stats[0].data_ptr(), stats[1].data_ptr(),
-                d_row.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                rowbuf.data_ptr(), *extra, dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(),
                 _strides((q, k, v, o32, do, dq, dk, dv), layout),
                 B, H, Tq, Tk, D, scale, inv_keep,
                 _threshold(p_drop) if p_drop > 0.0 else 0,
-                int(p_drop > 0.0), int(causal), _DTYPES[q.dtype],
-                _stream(q))
+                int(p_drop > 0.0), int(causal), *dtype, _stream(q))
         if err:
             raise MXNetError(f"fused_attention backward: kernel launch "
                              f"failed (cudaError {err})")
-        LAUNCHES["fused_attention_bwd"] += 1
+        LAUNCHES["fused_attention_bwd_tc" if tc else "fused_attention_bwd"] \
+            += 1
         return dq, dk, dv, None, None, None, None, None, None
 
 

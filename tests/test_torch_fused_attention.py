@@ -9,7 +9,12 @@ dropout, the same two seed words: the JAX function derives them from
 its key (the last two int32 words of the key data), the port is handed
 them. Forward at 1e-5 absolute, dq/dk/dv (torch autograd against
 jax.grad) at 1e-4 relative to the largest gradient, float32: the sums
-run in another order. The dropout hash is compared bit for bit.
+run in another order. The dropout hash is compared bit for bit. The
+plain version in bfloat16 is held to the interpret-mode kernels in
+bfloat16 too: those are the rounding points (P before P·V and dV, dS
+before dQ and dK) the tensor-core kernels follow on the card. The
+kernels themselves run only on a card (chip_smoke.py); here the route a
+CUDA call would take is checked without launching.
 """
 import numpy as np
 import pytest
@@ -22,6 +27,9 @@ import jax.numpy as jnp  # noqa: E402
 from mxnet_tpu.ops import pallas_attention as pa  # noqa: E402
 from mxnet_tpu_torch import MXNetError  # noqa: E402
 from mxnet_tpu_torch.ops import fused_attention as fa  # noqa: E402
+
+NO_LAUNCHES = {"fused_attention_fwd": 0, "fused_attention_bwd": 0,
+               "fused_attention_fwd_tc": 0, "fused_attention_bwd_tc": 0}
 
 
 @pytest.mark.parametrize("s0,s1", [(0, 0), (123456789, 2 ** 32 - 5),
@@ -50,9 +58,11 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_plain_matches_pallas_interpret(case, layout):
+def _against_pallas(case, layout, jdtype, tdtype):
+    """The same numpy-seeded inputs, rounded to the working dtype, through
+    the Pallas kernels (interpret mode) and the port's plain version:
+    (port output, port grads, JAX output, JAX grads) as float32 numpy,
+    and the valid lengths."""
     _, B, H, Tq, Tk, lens, causal, p = case
     D = 64
     rng = np.random.default_rng([Tq, Tk, B, int(layout == "BTHD")])
@@ -60,10 +70,8 @@ def test_plain_matches_pallas_interpret(case, layout):
     def shape(t):
         return (B, t, H, D) if layout == "BTHD" else (B, H, t, D)
 
-    q = rng.standard_normal(shape(Tq)).astype(np.float32)
-    k = rng.standard_normal(shape(Tk)).astype(np.float32)
-    v = rng.standard_normal(shape(Tk)).astype(np.float32)
-    do = rng.standard_normal(shape(Tq)).astype(np.float32)
+    arrays = [rng.standard_normal(shape(t)).astype(np.float32)
+              for t in (Tq, Tk, Tk, Tq)]
     mask = None if lens is None else \
         np.arange(Tk)[None, :] < np.asarray(lens)[:, None]
     key = jax.random.PRNGKey(7) if p > 0 else None
@@ -74,10 +82,12 @@ def test_plain_matches_pallas_interpret(case, layout):
             causal=causal, dropout_p=p, key=key, interpret=True,
             layout=layout)
 
-    jo, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    jgrads = vjp(jnp.asarray(do))
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jdtype) for x in arrays)
+    jo, vjp = jax.vjp(jfn, jq, jk, jv)
+    jgrads = vjp(jdo)
 
-    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    tq, tk, tv = (torch.tensor(x).to(tdtype).requires_grad_(True)
+                  for x in arrays[:3])
     seed = torch.from_numpy(_seed_words(key)) if p > 0 else None
     fa.reset_launches()
     to = fa.fused_attention(tq, tk, tv,
@@ -85,18 +95,56 @@ def test_plain_matches_pallas_interpret(case, layout):
                             torch.from_numpy(mask),
                             causal=causal, dropout_p=p, seed=seed,
                             layout=layout)
-    tgrads = torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(do))
-    assert fa.LAUNCHES == {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    tgrads = torch.autograd.grad(to, (tq, tk, tv),
+                                 torch.tensor(arrays[3]).to(tdtype))
+    assert fa.LAUNCHES == NO_LAUNCHES
+    assert to.dtype == tdtype and all(g.dtype == tdtype for g in tgrads)
 
-    np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo),
-                               rtol=0, atol=1e-5)
+    def t32(x):
+        return x.detach().float().numpy()
+
+    def j32(x):
+        return np.asarray(x, dtype=np.float32)
+    return (t32(to), [t32(g) for g in tgrads], j32(jo),
+            [j32(g) for g in jgrads], lens)
+
+
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_plain_matches_pallas_interpret(case, layout):
+    to, tgrads, jo, jgrads, lens = _against_pallas(case, layout, jnp.float32,
+                                                   torch.float32)
+    np.testing.assert_allclose(to, jo, rtol=0, atol=1e-5)
     for name, got, want in zip("qkv", tgrads, jgrads):
-        want = np.asarray(want)
-        err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+        err = np.abs(got - want).max() / np.abs(want).max()
         assert err <= 1e-4, f"d{name}: relative error {err}"
     if lens is not None and 0 in lens:
         # the fully padded batch row comes out as exact zeros
-        assert not to.detach().numpy()[lens.index(0)].any()
+        assert not to[lens.index(0)].any()
+
+
+# bfloat16: both sides take bf16 inputs, form every product in float32
+# and round at the same points (P before P·V and dV, the outputs; the
+# reference also rounds dS before dQ and dK, which the plain version,
+# differentiated by autograd, does not). The results differ by at most
+# about one bf16 unit of the largest value (2**-7 = 7.8e-3 relative)
+# from those roundings and the float32 sum order: held to 1.2e-2 of the
+# largest reference value, the tolerance chip_smoke.py holds the
+# tensor-core kernels to against the plain version.
+BF16_REL_TOL = 1.2e-2
+
+
+@pytest.mark.parametrize("layout", ["BTHD", "BHTD"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_plain_bf16_matches_pallas_interpret(case, layout):
+    to, tgrads, jo, jgrads, lens = _against_pallas(case, layout, jnp.bfloat16,
+                                                   torch.bfloat16)
+    for name, got, want in zip(["o", "dq", "dk", "dv"], [to, *tgrads],
+                               [jo, *jgrads]):
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= BF16_REL_TOL, f"{name}: relative error {err}"
+    if lens is not None and 0 in lens:
+        assert not to[lens.index(0)].any()
 
 
 def test_dropout_mask_follows_the_seed_words():
@@ -124,7 +172,7 @@ def test_auto_on_cpu_takes_the_plain_version():
     auto = fa.fused_attention(q, k, v, causal=True, impl="auto")
     plain = fa.fused_attention(q, k, v, causal=True, impl="torch")
     assert torch.equal(auto, plain)
-    assert fa.LAUNCHES == {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    assert fa.LAUNCHES == NO_LAUNCHES
     with pytest.raises(ValueError):
         fa.fused_attention(q, k, v, impl="cuda")
     with pytest.raises(MXNetError, match="key-padding"):
@@ -177,7 +225,7 @@ def test_empty_extent_gives_zero_gradients(tq, tk):
                                     allow_unused=True)
         for x, g in zip((q, k, v), grads):
             assert g is not None and g.shape == x.shape and not g.any()
-    assert fa.LAUNCHES == {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    assert fa.LAUNCHES == NO_LAUNCHES
 
 
 def test_cuda_tensor_the_kernel_cannot_take_raises():
@@ -198,3 +246,38 @@ def test_cuda_tensor_the_kernel_cannot_take_raises():
         fa._check_kernel_args(t, t, t, bias, seed, "BTHD")
     with pytest.raises(MXNetError, match="do not match"):
         fa._check_kernel_args(q, q[:1], q[:1], bias, seed, "BTHD")
+
+
+def _bthd(D, dtype=torch.bfloat16, pad=0):
+    """A (2, 16, 4, D) BTHD view; with `pad` its rows sit pad elements
+    apart beyond D (a slice of a wider buffer)."""
+    return torch.zeros(2, 16, 4, D + pad, dtype=dtype)[..., :D]
+
+
+@pytest.mark.parametrize("x,route", [
+    (_bthd(64), "tensor_core"),
+    (_bthd(40), "tensor_core"),
+    (_bthd(128), "tensor_core"),
+    # 12 bf16 are 24 bytes: rows off the 16-byte grid
+    (_bthd(12), "cuda_core"),
+    # head stride 68: the row of head 1 starts 136 bytes in
+    (_bthd(64, pad=4), "cuda_core"),
+    # head stride 72: every row 16-byte aligned
+    (_bthd(64, pad=8), "tensor_core"),
+    # a base 2 bytes off alignment
+    (torch.zeros(2 * 16 * 4 * 64 + 1, dtype=torch.bfloat16)[1:]
+     .view(2, 16, 4, 64), "cuda_core"),
+    # float32 stays on the CUDA-core kernels whatever its layout
+    (_bthd(64, torch.float32), "cuda_core"),
+], ids=["d64", "d40", "d128", "d12", "stride68", "stride72", "base+2",
+        "float32"])
+def test_kernel_route(x, route):
+    """Which kernel family a CUDA call of this shape would take, decided
+    from dtype, shape, strides and addresses without a launch; q, k and v
+    all must pass for the tensor cores."""
+    assert fa.kernel_route(x, x, x, "BTHD") == route
+    bhtd = x.transpose(1, 2)
+    assert fa.kernel_route(bhtd, bhtd, bhtd, "BHTD") == route
+    aligned = _bthd(x.shape[-1], x.dtype)
+    assert fa.kernel_route(aligned, x, aligned, "BTHD") == route
+    assert fa.supported(x, x, None, layout="BTHD")
