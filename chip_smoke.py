@@ -10,19 +10,26 @@ script then exits non-zero without the final `ok` line):
   1. device   the card's name and power limit (nvidia-smi), torch, CUDA.
   2. build    every CUDA kernel of the port built from csrc/ (one nvcc
               per source, in parallel) and the ptxas resource report.
-  3. span     ragged_span_attention's kernel against its plain PyTorch
-              version at GPT-2 774M serving shapes (B=8, Sq=64, H=20,
-              D=64, page 64, 16 pages per slot, 128 pages, permuted
-              table, mixed q_counts and lengths), float32 (tol 1e-5
-              absolute) and bfloat16 (tol 1.2e-2 of the largest plain
-              value), dead rows and idle slots exactly 0, plus edge
-              cases; times of kernel, plain version and the
-              F.scaled_dot_product_attention yardstick, and the bound.
-  3b. span_int8  the int8 span kernel (int8 pools, per-(page, head)
-              float32 scales) against its plain version at the same
-              shapes and edge cases, float32 q (1e-5 absolute) and
-              bfloat16 q (1.2e-2 of the largest plain value); the
-              yardstick is SDPA on the dequantized gathered view.
+  3. span     ragged_span_attention's kernels against their plain
+              PyTorch version: float32 q on the CUDA-core kernel (tol
+              1e-5 absolute), bfloat16 q on the tensor-core kernel (tol
+              1.2e-2 of the largest plain value). Two timed cells at GPT-2
+              774M serving shapes (B=8, Sq=64, H=20, D=64, page 64, 16
+              pages per slot, 128 pages, permuted table): the kernel cell
+              (long contexts, mixed q_counts) and serve_decode, phase
+              gpt2's decode dispatch (q_counts 1, lengths its prompts +
+              16); then edge cases (SPAN_EDGES: split boundaries, splits
+              with no live page, both routes in bfloat16, misaligned
+              pools). Every call: the family span_route names launches
+              (counted under its key alone), two runs give the same
+              bits, dead rows and idle slots are exactly 0. Times of
+              kernel, plain version and the F.scaled_dot_product_attention
+              yardstick (and their ratio), and the bound; the kernel's
+              time with the pools warm in L2 and under the split plan's
+              other targets (SPLIT_TARGETS, each checked too).
+  3b. span_int8  the same for int8 pools with per-(page, head) float32
+              scales; the yardstick is SDPA on the dequantized gathered
+              view.
   4. decode   the same for ragged_decode_attention (bfloat16 at 1.2e-2
               of the largest plain value), and whether it agrees bit for
               bit with the span kernel at Sq=1.
@@ -34,12 +41,18 @@ script then exits non-zero without the final `ok` line):
               kernels and once through the plain versions (attn_impl=
               "torch"). Streams must agree (a divergence is allowed only
               where the plain path's top-2 logit gap is below 1e-4); the
-              span kernel must have run 36 times per dispatch. One ragged
+              CUDA-core span kernel must have run 36 times per dispatch
+              (the tensor-core one never). One ragged
               single-token forward on the served cache drives the decode
               kernel (logits within 1e-4 of the plain path). Then the
-              kernel path serves the same traffic in bfloat16, timed.
+              kernel path serves the same traffic in bfloat16, timed (the
+              tensor-core span kernel 36 times a dispatch, the CUDA-core
+              one never), and the bfloat16 plain path once: with d the
+              largest |kernel - plain| first-token logit, first tokens
+              agree wherever the plain top-2 gap exceeds 2*d.
               The float32 and bfloat16 kernel paths each serve once more
-              under torch.profiler: device busy share and top kernels.
+              under torch.profiler: device busy share, top kernels and
+              the span kernel's device ms a serve.
   5b. gpt2_int8  the same model and traffic on int8 KV pages
               (kv_dtype="int8", chunk_tokens 64): float32 through the
               kernels (the int8 span kernel exactly 36 times a dispatch,
@@ -54,7 +67,8 @@ script then exits non-zero without the final `ok` line):
               the CPU's bytes on the card; one single-token forward on
               the served cache through the span kernel (logits within
               1e-4 of the plain path); then bfloat16 on int8 pages, timed
-              and profiled, and KV bytes per token of each page dtype.
+              (the int8 tensor-core span kernel 36 times a dispatch) and
+              profiled, and KV bytes per token of each page dtype.
   5c. prefix  the 774M model in float32 on the kernel path, float and
               int8 pages, the prefix cache off and on: every prompt is a
               256-token shared prefix (4 pages) and a unique tail
@@ -107,10 +121,12 @@ script then exits non-zero without the final `ok` line):
               step under torch.profiler (the fused kernels' share of
               device time).
   8. kernels  one line listing every ported kernel with its launches on
-              its main path (phase 5 for the float ragged kernels, phase
-              5b for the int8 span kernel, phase 7's float32 steps for
-              the CUDA-core fused pair, its bfloat16 steps for the
-              tensor-core pair), errors, times and bound.
+              its main path (phase 5's float32 serve for the CUDA-core
+              span and the decode kernel, its bfloat16 serve for the
+              tensor-core span kernel, phase 5b's serves for the int8
+              ones, phase 7's float32 steps for the CUDA-core fused
+              pair, its bfloat16 steps for the tensor-core pair), errors,
+              times, bound and library times.
 Then the last line: {"ok": true, "device": {...}}.
 """
 import json
@@ -139,7 +155,9 @@ BF16_REL_TOL = 1.2e-2
 BF16_MODEL_GRAD_TOL = 5e-2
 BF16_MODEL_LOSS_TOL = 1e-4
 SOURCE = "mxnet_tpu_torch/csrc/ragged_attention.cu"
-INT8 = "ragged_span_attention_int8"
+SPAN_TC_SOURCE = "mxnet_tpu_torch/csrc/ragged_attention_tc.cu"
+SPAN, SPAN_TC = "ragged_span_attention", "ragged_span_attention_tc"
+INT8, INT8_TC = "ragged_span_attention_int8", "ragged_span_attention_int8_tc"
 FUSED_SOURCE = "mxnet_tpu_torch/csrc/fused_attention.cu"
 FUSED_TC_SOURCE = "mxnet_tpu_torch/csrc/fused_attention_tc.cu"
 REPLACES = {
@@ -156,7 +174,9 @@ REPLACES = {
         "mxnet_tpu/ops/pallas_attention.py:224 _bwd_kernel_packed (BTHD); "
         "mxnet_tpu/ops/pallas_attention.py:120 _bwd_kernel (BHTD)",
 }
-# the tensor-core pair replaces the same Pallas bodies, for bfloat16
+# the tensor-core kernels replace the same Pallas bodies, for bfloat16
+REPLACES[SPAN_TC] = REPLACES[SPAN]
+REPLACES[INT8_TC] = REPLACES[INT8]
 REPLACES["fused_attention_fwd_tc"] = REPLACES["fused_attention_fwd"]
 REPLACES["fused_attention_bwd_tc"] = REPLACES["fused_attention_bwd"]
 GPT2_LAYERS = 36
@@ -183,6 +203,9 @@ FUSED_EDGES = [(3, 2, 200, 200, 64, "BTHD", False, 0.1, [0, 150, 200]),
 FAMILY_KEYS = {"tensor_core": ("fused_attention_fwd_tc",
                                "fused_attention_bwd_tc"),
                "cuda_core": ("fused_attention_fwd", "fused_attention_bwd")}
+# span cells: the split plan's other targets timed beside its own
+# (ops/ragged_attention.py _BLOCKS_PER_SM), in blocks an SM
+SPLIT_TARGETS = (1, 2, 8)
 # phase 7 traffic (bench.py bench_bert): batch, sequence, masked per row
 BERT_TRAFFIC = dict(B=32, T=512, M=76)
 DEV = "cuda"
@@ -201,19 +224,21 @@ def require(cond, msg):
 # measurement helpers
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, iters=25, warmup=3):
+def time_ms(torch, fn, iters=25, warmup=3, cold=True):
     """Median device time of fn() over `iters` launches, CUDA events
     around each. Before each launch a 64 MB buffer is rewritten (the
     caller meets these pages cold in L2, as on the serving path: 36
-    layers of pools do not fit in it) and the stream is held by a short
-    device sleep so that host-side wrapper work is not timed."""
+    layers of pools do not fit in it; `cold=False` skips it) and the
+    stream is held by a short device sleep so that host-side wrapper
+    work is not timed."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        if cold:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -321,37 +346,70 @@ def check_close(got, ref, f32, name):
     return err, rel
 
 
-def phase_span(torch, F, ra, quant=False):
-    """Phase 3 (float pools) or, with `quant`, 3b (int8 pools)."""
-    B, Sq, H, D, S, P, N = 8, 64, 20, 64, 64, 16, 128
-    lengths = [1, 1000, 3, 960, 500, 1, 1023, 64]
-    q_counts = [1, 4, 64, 17, 0, 64, 1, 33]
-    label = "span_int8" if quant else "span"
-    out = {"phase": label, "shape": dict(B=B, Sq=Sq, H=H, D=D, S=S, P=P,
-                                         N=N),
-           "lengths": lengths, "q_counts": q_counts}
+def misaligned(torch, t):
+    """A contiguous copy of `t` whose base lies 8 bytes past a 16-byte
+    boundary (4 bytes for int8): the span route rule refuses it."""
+    shift = 4 if t.element_size() <= 2 else 2
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=DEV)
+    out = buf[shift:shift + t.numel()].view(t.shape)
+    out.copy_(t)
+    require(out.data_ptr() % 16 != 0, "misaligned copy is aligned")
+    return out
+
+
+def span_call(torch, ra, args, kw, label):
+    """One checked kernel call of ragged_span_attention: it launches the
+    family that span_route names (one launch, counted under that family's
+    key alone), a second run gives the same bits, and dead rows are
+    exact zeros. Returns (output, route)."""
+    q, kp, vp = args[:3]
+    route = ra.span_route(q, kp, vp)
+    key = ra.span_launch_key(route, kp.dtype == torch.int8)
+    before = dict(ra.LAUNCHES)
+    got = ra.ragged_span_attention(*args, impl="auto", **kw)
+    again = ra.ragged_span_attention(*args, impl="auto", **kw)
+    torch.cuda.synchronize()
+    moved = {k: ra.LAUNCHES[k] - before[k] for k in before
+             if ra.LAUNCHES[k] != before[k]}
+    require(moved == {key: 2}, f"{label}: route {route} but launches "
+            f"moved {moved}")
+    require(torch.equal(got, again), f"{label}: two runs differ")
+    qc = kw["q_counts"]
+    dead = torch.arange(q.shape[1], device=DEV)[None, :] >= qc[:, None]
+    require(bool((got[dead] == 0).all()),
+            f"{label}: dead rows / idle slots are not exactly 0")
+    return got, route
+
+
+def span_cell(torch, F, ra, quant, label, lengths, q_counts, seed,
+              B=8, Sq=64, H=20, D=64, S=64, P=16, N=128):
+    """A timed cell of the span kernel, float32 and bfloat16 q: kernel
+    against plain (and the checks of span_call), times of kernel, plain
+    version and the SDPA yardstick on the gathered view, the bound; the
+    kernel's time with the pools warm in L2 and under SPLIT_TARGETS."""
+    out = {"shape": dict(B=B, Sq=Sq, H=H, D=D, S=S, P=P, N=N),
+           "lengths": lengths, "q_counts": q_counts,
+           "splits": ra.span_split_plan(
+               B, H, Sq, P,
+               torch.cuda.get_device_properties(0).multi_processor_count)}
     L = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     qc = torch.tensor(q_counts, dtype=torch.int32, device=DEV)
-    dead = (torch.arange(Sq, device=DEV)[None, :] >= qc[:, None])
     for dtype, name in ((torch.float32, "float32"),
                         (torch.bfloat16, "bfloat16")):
         q, kp, vp, table, ks, vs = make_pool(torch, B, Sq, H, D, S, P, N,
-                                             dtype, 0, quant)
+                                             dtype, seed, quant)
         kw = dict(q_counts=qc, k_scale=ks, v_scale=vs)
+        args = (q, kp, vp, table, L)
 
         def kernel():
-            return ra.ragged_span_attention(q, kp, vp, table, L,
-                                            impl="auto", **kw)
+            return ra.ragged_span_attention(*args, impl="auto", **kw)
 
         def plain():
-            return ra.ragged_span_attention(q, kp, vp, table, L,
-                                            impl="torch", **kw)
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
+            return ra.ragged_span_attention(*args, impl="torch", **kw)
+        got, route = span_call(torch, ra, args, kw, f"{label} {name}")
+        ref = plain()
         f32 = dtype == torch.float32
         err, rel = check_close(got, ref, f32, f"{label} {name}")
-        require(bool((got[dead] == 0).all()),
-                f"{label} {name}: dead rows / idle slots are not exactly 0")
         k, v, mask = dense_yardstick(torch, kp, vp, table, L, Sq, ks, vs,
                                      dtype)
         qt = q.transpose(1, 2).contiguous()
@@ -359,43 +417,98 @@ def phase_span(torch, F, ra, quant=False):
             lengths, q_counts, S, P, H, D, q.element_size(), B * Sq,
             kv_itemsize=kp.element_size(), scale_bytes=8 if quant else 0)
         bms, by = bound(nbytes, flops, name)
+        ms = time_ms(torch, kernel)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, k, v, attn_mask=mask))
+        # what holds the kernel: the same launch with the pools warm in
+        # L2, and under the split plan's other targets (each checked
+        # against the plain version too)
+        targets, keep = {}, ra._BLOCKS_PER_SM
+        try:
+            for k in SPLIT_TARGETS:
+                ra._BLOCKS_PER_SM = k
+                check_close(kernel(), ref, f32, f"{label} {name} target {k}")
+                targets[k] = time_ms(torch, kernel)
+        finally:
+            ra._BLOCKS_PER_SM = keep
         out[name] = {
-            "max_abs_err": err, "rel_err": rel,
+            "route": route, "max_abs_err": err, "rel_err": rel,
             "tol": 1e-5 if f32 else BF16_REL_TOL,
             "tol_kind": "absolute" if f32 else "relative",
-            "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, k, v, attn_mask=mask)),
-            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+            "ms": ms, "plain_ms": time_ms(torch, plain), "library_ms": lib,
+            "ms_over_library": ms / lib, "bound_ms": bms, "bound_by": by,
+            "ms_over_bound": ms / bms, "ms_warm_l2":
+                time_ms(torch, kernel, cold=False),
+            "ms_by_split_target": targets, "bytes": nbytes,
             "flops": flops}
         del k, v, mask, q, kp, vp
-    # edge cases at small shapes: all idle, all decode, ragged tails,
-    # lengths 0, a head dim and page size off the 32 grid
-    edges = [(5, 8, 2, 16, 8, 4, [5, 1, 24, 13, 8], qcs)
-             for qcs in ([0] * 5, [1] * 5, [8] * 5, [3, 7, 2, 6, 1])]
-    edges += [(3, 20, 3, 40, 12, 3, [0, 20, 36], [20, 17, 3]),
-              (2, 33, 1, 128, 64, 2, [60, 100], [33, 29])]
+    return out
+
+
+# span edge cases (B, Sq, H, D, S, P, lengths, q_counts, misaligned):
+# all idle, all decode, ragged tails, lengths 0 and page size 8 (the
+# CUDA-core route in bfloat16: S % 16 != 0); D = 40 / S = 12 (the
+# CUDA-core route); D = 128 at S = 64 (the tensor cores in bfloat16);
+# then, where the split plan cuts a slot's pages over several blocks: a
+# slot whose live pages end exactly on a split boundary with splits past
+# them that hold no live page, a length of P*S - q_count + 1 (every
+# split live), q_count 64 at length 1, and an idle slot, at S = 16 (a
+# key tile spans four pages); D = 64 at S = 64 over three live splits;
+# D = 128 at S = 128 (a page spans two key tiles) with a second query
+# tile; and pools 8 bytes off a 16-byte boundary (the CUDA-core route
+# in bfloat16)
+SPAN_EDGES = [(5, 8, 2, 16, 8, 4, [5, 1, 24, 13, 8], qcs, False)
+              for qcs in ([0] * 5, [1] * 5, [8] * 5, [3, 7, 2, 6, 1])]
+SPAN_EDGES += [(3, 20, 3, 40, 12, 3, [0, 20, 36], [20, 17, 3], False),
+               (2, 33, 1, 128, 64, 2, [60, 100], [33, 29], False),
+               (4, 64, 2, 64, 16, 8, [60, 124, 1, 10], [5, 5, 64, 0],
+                False),
+               (3, 64, 2, 64, 64, 6, [300, 1, 130], [17, 64, 1], False),
+               (2, 70, 2, 128, 128, 4, [400, 5], [70, 3], False),
+               (2, 16, 2, 64, 64, 2, [70, 5], [16, 16], True)]
+
+
+def phase_span(torch, F, ra, quant=False):
+    """Phase 3 (float pools) or, with `quant`, 3b (int8 pools): the
+    kernel cell (long contexts, mixed q_counts), the serve's decode cell
+    (phase gpt2's dispatch shape: one live row a slot, contexts of its
+    prompts + 16) and the edge cases."""
+    label = "span_int8" if quant else "span"
+    out = {"phase": label}
+    out.update(span_cell(torch, F, ra, quant, label,
+                         [1, 1000, 3, 960, 500, 1, 1023, 64],
+                         [1, 4, 64, 17, 0, 64, 1, 33], 0))
+    out["serve_decode"] = span_cell(
+        torch, F, ra, quant, f"{label} serve_decode",
+        [128, 103, 89, 62, 66, 36, 40, 33], [1] * 8, 2)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for i, (b, sq, h, d, s, p, lens, qcs) in enumerate(edges):
+    routes = {"float32": set(), "bfloat16": set()}
+    for i, (b, sq, h, d, s, p, lens, qcs, off) in enumerate(SPAN_EDGES):
         for dtype in (torch.float32, torch.bfloat16):
             q, kp, vp, table, ks, vs = make_pool(
                 torch, b, sq, h, d, s, p, b * p + 1, dtype, 10 + i, quant)
+            if off:
+                kp, vp = misaligned(torch, kp), misaligned(torch, vp)
             Le = torch.tensor(lens, dtype=torch.int32, device=DEV)
             qce = torch.tensor(qcs, dtype=torch.int32, device=DEV)
             kw = dict(q_counts=qce, k_scale=ks, v_scale=vs)
-            got = ra.ragged_span_attention(q, kp, vp, table, Le,
-                                           impl="auto", **kw)
-            ref = ra.ragged_span_attention(q, kp, vp, table, Le,
-                                           impl="torch", **kw)
+            args = (q, kp, vp, table, Le)
+            key = "float32" if dtype == torch.float32 else "bfloat16"
+            got, route = span_call(torch, ra, args, kw,
+                                   f"{label} edge {i} {key}")
+            ref = ra.ragged_span_attention(*args, impl="torch", **kw)
             f32 = dtype == torch.float32
             err, rel = check_close(got, ref, f32,
                                    f"{label} edge {i} {dtype}")
-            deadm = torch.arange(sq, device=DEV)[None, :] >= qce[:, None]
-            require(bool((got[deadm] == 0).all()),
-                    f"{label} edge {i}: dead rows are not exactly 0")
-            key = "float32" if f32 else "bfloat16"
             worst[key] = max(worst[key], err if f32 else rel)
-    out["edge_cases"] = len(edges)
+            routes[key].add(route)
+    # both branches of the route rule are held in bfloat16; float32
+    # always takes the CUDA cores
+    require(routes["bfloat16"] == {"tensor_core", "cuda_core"}
+            and routes["float32"] == {"cuda_core"},
+            f"{label}: edge routes {routes}")
+    out["edge_cases"] = len(SPAN_EDGES)
+    out["edge_routes"] = {k: sorted(v) for k, v in routes.items()}
     out["edge_max_abs_err_f32"] = worst["float32"]
     out["edge_max_rel_err_bf16"] = worst["bfloat16"]
     emit(out)
@@ -716,8 +829,11 @@ def profiled(torch, run, top):
     for d, k, _ in rows:
         label = kernel_class(k)
         classes[label] = classes.get(label, 0.0) + d / 1e3
+    span = [(d, c) for d, k, c in rows if "ragged_span" in k]
     return {"wall_s": wall, "device_ms": dev_ms,
             "device_busy_share": dev_ms / (wall * 1e3),
+            "span_device_ms": sum(d for d, _ in span) / 1e3,
+            "span_launches": sum(c for _, c in span),
             "cuda_launches": launches,
             "device_ms_by_class": classes,
             "top_kernels": [{"name": k[:90], "ms": d / 1e3, "count": c}
@@ -730,11 +846,12 @@ def trace_serve(torch, eng, prompts, n_new, Request):
                     lambda: serve(torch, eng, prompts, n_new, Request)[1], 8)
 
 
-def float_logits(torch, model, tokens):
-    """The plain float path's next-token logits after `tokens` (one slot,
-    the whole prefix as one span)."""
+def float_logits(torch, model, tokens, impl="torch"):
+    """The float path's next-token logits after `tokens` (one slot, the
+    whole prefix as one span), in float32: plain (impl "torch") or
+    through the kernels ("auto")."""
     cache = model.make_cache(1, 1024, page_size=64, lengths=[0],
-                             attn_impl="torch")
+                             attn_impl=impl)
     with torch.no_grad():
         logits, _ = model(torch.tensor([tokens], device=DEV), cache)
     return logits[0, -1].float()
@@ -775,9 +892,10 @@ def phase_gpt2(torch, ra, card):
     ra.reset_launches()
     got, wall = serve(torch, eng, prompts, n_new, Request)
     dispatches = eng.stats["decode_dispatches"]
-    span_launches = ra.LAUNCHES["ragged_span_attention"]
+    span_launches = ra.LAUNCHES[SPAN]
     require(span_launches == GPT2_LAYERS * dispatches,
             f"span launches {span_launches} != 36 x {dispatches} dispatches")
+    require(ra.LAUNCHES[SPAN_TC] == 0, "float32 launched the tensor cores")
     require(all(len(t) == n_new for t in got), "short streams")
     require(all(0 <= t < cfg.vocab_size for s in got for t in s),
             "token out of range")
@@ -834,13 +952,19 @@ def phase_gpt2(torch, ra, card):
     out["streams_identical"] = not divergences
     out["divergences"] = divergences
 
-    # the kernel path in bfloat16 (the same weights, rounded), timed
+    # the kernel path in bfloat16 (the same weights, rounded), timed: the
+    # main path of the tensor-core span kernel, counts read here
     model.to(torch.bfloat16)
     eng = ServingEngine(model, device=DEV, **ekw)
     serve(torch, eng, prompts, n_new, Request)          # warm-up
     eng.stats["decode_dispatches"] = 0
+    ra.reset_launches()
     got16, wall = serve(torch, eng, prompts, n_new, Request)
     d16 = eng.stats["decode_dispatches"]
+    launches16 = dict(ra.LAUNCHES)
+    require(launches16[SPAN_TC] == GPT2_LAYERS * d16 and launches16[SPAN]
+            == 0, f"bf16 span launches {launches16} for {d16} dispatches")
+    out["launches_bf16"] = launches16
     out["page_bytes"]["bfloat16"] = eng.page_pool.page_bytes
     require(all(len(t) == n_new for t in got16), "short bf16 streams")
     out["bfloat16_kernel"] = {
@@ -852,7 +976,39 @@ def phase_gpt2(torch, ra, card):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     out["bfloat16_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
                                                Request)
-    del eng, model
+    del eng
+    torch.cuda.empty_cache()
+
+    # bfloat16 kernel path against the bfloat16 plain path: with d the
+    # largest |kernel - plain| first-token logit (each prompt as one
+    # span), the first tokens must agree wherever the plain path's top-2
+    # gap exceeds 2*d
+    eng = ServingEngine(model, attn_impl="torch", device=DEV, **ekw)
+    before = dict(ra.LAUNCHES)
+    want16, _ = serve(torch, eng, prompts, n_new, Request)
+    require(ra.LAUNCHES == before, "the bf16 plain path launched a kernel")
+    del eng
+    torch.cuda.empty_cache()
+    first = []
+    for i, p in enumerate(prompts):
+        lk = float_logits(torch, model, p, "auto")
+        lp = float_logits(torch, model, p)
+        first.append({"request": i, "max_abs_logit_diff":
+                      (lk - lp).abs().max().item(), "plain_top2_gap":
+                      gap2(lp), "equal": got16[i][0] == want16[i][0]})
+    d = max(r["max_abs_logit_diff"] for r in first)
+    for r in first:
+        if r["plain_top2_gap"] > 2 * d:
+            require(r["equal"], f"bf16 first token of request "
+                    f"{r['request']} differs from the plain path where its "
+                    f"gap {r['plain_top2_gap']} exceeds 2 x {d}")
+    out["bfloat16_vs_plain"] = {
+        "max_abs_logit_diff": d, "first_tokens": first,
+        "tokens_equal": sum(x == y for a, b in zip(got16, want16)
+                            for x, y in zip(a, b)),
+        "tokens": sum(map(len, want16)),
+        "streams_equal": sum(a == b for a, b in zip(got16, want16))}
+    del model
     torch.cuda.empty_cache()
     emit(out)
     return out
@@ -951,9 +1107,10 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     dispatches = eng.stats["decode_dispatches"]
     require(launches[INT8] == GPT2_LAYERS * dispatches,
             f"int8 span launches {launches[INT8]} != 36 x {dispatches}")
-    require(launches["ragged_span_attention"] == 0
+    require(launches[SPAN] == 0 and launches[SPAN_TC] == 0
+            and launches[INT8_TC] == 0
             and launches["ragged_decode_attention"] == 0,
-            f"float ragged kernels ran on int8 pages: {launches}")
+            f"other ragged kernels ran on float32 int8 pages: {launches}")
     require(all(len(t) == n_new for t in got), "short int8 streams")
     require(eng.audit_pages() == [], "int8 page audit failed")
     # one ragged single-token forward on the served int8 cache: every
@@ -1048,13 +1205,19 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
         "streams_equal": sum(a == b for a, b in zip(got, f32)),
         "first_tokens": first}
 
-    # bfloat16 weights on int8 pages, timed and profiled
+    # bfloat16 weights on int8 pages, timed and profiled: the main path
+    # of the int8 tensor-core span kernel, counts read here
     model.to(torch.bfloat16)
     eng = ServingEngine(model, device=DEV, **ekw)
     serve(torch, eng, prompts, n_new, Request)          # warm-up
     eng.stats["decode_dispatches"] = 0
+    ra.reset_launches()
     got16, wall = serve(torch, eng, prompts, n_new, Request)
     d16 = eng.stats["decode_dispatches"]
+    launches16 = dict(ra.LAUNCHES)
+    require(launches16[INT8_TC] == GPT2_LAYERS * d16 and launches16[INT8]
+            == 0, f"bf16 int8 span launches {launches16} for {d16}")
+    out["launches_bf16"] = launches16
     require(all(len(t) == n_new for t in got16), "short bf16 int8 streams")
     out["bfloat16_kernel"] = {
         "card": card, "wall_s": wall, "dispatches": d16,
@@ -1127,9 +1290,10 @@ def phase_prefix(torch, ra, card):
                 del before
             audit = eng.audit_pages()
             require(audit == [], f"prefix {kv} on={on}: audit {audit}")
-            key = INT8 if kv == "int8" else "ragged_span_attention"
+            key = INT8 if kv == "int8" else SPAN
             require(ra.LAUNCHES[key] == GPT2_LAYERS
-                    * eng.stats["decode_dispatches"],
+                    * eng.stats["decode_dispatches"]
+                    and ra.LAUNCHES[SPAN_TC] == ra.LAUNCHES[INT8_TC] == 0,
                     f"prefix {kv}: the span kernel missed dispatches")
             st = eng.stats
             runs[on] = {"streams": streams, "wall_s": walls,
@@ -1394,6 +1558,38 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
             "library_ms_bf16": b16.get("library_ms"), "card": card, **extra}
 
 
+def span_entries(span, span8, gpt2, gpt2_int8, card):
+    """The four span kernels' kernels-line entries: the CUDA-core kernel
+    at float32 q (launches from the float32 serves, phases 5 and 5b) and
+    the tensor-core kernel at bfloat16 q (launches from the bfloat16
+    serves), float and int8 pages, each at the kernel cell with the
+    serve's decode cell beside."""
+    def entry(name, source, res, dtype, launches):
+        cell, dec = res[dtype], res["serve_decode"][dtype]
+        require(cell["route"] == dec["route"] == (
+            "tensor_core" if name.endswith("_tc") else "cuda_core"),
+            f"{name}: the cells ran on another route")
+        keys = ("ms", "plain_ms", "library_ms", "ms_over_library",
+                "bound_ms", "bound_by", "max_abs_err", "rel_err")
+        return {"name": name, "route": "cuda", "family": cell["route"],
+                "source": source, "replaces": REPLACES[name],
+                "launches": launches, "dtype": dtype,
+                "max_abs_err": cell["max_abs_err"],
+                "rel_err": cell["rel_err"], "ms": cell["ms"],
+                "kernel_ms": cell["ms"], "plain_ms": cell["plain_ms"],
+                "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+                "library_ms": cell["library_ms"],
+                "ms_over_library": cell["ms_over_library"],
+                "serve_decode": {k: dec[k] for k in keys}, "card": card}
+    return [entry(SPAN, SOURCE, span, "float32", gpt2["launches"][SPAN]),
+            entry(SPAN_TC, SPAN_TC_SOURCE, span, "bfloat16",
+                  gpt2["launches_bf16"][SPAN_TC]),
+            entry(INT8, SOURCE, span8, "float32",
+                  gpt2_int8["launches"][INT8]),
+            entry(INT8_TC, SPAN_TC_SOURCE, span8, "bfloat16",
+                  gpt2_int8["launches_bf16"][INT8_TC])]
+
+
 def fused_entries(fused, launches, launches16, card):
     """The fused kernels' four kernels-line entries at the BERT-base BTHD
     cell (the main path's shape), the BHTD and GPT-2 cells beside: the
@@ -1483,12 +1679,10 @@ def main():
     fused = phase_fused(torch, F, fa)
     bert = phase_bert(torch, fa, card)
 
-    kernels = [kernel_entry(name, SOURCE, gpt2["launches"][name],
-                            res["float32"], res["bfloat16"], card)
-               for name, res in (("ragged_span_attention", span),
-                                 ("ragged_decode_attention", decode))]
-    kernels.append(kernel_entry(INT8, SOURCE, gpt2_int8["launches"][INT8],
-                                span8["float32"], span8["bfloat16"], card))
+    kernels = span_entries(span, span8, gpt2, gpt2_int8, card)
+    kernels.append(kernel_entry("ragged_decode_attention", SOURCE,
+                                gpt2["launches"]["ragged_decode_attention"],
+                                decode["float32"], decode["bfloat16"], card))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
                              card)
     emit({"kernels": kernels})

@@ -151,37 +151,6 @@ __device__ __forceinline__ int key_tiles(const Geometry& g, int r0) {
   return last < 0 ? 0 : min(nkt, last / BN + 1);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// The A fragments of a 64 x 64 accumulator, rounded to bf16: k-step kk
-// covers its columns [16 kk, 16 kk + 16).
-__device__ __forceinline__ void to_a_frags(const float (&x)[32],
-                                           uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
-}
-
-// Accumulator element j of this thread: row (0..63) and column (0..63)
-// within the tile.
-__device__ __forceinline__ int frag_row(int j) {
-  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) +
-         8 * ((j >> 1) & 1);
-}
-__device__ __forceinline__ int frag_col(int j) {
-  return 8 * (j >> 2) + 2 * (threadIdx.x & 3) + (j & 1);
-}
-
 // Store this thread's part of a 64 x DP accumulator times f[row half] as
 // bf16 rows t0 + frag_row (those below n), columns below D; and as
 // float32 into x32 when it is given.
@@ -226,20 +195,6 @@ __device__ __forceinline__ void load_bias(float (&bc)[16],
     const int col = c0 + frag_col(4 * (j >> 1) + (j & 1));
     bc[j] = col < Tk ? __ldg(bias_b + col) : -INFINITY;
   }
-}
-
-// The max over this thread's 16 elements of row half i of a 64 x 64
-// accumulator, then over the four threads that share the row.
-__device__ __forceinline__ float row_max(const float (&x)[32], int i) {
-  float m[8];
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-    m[nb] = fmaxf(x[4 * nb + 2 * i], x[4 * nb + 2 * i + 1]);
-#pragma unroll
-  for (int w = 4; w > 0; w >>= 1)
-#pragma unroll
-    for (int nb = 0; nb < w; ++nb) m[nb] = fmaxf(m[nb], m[nb + w]);
-  return quad_max(m[0]);
 }
 
 // One key tile of the forward's online softmax, in place: the scores s

@@ -41,6 +41,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 8 bytes from global to shared; bytes < 8 zero-fills the rest.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 // 4 bytes from global to shared; bytes = 0 writes a zero.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           int bytes) {
@@ -207,6 +215,57 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --------------------------------------------------------------------------
+// The accumulator fragment of a 64-row wgmma tile: thread t of warp w
+// holds rows 16w + t/4 and 16w + t/4 + 8, columns 8j + 2(t%4) + {0, 1};
+// a row's reductions are two shuffles among its four threads.
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The A fragments of a 64 x 64 accumulator, rounded to bf16: k-step kk
+// covers its columns [16 kk, 16 kk + 16).
+__device__ __forceinline__ void to_a_frags(const float (&x)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// Accumulator element j of this thread: row (0..63) and column (0..63)
+// within the tile.
+__device__ __forceinline__ int frag_row(int j) {
+  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) +
+         8 * ((j >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int j) {
+  return 8 * (j >> 2) + 2 * (threadIdx.x & 3) + (j & 1);
+}
+
+// The max over this thread's 16 elements of row half i of a 64 x 64
+// accumulator, then over the four threads that share the row.
+__device__ __forceinline__ float row_max(const float (&x)[32], int i) {
+  float m[8];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+    m[nb] = fmaxf(x[4 * nb + 2 * i], x[4 * nb + 2 * i + 1]);
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int nb = 0; nb < w; ++nb) m[nb] = fmaxf(m[nb], m[nb + w]);
+  return quad_max(m[0]);
 }
 
 }  // namespace

@@ -27,6 +27,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 SOURCES = {"ragged_attention": _CSRC / "ragged_attention.cu",
+           "ragged_attention_tc": _CSRC / "ragged_attention_tc.cu",
            "fused_attention": _CSRC / "fused_attention.cu",
            "fused_attention_tc": _CSRC / "fused_attention_tc.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"

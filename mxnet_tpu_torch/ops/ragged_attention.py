@@ -1,17 +1,28 @@
 """Ragged paged attention: the serving engine's attention over KV pages.
 
 Counterpart of the ragged half of mxnet_tpu/ops/pallas_attention.py.
-Two functions, with hand-written CUDA kernels
-(`csrc/ragged_attention.cu`) and a plain PyTorch version of the same
-math in this module:
+Two functions, with hand-written CUDA kernels and a plain PyTorch
+version of the same math in this module:
 
   * ragged_span_attention   — up to Sq query rows per slot, q_counts[b]
     of them live (decode 1, prefill chunk C, idle 0). Over float pools
     it replaces the Pallas `_ragged_span_kernel`; over int8 pools with
     per-(page, head) float32 scales (k_scale=, v_scale=) it replaces
     `_ragged_span_quant_kernel`. Every engine dispatch runs one of them.
-  * ragged_decode_attention — one query row per slot, float pools.
-    Replaces the Pallas `_ragged_decode_kernel`.
+    Two kernel families, chosen per call by `span_route` before
+    anything is launched:
+      - "tensor_core" (`csrc/ragged_attention_tc.cu`, wgmma): bfloat16 q
+        over bfloat16 or int8 pages, D % 8 == 0, S % 16 == 0 and
+        S <= 256, 16-byte aligned bases;
+      - "cuda_core" (`csrc/ragged_attention.cu`, float32 FMAs): float32
+        q, and the bfloat16 calls the rule refuses.
+    Both split a slot's pages over several blocks when the grid would
+    otherwise leave SMs idle (`span_split_plan`, static shapes only)
+    and combine the splits' partials in split order inside the same
+    launch.
+  * ragged_decode_attention — one query row per slot, float pools
+    (`csrc/ragged_attention.cu`). Replaces the Pallas
+    `_ragged_decode_kernel`.
 
 impl="auto" takes the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA card; a call the kernel cannot take
@@ -19,13 +30,15 @@ raises there — there is no fallback from kernel to plain version.
 impl="torch" takes the plain version on any device (the reference the
 kernels are held to on the card).
 
-Every kernel launch adds one to LAUNCHES[<kernel name>] (the int8 span
-kernel counts under "ragged_span_attention_int8"); nothing else touches
-the counts.
+Every kernel launch adds one to LAUNCHES[<key>]: the span kernels count
+under "ragged_span_attention" + "_int8" for int8 pages + "_tc" on the
+tensor-core route, the decode kernel under "ragged_decode_attention";
+nothing else touches the counts.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,19 +47,33 @@ from ..base import MXNetError
 from . import _build
 
 __all__ = ["ragged_span_attention", "ragged_decode_attention",
-           "ragged_supported", "LAUNCHES", "reset_launches", "NEG_INF"]
+           "ragged_supported", "span_route", "span_split_plan",
+           "span_launch_key", "LAUNCHES", "reset_launches", "NEG_INF"]
 
 NEG_INF = -1e30
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"ragged_span_attention": 0, "ragged_decode_attention": 0,
-            "ragged_span_attention_int8": 0}
+LAUNCHES = {"ragged_span_attention": 0, "ragged_span_attention_int8": 0,
+            "ragged_span_attention_tc": 0,
+            "ragged_span_attention_int8_tc": 0,
+            "ragged_decode_attention": 0}
 
-# mirrors of the kernel's compile-time constants (csrc/ragged_attention.cu)
+# mirrors of the kernels' compile-time constants (csrc/span_split.cuh,
+# csrc/ragged_attention.cu, csrc/ragged_attention_tc.cu)
 _MAX_D = 128
-_SPAN_ROWS = 16
+_SPAN_TILE = 64             # query rows of a span block
+_MAX_SPLITS = 16            # page splits of a query tile at most
+# the split plan's target, in blocks an SM: unsplit, a block walks its
+# (slot, head)'s pages in series. At the 774M kernel cell four blocks
+# an SM beat two by 10-20% on every span kernel, and the two tie at the
+# serve's decode cell (PERF.md section 6)
+_BLOCKS_PER_SM = 4
+_TC_STAGES = 3              # key tiles in flight on the tensor-core route
+_TC_MAX_S = 256             # page sizes the tensor-core route takes
 _DEC_WARPS = 4
 _MAX_SMEM = 232448          # bytes of shared memory a Hopper block may use
+# span_combine's static shared memory: the split weights and a flag
+_STATIC_SMEM = 4 * _MAX_SPLITS * _SPAN_TILE + 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _IMPLS = ("auto", "torch")
 
@@ -56,20 +83,87 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def _span_smem(D, S):
-    return 4 * (_SPAN_ROWS * D + S * (D + 1) + S * D + _SPAN_ROWS * S)
+def _k_stride(row_bytes):
+    """ragged_attention.cu k_stride: an odd count of 16-byte words."""
+    return 16 * ((-(-row_bytes // 16) + 1) | 1)
+
+
+def _span_smem(D, S, itemsize, stages):
+    """ragged_attention.cu span_smem_bytes: q as f32, each row's m, l
+    and alpha, `stages` K and V page stages in the pools' dtype, the
+    probabilities as f32."""
+    row = D * itemsize
+    return 4 * _SPAN_TILE * (((D + 3) & ~3) + 3) \
+        + stages * S * (_k_stride(row) + -(-row // 16) * 16) \
+        + 4 * _SPAN_TILE * S
+
+
+def _tc_smem(D, quant):
+    """ragged_attention_tc.cu tc_smem_bytes: the Q tile and the key ring
+    (bfloat16 tiles; or int8 codes, their scales and one widened K and V
+    tile), with 1024 bytes of alignment slack."""
+    dp = 64 if D <= 64 else 128
+    tile = _SPAN_TILE * dp * 2
+    ring = 2 * tile + _TC_STAGES * (tile + 2 * _SPAN_TILE * 4) if quant \
+        else _TC_STAGES * 2 * tile
+    return 1024 + tile + ring
 
 
 def _decode_smem(D, S):
     return 4 * (D + S * (D + 1) + S * D + S + _DEC_WARPS)
 
 
+def span_route(q, k_pages, v_pages=None):
+    """The span kernel family a CUDA call with these tensors takes,
+    decided before any launch: "tensor_core" for bfloat16 q over
+    bfloat16 or int8 pages with a head dim that is a multiple of 8 (the
+    16-byte and 8-byte async copies), a page size that is a multiple of
+    16 up to 256, every base 16-byte aligned and the staging within a
+    block's shared memory; "cuda_core" for everything else."""
+    D, S = q.shape[-1], k_pages.shape[1]
+    quant = k_pages.dtype == torch.int8
+    bases = (q, k_pages) + (() if v_pages is None else (v_pages,))
+    if q.dtype == torch.bfloat16 \
+            and k_pages.dtype in (torch.bfloat16, torch.int8) \
+            and D % 8 == 0 and D <= _MAX_D \
+            and S % 16 == 0 and S <= _TC_MAX_S \
+            and all(t.data_ptr() % 16 == 0 for t in bases) \
+            and _tc_smem(D, quant) + _STATIC_SMEM <= _MAX_SMEM:
+        return "tensor_core"
+    return "cuda_core"
+
+
+def span_launch_key(route, quant):
+    """The LAUNCHES key of a span launch on `route` over int8 (`quant`)
+    or float pages."""
+    return "ragged_span_attention" + ("_int8" if quant else "") \
+        + ("_tc" if route == "tensor_core" else "")
+
+
+def span_split_plan(B, H, Sq, P, sms):
+    """How many page splits a span launch takes, from static shapes only
+    (no device value is read, so no sync): enough that the grid puts
+    about _BLOCKS_PER_SM blocks on each of the card's `sms` SMs, never
+    fewer than two pages a split and at most _MAX_SPLITS; no split left
+    empty."""
+    if not all(type(x) is int for x in (B, H, Sq, P, sms)):
+        raise TypeError("span_split_plan takes static shapes (int), "
+                        "never a tensor")
+    tiles = B * H * -(-Sq // _SPAN_TILE)
+    if tiles == 0 or P < 2:
+        return 1
+    n = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles), P // 2, _MAX_SPLITS))
+    pps = -(-P // n)
+    return -(-P // pps)
+
+
 def ragged_supported(q, k_pages, v_pages=None):
     """Can the CUDA kernels take this call? q (B, H, D) or (B, Sq, H, D)
     and one layer's pools (N, S, H, D): q float32 or bfloat16, the pools
-    in q's dtype or int8 (the span kernel with scales), k and v alike,
-    head dim at most 128, and the per-page staging within a Hopper
-    block's shared memory."""
+    in q's dtype or int8 (the span kernels with scales), k and v alike,
+    head dim at most 128, and the staging of the span route's kernel
+    (and, for float pools, the decode kernel's) within a Hopper block's
+    shared memory."""
     D, S = q.shape[-1], k_pages.shape[1]
     if q.dtype not in _DTYPES or k_pages.dtype not in (q.dtype, torch.int8):
         return False
@@ -77,7 +171,12 @@ def ragged_supported(q, k_pages, v_pages=None):
         return False
     if not 1 <= D <= _MAX_D or S < 1:
         return False
-    return max(_span_smem(D, S), _decode_smem(D, S)) <= _MAX_SMEM
+    # the CUDA-core kernel stages pages twice where that fits, else once
+    if span_route(q, k_pages, v_pages) == "cuda_core" and \
+            _span_smem(D, S, k_pages.element_size(), 1) + _STATIC_SMEM \
+            > _MAX_SMEM:
+        return False
+    return k_pages.dtype == torch.int8 or _decode_smem(D, S) <= _MAX_SMEM
 
 
 # ---------------------------------------------------------------------------
@@ -144,25 +243,107 @@ def _ragged_span_reference(q, k_pages, v_pages, page_table, lengths,
     return torch.where(rows[:, :, None, None], out, torch.zeros_like(out))
 
 
+def _ragged_span_split_reference(q, k_pages, v_pages, page_table, lengths,
+                                 q_counts, scale, n_split, k_scale=None,
+                                 v_scale=None):
+    """Plain version of the span kernels' split over pages
+    (csrc/span_split.cuh): for each (slot, 64-row query tile), the key
+    range that its last live row sees is cut into page splits of
+    ceil(P / n_split) pages; each split with live keys forms float32
+    partials (running max m, denominator l, unnormalised accumulator)
+    over its keys alone, and the partials are combined in split order.
+    Equal to _ragged_span_reference up to float32 rounding."""
+    B, Sq, H, D = q.shape
+    S, P = k_pages.shape[1], page_table.shape[1]
+    k = _gather_view(k_pages, page_table, k_scale).float()
+    v = _gather_view(v_pages, page_table, v_scale).float()
+    s = torch.einsum("bjhd,bthd->bjht", q.float(), k) * scale
+    pos = torch.arange(P * S, device=q.device)
+    out = torch.zeros(B, Sq, H, D, dtype=torch.float32, device=q.device)
+    span = -(-P // n_split) * S                      # keys of a split
+    for b in range(B):
+        length, qc = int(lengths[b]), int(q_counts[b])
+        for row0 in range(0, Sq, _SPAN_TILE):
+            row_end = min(row0 + _SPAN_TILE, qc, Sq)
+            if row_end <= row0:
+                continue                             # dead tile: zeros
+            kmax = min(max(length + row_end - 1, 0), P * S)
+            rows = torch.arange(row0, row_end, device=q.device)
+            see = pos[None, :] < (length + rows)[:, None]        # (R, T)
+            parts = []
+            for k0 in range(0, kmax, span):
+                keys = see & (pos >= k0) & (pos < min(k0 + span, kmax))
+                x = torch.where(keys[:, None, :], s[b, row0:row_end],
+                                torch.full_like(s[b, row0:row_end], NEG_INF))
+                m = x.amax(dim=-1)                                # (R, H)
+                e = torch.where(m[..., None] <= NEG_INF / 2,
+                                torch.zeros_like(x),
+                                torch.exp(x - m[..., None]))
+                parts.append((m, e.sum(dim=-1),
+                              torch.einsum("rht,thd->rhd", e, v[b])))
+            if not parts:
+                continue                             # no key: zeros
+            M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+            L = torch.zeros_like(M)
+            A = torch.zeros(row_end - row0, H, D, device=q.device)
+            for m, l, a in parts:
+                wt = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                                 torch.exp(m - M))
+                L = L + wt * l
+                A = A + wt[..., None] * a
+            out[b, row0:row_end] = A / L.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+_SPAN_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
 
 def _lib():
     lib = _build.load("ragged_attention")
     if not getattr(lib, "_mxt_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mxt_ragged_span.argtypes = [ptr] * 7 + [i32] * 6 + [
-            ctypes.c_float, i32, ptr]
+        lib.mxt_ragged_span.argtypes = _SPAN_ARGTYPES
         lib.mxt_ragged_span.restype = i32
         lib.mxt_ragged_decode.argtypes = [ptr] * 6 + [i32] * 5 + [
             ctypes.c_float, i32, ptr]
         lib.mxt_ragged_decode.restype = i32
-        lib.mxt_ragged_span_quant.argtypes = [ptr] * 9 + [i32] * 6 + [
-            ctypes.c_float, i32, ptr]
-        lib.mxt_ragged_span_quant.restype = i32
         lib._mxt_bound = True
     return lib
+
+
+def _tc_lib():
+    lib = _build.load("ragged_attention_tc")
+    if not getattr(lib, "_mxt_bound", False):
+        lib.mxt_ragged_span_tc.argtypes = _SPAN_ARGTYPES
+        lib.mxt_ragged_span_tc.restype = ctypes.c_int
+        lib._mxt_bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per (device, stream): the split counters, zero between launches (the
+# last split of each tile resets its own); a launch uses the first
+# `tiles` of them
+_COUNTERS = {}
+
+
+def _counters(device, tiles):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 2 * (0 if c is None else c.numel())),
+                        dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
 
 
 def _check_kernel_args(name, q, k_pages, v_pages, ints, scales=()):
@@ -229,8 +410,8 @@ def ragged_span_attention(q, k_pages, v_pages, page_table, lengths,
                      count are exact zeros. None means every row is live.
     k_scale/v_scale: (>= N, H) float32, per-(page, head) dequant scales of
                      int8 pools; both or neither. With them q keeps its
-                     own dtype (float32 or bfloat16) and each page is
-                     widened to f32 and scaled where it is read.
+                     own dtype (float32 or bfloat16) and the scales are
+                     applied where each page is read.
     Returns (B, Sq, H, D) in q's dtype.
     """
     name = "ragged_span_attention"
@@ -252,27 +433,33 @@ def ragged_span_attention(q, k_pages, v_pages, page_table, lengths,
                        {"page_table": page_table, "lengths": lengths,
                         "q_counts": q_counts},
                        (k_scale, v_scale) if quant else ())
+    route = span_route(q, k_pages, v_pages)
     S, P = k_pages.shape[1], page_table.shape[1]
+    n_split = span_split_plan(B, H, Sq, P, _sm_count(q.device.index))
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = ml = counters = None
+    if n_split > 1:
+        tiles = B * H * -(-Sq // _SPAN_TILE)
+        rows = tiles * n_split * _SPAN_TILE
+        part = torch.empty(rows * D, dtype=torch.float32, device=q.device)
+        ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, tiles)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
-        if quant:
-            name = "ragged_span_attention_int8"
-            err = _lib().mxt_ragged_span_quant(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(),
-                page_table.data_ptr(), lengths.data_ptr(),
-                q_counts.data_ptr(), out.data_ptr(), B, Sq, H, D, S, P, s,
-                _DTYPES[q.dtype], stream)
-        else:
-            err = _lib().mxt_ragged_span(
-                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), lengths.data_ptr(),
-                q_counts.data_ptr(), out.data_ptr(), B, Sq, H, D, S, P, s,
-                _DTYPES[q.dtype], stream)
+        fn = _tc_lib().mxt_ragged_span_tc if route == "tensor_core" \
+            else _lib().mxt_ragged_span
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 ptr(k_scale), ptr(v_scale), page_table.data_ptr(),
+                 lengths.data_ptr(), q_counts.data_ptr(), out.data_ptr(),
+                 ptr(part), ptr(ml), ptr(counters), B, Sq, H, D, S, P,
+                 n_split, s, _DTYPES[q.dtype], int(quant),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    key = span_launch_key(route, quant)
     if err:
-        raise MXNetError(f"{name}: kernel launch failed (cudaError {err})")
-    LAUNCHES[name] += 1
+        raise MXNetError(f"{key}: kernel launch failed (cudaError {err})")
+    LAUNCHES[key] += 1
     return out
 
 

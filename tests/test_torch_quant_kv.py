@@ -178,8 +178,10 @@ def test_ragged_supported_int8_pools():
     assert not ra.ragged_supported(qf, _t(kq), _t(np.float32(vq)))
     assert not ra.ragged_supported(qf, _t(np.float32(kq)), _t(vq))
     assert not ra.ragged_supported(_t(q).to(torch.int8), _t(kq))
-    # the shared-memory limit is the float kernel's (staging is in f32)
-    q3, kq3, *_ = _quant_pool(B=1, H=1, D=128, S=256, P=1, Sq=1)
+    # int8 pages are staged as codes, one byte an element: a page of
+    # 512 keys at D = 128 overflows a block's shared memory even staged
+    # once
+    q3, kq3, *_ = _quant_pool(B=1, H=1, D=128, S=512, P=1, Sq=1)
     assert not ra.ragged_supported(_t(q3), _t(kq3))
 
 
@@ -207,6 +209,69 @@ def test_int8_kernel_argument_check_refuses(bad):
         ks = torch.cat([ks, ks], dim=1)[:, ::2]
     with pytest.raises(MXNetError):
         ra._check_kernel_args("span", q, kq, vq, ints, (ks, vs))
+
+
+@pytest.mark.parametrize("splits", ["1", "2", "P"])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_int8_span_split_plain_matches_reference(splits, qdtype):
+    """The plain version of the kernels' split over pages on int8 pages
+    with scales: equal to the span reference (1e-6 in float32, 1.2e-2
+    of the largest value in bfloat16) for 1, 2 and P splits, with idle
+    slots, dead rows (exact zeros) and splits past the live pages."""
+    q, kq, vq, table, ks, vs = _quant_pool(B=4, P=8, S=4, seed=7)
+    dt = getattr(torch, qdtype)
+    n = {"1": 1, "2": 2, "P": 8}[splits]
+    qc = np.int32([4, 5, 8, 0])
+    args = (_t(q, dt), _t(kq), _t(vq), _t(table),
+            _t(np.int32([13, 28, 1, 6])), _t(qc), SCALE)
+    kw = dict(k_scale=_t(ks), v_scale=_t(vs))
+    ref = ra._ragged_span_reference(*args, **kw).float()
+    got = ra._ragged_span_split_reference(*args, n, **kw).float()
+    if dt == torch.float32:
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    else:
+        assert (got - ref).abs().max() <= BF16_REL_TOL * ref.abs().max()
+    dead = np.arange(8)[None, :] >= qc[:, None]
+    assert (got.numpy()[dead] == 0).all()
+
+
+def test_int8_codes_exact_in_bfloat16():
+    """The tensor-core kernel widens int8 codes to bfloat16 in shared
+    memory: every code in [-127, 127] survives the round trip."""
+    codes = torch.arange(-127, 128, dtype=torch.int8)
+    assert torch.equal(codes.to(torch.bfloat16).to(torch.int8), codes)
+    assert torch.equal(codes.to(torch.bfloat16).float(), codes.float())
+
+
+def test_int8_scales_leave_the_products():
+    """Both span kernels keep the (page, head) scales out of the
+    products: (q . codes) * k_scale equals q . (codes * k_scale), and
+    (p * v_scale) . codes equals p . (codes * v_scale), at 1e-6."""
+    q, kq, vq, table, ks, vs = _quant_pool(B=1, H=2, D=16, S=8, P=2)
+    qf = _t(q[0, :, 0])                       # (Sq, D), head 0
+    codes_k = _t(kq[0, :, 0]).float()         # (S, D), page 0
+    codes_v = _t(vq[0, :, 0]).float()
+    k0, v0 = float(ks[0, 0]), float(vs[0, 0])
+    np.testing.assert_allclose((qf @ codes_k.T * k0).numpy(),
+                               (qf @ (codes_k * k0).T).numpy(), rtol=1e-6,
+                               atol=1e-6)
+    p = torch.softmax(qf @ codes_k.T * k0 * SCALE, dim=-1)
+    np.testing.assert_allclose(((p * v0) @ codes_v).numpy(),
+                               (p @ (codes_v * v0)).numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_int8_span_route():
+    """int8 pages take the tensor cores under bfloat16 q, the CUDA
+    cores under float32 q, and count under their own keys."""
+    q, kq, vq, *_ = _quant_pool(H=2, D=64, S=64, P=1)
+    assert ra.span_route(_t(q, torch.bfloat16), _t(kq), _t(vq)) == \
+        "tensor_core"
+    assert ra.span_route(_t(q), _t(kq), _t(vq)) == "cuda_core"
+    q2, kq2, vq2, *_ = _quant_pool(H=2, D=40, S=12, P=1)
+    assert ra.span_route(_t(q2, torch.bfloat16), _t(kq2), _t(vq2)) == \
+        "cuda_core"
 
 
 # ---------------------------------------------------------------------------

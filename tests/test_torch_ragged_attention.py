@@ -153,8 +153,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     plain = ra.ragged_span_attention(*args, impl="torch")
     assert torch.equal(auto, plain)
     assert ra.LAUNCHES == {"ragged_span_attention": 0,
-                           "ragged_decode_attention": 0,
-                           "ragged_span_attention_int8": 0}
+                           "ragged_span_attention_int8": 0,
+                           "ragged_span_attention_tc": 0,
+                           "ragged_span_attention_int8_tc": 0,
+                           "ragged_decode_attention": 0}
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas", "cuda"])
@@ -216,3 +218,150 @@ def test_kernel_sources_and_build_names():
         assert path == _build.library_path(name)    # stable digest
         assert path.name.startswith(name + "-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# the span kernels' split over pages, route rule and shared-memory mirrors
+# ---------------------------------------------------------------------------
+
+def _split_cases():
+    """(pool kwargs, lengths, q_counts): idle slots, dead rows, slots
+    whose keys end on a split boundary or leave splits with no live
+    page, every page live (length P*S - q_count + 1), and a second
+    64-row query tile."""
+    return [(dict(B=5, P=4, S=8, Sq=8), [9, 17, 1, 30, 12], [1, 4, 8, 0, 5]),
+            (dict(B=4, P=8, S=4, Sq=8), [13, 28, 1, 6], [4, 5, 8, 0]),
+            (dict(B=2, P=6, S=16, Sq=70, H=1), [30, 96 - 70 + 1],
+             [70, 70])]
+
+
+@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("splits", ["1", "2", "P"])
+def test_span_split_plain_matches_reference(case, splits):
+    """The plain version of the kernels' split, partials and combine
+    equals the span reference at 1e-6 for 1, 2 and P splits; dead rows
+    and idle slots are exact zeros."""
+    kw, lens, qc = _split_cases()[case]
+    q, kp, vp, table = _pool(**kw)
+    P = table.shape[1]
+    n = {"1": 1, "2": 2, "P": P}[splits]
+    args = (_t(q), _t(kp), _t(vp), _t(table), _t(np.int32(lens)),
+            _t(np.int32(qc)), SCALE)
+    ref = ra._ragged_span_reference(*args)
+    got = ra._ragged_span_split_reference(*args, n)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    dead = np.arange(q.shape[1])[None, :] >= np.asarray(qc)[:, None]
+    assert (got.numpy()[dead] == 0).all()
+
+
+def test_span_split_plain_matches_reference_bf16():
+    q, kp, vp, table = _pool(B=4, P=8, S=4, seed=6)
+    args = (_t(q, torch.bfloat16), _t(kp, torch.bfloat16),
+            _t(vp, torch.bfloat16), _t(table),
+            _t(np.int32([13, 28, 1, 6])), _t(np.int32([4, 5, 8, 0])), SCALE)
+    ref = ra._ragged_span_reference(*args).float()
+    got = ra._ragged_span_split_reference(*args, 4).float()
+    assert (got - ref).abs().max() <= 1.2e-2 * ref.abs().max()
+
+
+def test_span_split_plan():
+    # the kernel cell and the serve's dispatch: 160 tiles -> 4 splits
+    # (about four blocks an SM), 4 pages each
+    assert ra.span_split_plan(8, 20, 64, 16, 132) == 4
+    # a grid that fills the card alone takes no split
+    assert ra.span_split_plan(64, 20, 64, 16, 132) == 1
+    assert ra.span_split_plan(0, 20, 64, 16, 132) == 1
+    # one page: nothing to split
+    assert ra.span_split_plan(1, 1, 1, 1, 132) == 1
+    for B, H, Sq, P in [(1, 1, 1, 64), (1, 2, 8, 5), (2, 3, 130, 9),
+                        (8, 20, 64, 16), (3, 1, 64, 33), (1, 1, 64, 2)]:
+        n = ra.span_split_plan(B, H, Sq, P, 132)
+        pps = -(-P // n)
+        assert 1 <= n <= ra._MAX_SPLITS
+        assert n == 1 or pps >= 2           # never under 2 pages a split
+        assert (n - 1) * pps < P            # no split left empty
+
+
+def test_span_split_plan_reads_static_shapes_only():
+    """The plan takes plain integers (shapes and the SM count), never a
+    tensor: the wrapper decides it without reading device values."""
+    import inspect
+    assert list(inspect.signature(ra.span_split_plan).parameters) == [
+        "B", "H", "Sq", "P", "sms"]
+    with pytest.raises(TypeError):
+        ra.span_split_plan(torch.tensor(8), 20, 64, 16, 132)
+
+
+def _route(qdtype, D=64, S=64, pool=None, offset=0):
+    q = torch.zeros(2, 8, 2, D, dtype=qdtype)
+    n = 4 * S * 2 * D
+    buf = torch.zeros(n + 16, dtype=pool or qdtype)
+    kp = buf[offset:offset + n].view(4, S, 2, D)
+    return ra.span_route(q, kp, kp)
+
+
+def test_span_route_rule():
+    bf = torch.bfloat16
+    assert _route(bf) == "tensor_core"
+    assert _route(bf, pool=torch.int8) == "tensor_core"
+    assert _route(bf, D=128, S=16) == "tensor_core"
+    assert _route(bf, D=40, S=256) == "tensor_core"   # pads to 64
+    # float32 q stays on the CUDA cores (1e-5 needs float32 FMAs)
+    assert _route(torch.float32) == "cuda_core"
+    assert _route(torch.float32, pool=torch.int8) == "cuda_core"
+    # head dim, page size and alignment the tensor cores refuse
+    assert _route(bf, D=12) == "cuda_core"
+    assert _route(bf, D=40, S=12) == "cuda_core"
+    assert _route(bf, S=8) == "cuda_core"
+    assert _route(bf, S=272) == "cuda_core"
+    assert _route(bf, offset=4) == "cuda_core"         # 8 bytes off
+    assert _route(bf, pool=torch.int8, offset=4) == "cuda_core"
+    assert ra.span_launch_key("tensor_core", False) == \
+        "ragged_span_attention_tc"
+    assert ra.span_launch_key("tensor_core", True) == \
+        "ragged_span_attention_int8_tc"
+    assert ra.span_launch_key("cuda_core", False) == "ragged_span_attention"
+    assert ra.span_launch_key("cuda_core", True) == \
+        "ragged_span_attention_int8"
+    assert set(ra.LAUNCHES) == {ra.span_launch_key(r, qt) for r in (
+        "tensor_core", "cuda_core") for qt in (False, True)} | {
+        "ragged_decode_attention"}
+
+
+def _constants(path):
+    import re
+    text = path.read_text()
+    return {m[0]: int(m[1]) for m in re.findall(
+        r"constexpr (?:int|size_t) (\w+) = (\d+);", text)}
+
+
+def test_shared_memory_mirrors_match_kernel_constants():
+    """The wrapper's mirrors of the kernels' compile-time constants."""
+    csrc = _build.SOURCES["ragged_attention"].parent
+    split = _constants(csrc / "span_split.cuh")
+    cc = _constants(csrc / "ragged_attention.cu")
+    tc = _constants(csrc / "ragged_attention_tc.cu")
+    assert split["SPAN_TILE"] == ra._SPAN_TILE == 64
+    assert split["SPAN_MAX_SPLITS"] == ra._MAX_SPLITS
+    assert tc["STAGES"] == ra._TC_STAGES
+    assert tc["BN"] == ra._SPAN_TILE
+    assert cc["MAX_SMEM"] == ra._MAX_SMEM
+    assert cc["MAX_D"] == ra._MAX_D
+    # span_combine's static weights: SPAN_MAX_SPLITS x SPAN_TILE floats
+    # and a flag (ptxas reports 4112 bytes of static shared memory)
+    assert ra._STATIC_SMEM == 4 * ra._MAX_SPLITS * ra._SPAN_TILE + 16
+    # K rows: an odd count of 16-byte words, the row and a word at least
+    for row in (40, 48, 64, 80, 128, 160, 256, 512):
+        w = ra._k_stride(row) // 16
+        assert w % 2 == 1 and 16 * w >= row + 16
+    # the tensor-core staging: Q tile + 3 stages of K and V (bfloat16),
+    # or Q + widened K/V + 3 stages of codes and scales (int8)
+    assert ra._tc_smem(64, False) == 1024 + 8192 + 3 * 16384
+    assert ra._tc_smem(128, False) == 1024 + 16384 + 3 * 32768
+    assert ra._tc_smem(64, True) == 1024 + 8192 + 16384 + 3 * (8192 + 512)
+    assert ra._tc_smem(40, True) == ra._tc_smem(64, True)
+    # the CUDA-core staging at the serve's shapes: two stages fit
+    assert ra._span_smem(64, 64, 4, 2) + ra._STATIC_SMEM <= ra._MAX_SMEM
+    assert ra._span_smem(128, 128, 4, 2) + ra._STATIC_SMEM > ra._MAX_SMEM
+    assert ra._span_smem(128, 128, 4, 1) + ra._STATIC_SMEM <= ra._MAX_SMEM
