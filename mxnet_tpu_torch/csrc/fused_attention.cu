@@ -41,34 +41,52 @@
 //            then one block per (b, h, 64-query tile) for dQ, and one
 //            block per (b, h, 64-key tile) that loops over query tiles
 //            for dK and dV. No atomics: the results are deterministic.
-//            The dQ kernel runs first and writes d_row for the second.
+//            The dQ kernel runs first and writes the row statistics and,
+//            with dropout, the keep bits that the second reads instead of
+//            hashing again.
 //   Causal tiles stop at the diagonal (forward, dQ) or start there (dK,
-//   dV). 256 threads: 16 row groups of 4 rows x 16 lanes of 4 columns;
-//   a row's 16 lanes are one half-warp, so row reductions are shuffles.
+//   dV). Forward: 256 threads, 16 row groups of 4 rows x 16 lanes of 4
+//   columns; a row's 16 lanes are one half-warp, so row reductions are
+//   shuffles. Backward: 128 threads, four warps of 16 rows, the score
+//   tiles in the accumulator layout of the tensor-core kernels, whose
+//   per-element work (attention_common.cuh: ds_tile, grads_tile,
+//   store_keep) it shares.
 //
 // What bounds it on an H100: operations. At BERT-base shapes (T = 512,
 // D = 64) a (b, h) cell does 4·T²·D flops forward on 4·T·D values read
 // or written and 10·T²·D backward on 7·T·D: 128 and ~180 flops per
 // float32 byte, far above the float32 ridge (~20); in bfloat16 (256 and
-// ~360 per byte) near the tensor cores' ridge (~295). The products here
-// are scalar FMAs on float32 values staged in shared memory (rows
-// padded to D + 1 floats against bank conflicts), far below the
-// bfloat16 tensor core peak; wgmma, TMA and a pipelined K/V ring are
-// later work.
+// ~360 per byte) near the tensor cores' ridge (~295). float32 is held to
+// 1e-5 (forward) and 1e-4 (gradients), which one TF32 rounding of the
+// operands misses (~3e-4 of a product). The forward's products are
+// scalar FMAs on float32 values staged in shared memory (rows padded to
+// D + 1 floats against bank conflicts). The backward's run on the tensor
+// cores as mma.sync m16n8k8 TF32 in split form: each float32 operand is
+// hi + lo TF32 terms and each product hi·hi + hi·lo + lo·hi, float32
+// sums, so it keeps float32's accuracy at three tensor-core products a
+// step (bfloat16 operands are exact in TF32 and take one); its
+// exponentials are ex2.approx of the log2e-scaled argument. Tiles are
+// staged by cp.async (16-byte copies where rows, strides and bases
+// allow, narrower ones else) with rows padded to 16 bytes past a
+// multiple of 128, so every fragment load meets each bank once; S and
+// dS stay in registers, dS·K and Pᵀ·dO take them as A fragments as they
+// stand (the fragment's k index permuted within each 8-key step). A
+// probe against register-tiled CUDA-core FMAs on the dQ pass is in
+// fused_bwd_probe.cu.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace {
 
 constexpr int MAX_D = 128;
-constexpr int BM = 64;               // query rows per tile
-constexpr int BN = 64;               // keys per tile
-constexpr int THREADS = 256;         // 16 row groups x 16 lanes
+constexpr int THREADS = 256;         // forward: 16 row groups x 16 lanes
 constexpr int RPT = 4;               // rows of a thread (BM / 16)
 constexpr int CPT = 4;               // columns of a thread (BN / 16)
 
@@ -129,14 +147,6 @@ __device__ __forceinline__ float masked_score(float dot, const Geometry& g,
   float x = dot * g.scale + bias;
   if (g.causal && row + (g.Tk - g.Tq) < col) x = NEG_INF;
   return x;
-}
-
-// Key tiles a query tile [r0, r0 + 64) must visit.
-__device__ __forceinline__ int key_tiles(const Geometry& g, int r0) {
-  const int nkt = (g.Tk + BN - 1) / BN;
-  if (!g.causal) return nkt;
-  const int last = min(r0 + BM, g.Tq) - 1 + (g.Tk - g.Tq);
-  return last < 0 ? 0 : min(nkt, last / BN + 1);
 }
 
 // --------------------------------------------------------------------------
@@ -278,306 +288,408 @@ __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
 }
 
 // --------------------------------------------------------------------------
-// backward: dQ (and d_row)
+// backward: dQ and dK/dV, products on the tensor cores in split TF32
 // --------------------------------------------------------------------------
 
-template <typename T, int DJ>
-__global__ void __launch_bounds__(THREADS) fused_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ o32,
-    const T* __restrict__ dout, const float* __restrict__ bias,
-    const int* __restrict__ seed, const float* __restrict__ m_in,
-    const float* __restrict__ l_in, float* __restrict__ d_row_out,
-    T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides so,
-    Strides sdo, Strides sdq, Geometry g) {
-  const int bh = blockIdx.x;
-  const int b = bh / g.H, h = bh - b * g.H;
-  const int r0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, grp = tid >> 4, ln = tid & 15;
-  const int D = g.D;
-  const int ld = D + 1, ldp = BN + 1;
+constexpr int BWD_THREADS = 128;     // four warps, 16 rows of a tile each
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // BM x (D + 1)
-  float* do_s = q_s + BM * ld;       // BM x (D + 1)
-  float* k_s = do_s + BM * ld;       // BN x (D + 1)
-  float* v_s = k_s + BN * ld;        // BN x (D + 1)
-  float* ds_s = v_s + BN * ld;       // BM x (BN + 1)
+// A staged 64-row tile of DP columns: row stride DP + 4 floats or DP + 8
+// bfloat16, 16 bytes past a multiple of 128, so that a fragment load (8
+// rows x 4 columns, or 4 row pairs x 8 columns) meets 32 banks once.
+template <typename T, int DP>
+struct Tile {
+  static constexpr int LD = DP + 16 / (int)sizeof(T);
+  static constexpr int ELEMS = 64 * LD;
+};
 
-  stage<T>(q, sq, b, h, r0, g.Tq, D, q_s, ld);
-  stage<T>(dout, sdo, b, h, r0, g.Tq, D, do_s, ld);
-  __syncthreads();
-  const uint32_t s0 = (uint32_t)seed[0];
-  const uint32_t s1 = (uint32_t)seed[1] ^ (uint32_t)bh;
-  const float* bias_b = bias + (long long)b * g.Tk;
+// x as TF32 terms, passed to mma.sync as raw float32 bits (the tensor
+// cores read a TF32 operand's top 19 bits and ignore the 13 below): hi =
+// x, read as x truncated to TF32, and with SPLIT lo = x - that truncation,
+// exact in float32 and read truncated in turn (2^-21 of x at most lost).
+// Two integer and float operations an element, where cvt.rna.tf32.f32
+// for both terms was measurably slower.
+template <bool SPLIT>
+__device__ __forceinline__ void tf32_terms(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = SPLIT ? __float_as_uint(x - __uint_as_float(hi & 0xffffe000u)) : 0u;
+}
 
-  // per row: the max, the clamped denominator and d_row = Σ dO·O
-  float m_i[RPT], lc_i[RPT], dr_i[RPT], acc[RPT][DJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int lr = grp * RPT + i;
-    const int row = r0 + lr;
-    float part = 0.f;
-    m_i[i] = NEG_INF;
-    lc_i[i] = 1.f;
-    if (row < g.Tq) {
-      m_i[i] = m_in[(long long)bh * g.Tq + row];
-      lc_i[i] = fmaxf(l_in[(long long)bh * g.Tq + row], 1e-30f);
-      const float* orow = o32 + at(so, b, row, h);
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const int d = ln + 16 * jj;
-        if (d < D) part = fmaf(do_s[lr * ld + d], orow[d], part);
-      }
-    }
-    dr_i[i] = half_sum(part);
-    if (row < g.Tq && ln == 0) d_row_out[(long long)bh * g.Tq + row] = dr_i[i];
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
+// d (16 x 8, the accumulator layout) += a (16 x 8) · b (8 x 8).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step of 8: with SPLIT (float32 operands) the three products
+// lo·hi + hi·lo + hi·hi of the operands' TF32 terms (the dropped lo·lo is
+// 2^-20 of the product at most); without (bfloat16 operands, exact in
+// TF32) hi·hi alone.
+template <bool SPLIT>
+__device__ __forceinline__ void mma_step(float* d, const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         uint32_t bh0, uint32_t bh1,
+                                         uint32_t bl0, uint32_t bl1) {
+  if constexpr (SPLIT) {
+    mma_tf32(d, al, bh0, bh1);
+    mma_tf32(d, ah, bl0, bl1);
   }
+  mma_tf32(d, ah, bh0, bh1);
+}
 
-  const int n_tiles = key_tiles(g, r0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int c0 = kt * BN;
-    __syncthreads();
-    stage<T>(k, sk, b, h, c0, g.Tk, D, k_s, ld);
-    stage<T>(v, sv, b, h, c0, g.Tk, D, v_s, ld);
-    __syncthreads();
-
-    float s[RPT][CPT], da[RPT][CPT];
+// acc (16 x 64) = X·Yᵀ over DP columns: X this warp's 16 rows of a staged
+// tile, Y all 64 rows of another (S = Q·Kᵀ and dP = dO·Vᵀ; Sᵀ = K·Qᵀ and
+// dPᵀ = V·dOᵀ in the dK/dV kernel). acc is in the accumulator layout
+// (frag_row, frag_col), eight 8-column blocks.
+template <typename T, int DP>
+__device__ __forceinline__ void product_xyt(float (&acc)[32], const T* x,
+                                            const T* y) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = Tile<T, DP>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const T* xr = x + (16 * (threadIdx.x >> 5) + g) * LD + t;
+  const T* yr = y + g * LD + t;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+  for (int j = 0; j < 32; ++j) acc[j] = 0.f;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = da[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], dov[RPT], kv[CPT], vv[CPT];
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    tf32_terms<SPLIT>(to_f32(xr[8 * kk]), ah[0], al[0]);
+    tf32_terms<SPLIT>(to_f32(xr[8 * LD + 8 * kk]), ah[1], al[1]);
+    tf32_terms<SPLIT>(to_f32(xr[8 * kk + 4]), ah[2], al[2]);
+    tf32_terms<SPLIT>(to_f32(xr[8 * LD + 8 * kk + 4]), ah[3], al[3]);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = q_s[(grp * RPT + i) * ld + d];
-        dov[i] = do_s[(grp * RPT + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        kv[j] = k_s[(ln + 16 * j) * ld + d];
-        vv[j] = v_s[(ln + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          da[i][j] = fmaf(dov[i], vv[j], da[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int lr = grp * RPT + i;
-      const int row = r0 + lr;
-      const bool dead = m_i[i] <= NEG_INF * 0.5f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = c0 + ln + 16 * j;
-        float ds = 0.f;
-        if (!dead && col < g.Tk && row < g.Tq) {
-          const float x = masked_score(s[i][j], g, bias_b[col], row, col);
-          const float p = expf(x - m_i[i]) / lc_i[i];
-          float dp = da[i][j] * g.inv_keep;
-          if (g.dropout && !keep_bit(s0, s1, row, col, g.Tk, g.threshold))
-            dp = 0.f;
-          ds = round_to<T>(p * (dp - dr_i[i]) * g.scale);
-        }
-        ds_s[lr * ldp + ln + 16 * j] = ds;
-      }
-    }
-    __syncwarp();
-
-    for (int c = 0; c < BN; ++c) {
-      float dsv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) dsv[i] = ds_s[(grp * RPT + i) * ldp + c];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const int d = ln + 16 * jj;
-        const float kv = d < D ? k_s[c * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][jj] = fmaf(dsv[i], kv, acc[i][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = r0 + grp * RPT + i;
-    if (row >= g.Tq) continue;
-    T* out = dq + at(sdq, b, row, h);
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = ln + 16 * jj;
-      if (d < D) out[d] = from_f32<T>(acc[i][jj]);
+    for (int nb = 0; nb < 8; ++nb) {
+      const T* yb = yr + 8 * nb * LD + 8 * kk;
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_terms<SPLIT>(to_f32(yb[0]), bh0, bl0);
+      tf32_terms<SPLIT>(to_f32(yb[4]), bh1, bl1);
+      mma_step<SPLIT>(acc + 4 * nb, ah, al, bh0, bh1, bl0, bl1);
     }
   }
 }
 
-// --------------------------------------------------------------------------
-// backward: dK and dV
-// --------------------------------------------------------------------------
-
-// Thread layout transposed: a row group owns 4 keys, a lane 4 queries.
-template <typename T, int DJ>
-__global__ void __launch_bounds__(THREADS) fused_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ bias, const int* __restrict__ seed,
-    const float* __restrict__ m_in, const float* __restrict__ l_in,
-    const float* __restrict__ d_row, T* __restrict__ dk,
-    T* __restrict__ dv, Strides sq, Strides sk, Strides sv, Strides sdo,
-    Strides sdk, Strides sdv, Geometry g) {
-  const int bh = blockIdx.x;
-  const int b = bh / g.H, h = bh - b * g.H;
-  const int c0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, grp = tid >> 4, ln = tid & 15;
-  const int D = g.D;
-  const int ld = D + 1, ldp = BM + 1;
-
-  extern __shared__ float smem[];
-  float* k_s = smem;                 // BN x (D + 1)
-  float* v_s = k_s + BN * ld;        // BN x (D + 1)
-  float* q_s = v_s + BN * ld;        // BM x (D + 1)
-  float* do_s = q_s + BM * ld;       // BM x (D + 1)
-  float* a_s = do_s + BM * ld;       // BN x (BM + 1)
-  float* ds_s = a_s + BN * ldp;      // BN x (BM + 1)
-  float* m_s = ds_s + BN * ldp;      // BM
-  float* lc_s = m_s + BM;            // BM
-  float* dr_s = lc_s + BM;           // BM
-
-  stage<T>(k, sk, b, h, c0, g.Tk, D, k_s, ld);
-  stage<T>(v, sv, b, h, c0, g.Tk, D, v_s, ld);
-  const uint32_t s0 = (uint32_t)seed[0];
-  const uint32_t s1 = (uint32_t)seed[1] ^ (uint32_t)bh;
-  float bkey[RPT];
+// acc (16 x DP) += A·Y: A this warp's 16 x 64 tile in the accumulator
+// layout (dS or P, in registers), Y a staged 64-row tile. Within each
+// 8-key step the A fragment's columns t and t + 4 are keys 2t and 2t + 1,
+// so that the accumulator registers are the fragment as they stand; the
+// B fragment takes Y's rows of the same keys.
+template <typename T, int DP>
+__device__ __forceinline__ void product_ay(float (&acc)[DP / 2],
+                                           const float (&a)[32],
+                                           const T* y) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = Tile<T, DP>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const T* yr = y + 2 * t * LD + g;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int col = c0 + grp * RPT + i;
-    bkey[i] = col < g.Tk ? bias[(long long)b * g.Tk + col] : 0.f;
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t ah[4], al[4];
+    tf32_terms<SPLIT>(a[4 * kk], ah[0], al[0]);
+    tf32_terms<SPLIT>(a[4 * kk + 2], ah[1], al[1]);
+    tf32_terms<SPLIT>(a[4 * kk + 1], ah[2], al[2]);
+    tf32_terms<SPLIT>(a[4 * kk + 3], ah[3], al[3]);
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb) {
+      const T* yb = yr + 8 * kk * LD + 8 * nb;
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_terms<SPLIT>(to_f32(yb[0]), bh0, bl0);
+      tf32_terms<SPLIT>(to_f32(yb[LD]), bh1, bl1);
+      mma_step<SPLIT>(acc + 4 * nb, ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// Copies 64-row tiles of one head (b, h) of a (batch, time, head)-strided
+// tensor into staged tiles: thread t moves `unit` bytes at column t % cpr
+// of rows t / cpr + k·(128 / cpr), by cp.async for 16, 8 or 4 bytes (the
+// caller commits) or a plain 2-byte copy; rows past the extent are zero.
+// Columns [D, DP) are zero_pad's.
+template <typename T, int DP>
+struct RowCopier {
+  const uint8_t* src;  // this thread's chunk at time 0
+  long long st;        // time stride in bytes
+  int unit, r0, rpp, col;
+  bool active;
+
+  __device__ __forceinline__ RowCopier(const T* x, const Strides& s, int b,
+                                       int h, int D, int unit_) {
+    unit = unit_;
+    const int cpr = D * (int)sizeof(T) / unit;
+    rpp = BWD_THREADS / cpr;
+    r0 = threadIdx.x / cpr;
+    col = (threadIdx.x - r0 * cpr) * unit;
+    active = threadIdx.x < rpp * cpr;
+    st = s.t * (long long)sizeof(T);
+    src = reinterpret_cast<const uint8_t*>(x + at(s, b, 0, h)) + col;
   }
 
-  float dk_acc[RPT][DJ], dv_acc[RPT][DJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+  // rows [t0, t0 + 64) into the tile at dst
+  __device__ __forceinline__ void copy(T* dst, int t0, int n) const {
+    if (!active) return;
+    constexpr int RB = Tile<T, DP>::LD * (int)sizeof(T);
+    uint8_t* d = reinterpret_cast<uint8_t*>(dst) + col;
+    for (int r = r0; r < 64; r += rpp) {
+      const bool in = t0 + r < n;
+      const uint8_t* p = in ? src + (long long)(t0 + r) * st : src;
+      uint8_t* dr = d + r * RB;
+      const uint32_t ds = smem_u32(dr);
+      if (unit == 16)
+        cp_async16(ds, p, in ? 16 : 0);
+      else if (unit == 8)
+        cp_async8(ds, p, in ? 8 : 0);
+      else if (unit == 4)
+        cp_async4(ds, p, in ? 4 : 0);
+      else
+        *reinterpret_cast<uint16_t*>(dr) =
+            in ? *reinterpret_cast<const uint16_t*>(p) : (uint16_t)0;
+    }
+  }
+};
 
-  // causal: the first query that sees key c0 is c0 - (Tk - Tq)
+// Zeros columns [D, DP) of `count` consecutive staged tiles: the k-steps
+// of the products run to DP.
+template <typename T, int DP>
+__device__ __forceinline__ void zero_pad(T* tiles, int count, int D) {
+  constexpr int LD = Tile<T, DP>::LD;
+  const int w = DP - D;
+  for (int i = threadIdx.x; i < count * 64 * w; i += BWD_THREADS) {
+    const int r = i / w;
+    tiles[r * LD + D + (i - r * w)] = from_f32<T>(0.f);
+  }
+}
+
+// Store this thread's part of a 64 x DP accumulator as rows t0 +
+// frag_row (those below n), columns below D.
+template <typename T, int NA>
+__device__ __forceinline__ void store_acc(const float (&acc)[NA], T* x,
+                                          const Strides& s, int b, int h,
+                                          int t0, int n, int D) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + frag_row(2 * i);
+    if (t >= n) continue;
+    T* row = x + at(s, b, t, h);
+#pragma unroll
+    for (int nb = 0; nb < NA / 4; ++nb) {
+      const int d = frag_col(4 * nb);
+      if (d < D) row[d] = from_f32<T>(acc[4 * nb + 2 * i]);
+      if (d + 1 < D) row[d + 1] = from_f32<T>(acc[4 * nb + 2 * i + 1]);
+    }
+  }
+}
+
+// One block per (b, h, 64-query tile): d_row = rowsum(dO ⊙ O) and the
+// row statistics the dK/dV kernel reads (rowbuf: float32 (2, B, H, Tq),
+// [0] = lse = m·log2e + log2(max(l, 1e-30)), +inf for a dead row, [1] =
+// d_row·scale), then over the key tiles: S = Q·Kᵀ and dP = dO·Vᵀ,
+// dS = p·scale·(dP - d_row) on the fragment (ds_tile, which also hands
+// the dropout keep bits to `keep`, 32 keys a word), dQ += dS·K. One stage
+// of K and V: 70 KB of shared memory at DP = 64 in float32 and at most
+// 168 registers a thread put three blocks on an SM, which hide each
+// other's copies (a second stage, and so two blocks an SM, was slower).
+template <typename T, int DP>
+__global__ void __launch_bounds__(BWD_THREADS, 3) fused_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ o32,
+    const T* __restrict__ dout, const float* __restrict__ bias,
+    const int* __restrict__ seed, const float* __restrict__ m_in,
+    const float* __restrict__ l_in, float* __restrict__ rowbuf,
+    uint32_t* __restrict__ keep, T* __restrict__ dq, Strides sq,
+    Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
+    long long bht, int unit, Geometry g) {
+  constexpr int TE = Tile<T, DP>::ELEMS;
+  extern __shared__ __align__(16) uint8_t bwd_smem[];
+  T* q_s = reinterpret_cast<T*>(bwd_smem);
+  T* do_s = q_s + TE;
+  T* k_s = do_s + TE;
+  T* v_s = k_s + TE;
+
   const int nqt = (g.Tq + BM - 1) / BM;
-  int first = 0;
+  const int bh = blockIdx.x / nqt, r0 = (blockIdx.x - bh * nqt) * BM;
+  const int b = bh / g.H, h = bh - b * g.H;
+  const int rows[2] = {r0 + frag_row(0), r0 + frag_row(2)};
+  const int n = key_tiles(g, r0);
+  const long long row0 = (long long)bh * g.Tq;
+  const RowCopier<T, DP> kc(k, sk, b, h, g.D, unit),
+      vc(v, sv, b, h, g.D, unit);
+  RowCopier<T, DP>(q, sq, b, h, g.D, unit).copy(q_s, r0, g.Tq);
+  RowCopier<T, DP>(dout, sdo, b, h, g.D, unit).copy(do_s, r0, g.Tq);
+  if (n > 0) {
+    kc.copy(k_s, 0, g.Tk);
+    vc.copy(v_s, 0, g.Tk);
+  }
+  cp_async_commit();
+  zero_pad<T, DP>(q_s, 4, g.D);
+
+  // per row: lsq (ds_tile's) and d_row = Σ dO·O
+  const float log2_scale = log2f(g.scale);
+  float lsq[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rows[i];
+    const bool in = row < g.Tq;
+    float part = 0.f;
+    if (in) {
+      const T* dorow = dout + at(sdo, b, row, h);
+      const float* orow = o32 + at(so, b, row, h);
+#pragma unroll
+      for (int nb = 0; nb < DP / 8; ++nb) {
+        const int d = frag_col(4 * nb);
+        if (d < g.D) part = fmaf(to_f32(dorow[d]), orow[d], part);
+        if (d + 1 < g.D) part = fmaf(to_f32(dorow[d + 1]), orow[d + 1], part);
+      }
+    }
+    dr[i] = quad_sum(part);
+    const long long ri = row0 + row;
+    const float m = in ? m_in[ri] : NEG_INF;
+    const float lse =
+        m <= NEG_INF * 0.5f
+            ? INFINITY
+            : fmaf(m, LOG2E, log2f(fmaxf(in ? l_in[ri] : 1.f, 1e-30f)));
+    lsq[i] = lse - log2_scale;
+    if (in && (threadIdx.x & 3) == 0) {
+      rowbuf[ri] = lse;
+      rowbuf[bht + ri] = dr[i] * g.scale;
+    }
+  }
+
+  const uint32_t s0 = (uint32_t)seed[0];
+  const uint32_t s1 = (uint32_t)seed[1] ^ (uint32_t)bh;
+  const float* bias_b = bias + (long long)b * g.Tk;
+  float acc[DP / 2], s[32], da[32], bc[16];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+  for (int kt = 0; kt < n; ++kt) {
+    if (kt > 0) {
+      kc.copy(k_s, kt * BN, g.Tk);
+      vc.copy(v_s, kt * BN, g.Tk);
+      cp_async_commit();
+    }
+    load_bias(bc, bias_b, kt * BN, g.Tk);
+    cp_async_wait<0>();  // Q, dO (and the pads) and key tile kt
+    __syncthreads();
+    product_xyt<T, DP>(s, q_s, k_s);
+    product_xyt<T, DP>(da, do_s, v_s);
+    uint32_t bits[2][2] = {{0u, 0u}, {0u, 0u}};
+    ds_tile(s, da, bc, g, kt * BN, rows, lsq, dr, s0, s1, bits);
+    if (g.dropout) store_keep(bits, keep, g, row0, rows, kt);
+    if constexpr (!std::is_same<T, float>::value) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = round_to<T>(s[j]);
+    }
+    product_ay<T, DP>(acc, s, k_s);
+    __syncthreads();  // every warp is done with key tile kt
+  }
+  cp_async_wait<0>();
+  store_acc<T>(acc, dq, sdq, b, h, r0, g.Tq, g.D);
+}
+
+// One block per (b, h, 64-key tile): over the query tiles (from the
+// causal diagonal), Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (rows are this block's
+// keys), Pᵀ and dSᵀ on the fragment from the dQ kernel's row statistics
+// and keep bits (grads_tile), then dV += Pᵀ·dO and dK += dSᵀ·Q. One
+// stage of Q, dO and the statistics, three blocks an SM, as in the dQ
+// kernel. No atomics: dK and dV are summed in one block, in query
+// order.
+template <typename T, int DP>
+__global__ void __launch_bounds__(BWD_THREADS, 3) fused_bwd_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ bias, const float* __restrict__ rowbuf,
+    const uint32_t* __restrict__ keep, T* __restrict__ dk,
+    T* __restrict__ dv, Strides sq, Strides sk, Strides sv, Strides sdo,
+    Strides sdk, Strides sdv, long long bht, int unit, Geometry g) {
+  constexpr int TE = Tile<T, DP>::ELEMS;
+  extern __shared__ __align__(16) uint8_t bwd_smem[];
+  T* k_s = reinterpret_cast<T*>(bwd_smem);
+  T* v_s = k_s + TE;
+  T* q_s = v_s + TE;
+  T* do_s = q_s + TE;
+  // lse and d_row·scale of the tile's 64 rows, then two keep words a row
+  float* stats = reinterpret_cast<float*>(do_s + TE);
+
+  const int nkt = (g.Tk + BN - 1) / BN;
+  const int bh = blockIdx.x / nkt, kt = blockIdx.x - bh * nkt;
+  const int c0 = kt * BN;
+  const int b = bh / g.H, h = bh - b * g.H;
+  const int keys[2] = {c0 + frag_row(0), c0 + frag_row(2)};
+  const int nqt = (g.Tq + BM - 1) / BM;
+  int first = 0;  // causal: the first query tile that sees key c0
   if (g.causal) {
     const int r = c0 - (g.Tk - g.Tq);
     first = r <= 0 ? 0 : min(nqt, r / BM);
   }
-  for (int qt = first; qt < nqt; ++qt) {
+  const long long row0 = (long long)bh * g.Tq;
+  const int nw = (g.Tk + 31) / 32;
+  // this thread's keys sit in word (threadIdx.x / 64) of a row's two, at
+  // bits 16 (warp % 2) + lane / 4 and that + 8
+  const uint32_t kbit[2] = {1u << (16 * ((threadIdx.x >> 5) & 1) +
+                                   ((threadIdx.x & 31) >> 2)),
+                            1u << (16 * ((threadIdx.x >> 5) & 1) +
+                                   ((threadIdx.x & 31) >> 2) + 8)};
+  const RowCopier<T, DP> qc(q, sq, b, h, g.D, unit),
+      dc(dout, sdo, b, h, g.D, unit);
+  auto load_q = [&](int qt) {
     const int r0 = qt * BM;
+    qc.copy(q_s, r0, g.Tq);
+    dc.copy(do_s, r0, g.Tq);
+    float* sm = stats;
+    {
+      const int which = threadIdx.x / BM, r = threadIdx.x - which * BM;
+      const bool in = r0 + r < g.Tq;
+      const float* src = rowbuf + which * bht + row0 + r0 + r;
+      cp_async4(smem_u32(sm + threadIdx.x), in ? src : rowbuf, in ? 4 : 0);
+    }
+    if (g.dropout) {
+      const int r = threadIdx.x >> 1, w = 2 * kt + (threadIdx.x & 1);
+      const bool in = r0 + r < g.Tq && w < nw;
+      cp_async4(smem_u32(sm + 2 * BM + threadIdx.x),
+                in ? keep + (row0 + r0 + r) * nw + w : keep, in ? 4 : 0);
+    }
+  };
+
+  RowCopier<T, DP>(k, sk, b, h, g.D, unit).copy(k_s, c0, g.Tk);
+  RowCopier<T, DP>(v, sv, b, h, g.D, unit).copy(v_s, c0, g.Tk);
+  if (first < nqt) load_q(first);
+  cp_async_commit();
+  zero_pad<T, DP>(k_s, 4, g.D);
+
+  float bkey[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    bkey[i] = keys[i] < g.Tk ? bias[(long long)b * g.Tk + keys[i]] : 0.f;
+  float dk_acc[DP / 2], dv_acc[DP / 2], s[32], da[32];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+  for (int qt = first; qt < nqt; ++qt) {
+    if (qt > first) {
+      load_q(qt);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();  // K, V (and the pads) and query tile qt
     __syncthreads();
-    stage<T>(q, sq, b, h, r0, g.Tq, D, q_s, ld);
-    stage<T>(dout, sdo, b, h, r0, g.Tq, D, do_s, ld);
-    for (int i = threadIdx.x; i < BM; i += THREADS) {
-      const int row = r0 + i;
-      const bool in = row < g.Tq;
-      m_s[i] = in ? m_in[(long long)bh * g.Tq + row] : NEG_INF;
-      lc_s[i] = in ? fmaxf(l_in[(long long)bh * g.Tq + row], 1e-30f) : 1.f;
-      dr_s[i] = in ? d_row[(long long)bh * g.Tq + row] : 0.f;
-    }
-    __syncthreads();
-
-    float s[RPT][CPT], da[RPT][CPT];   // [key][query]
+    product_xyt<T, DP>(s, k_s, q_s);
+    product_xyt<T, DP>(da, v_s, do_s);
+    grads_tile(s, da, stats, bkey, g, qt * BM, keys, kbit);
+    if constexpr (!std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = da[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[RPT], vv[RPT], qv[CPT], dov[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        kv[i] = k_s[(grp * RPT + i) * ld + d];
-        vv[i] = v_s[(grp * RPT + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        qv[j] = q_s[(ln + 16 * j) * ld + d];
-        dov[j] = do_s[(ln + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          da[i][j] = fmaf(vv[i], dov[j], da[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int lc = grp * RPT + i;
-      const int col = c0 + lc;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int lr = ln + 16 * j;
-        const int row = r0 + lr;
-        float a = 0.f, ds = 0.f;
-        const float m = m_s[lr];
-        if (col < g.Tk && row < g.Tq && m > NEG_INF * 0.5f) {
-          const float x = masked_score(s[i][j], g, bkey[i], row, col);
-          const float p = expf(x - m) / lc_s[lr];
-          float dp = da[i][j] * g.inv_keep;
-          a = g.dropout ? p * g.inv_keep : p;
-          if (g.dropout && !keep_bit(s0, s1, row, col, g.Tk, g.threshold)) {
-            a = 0.f;
-            dp = 0.f;
-          }
-          ds = p * (dp - dr_s[lr]) * g.scale;
-        }
-        a_s[lc * ldp + lr] = round_to<T>(a);
-        ds_s[lc * ldp + lr] = round_to<T>(ds);
+      for (int j = 0; j < 32; ++j) {
+        s[j] = round_to<T>(s[j]);
+        da[j] = round_to<T>(da[j]);
       }
     }
-    __syncwarp();
-
-    for (int r = 0; r < BM; ++r) {
-      float av[RPT], dsv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        av[i] = a_s[(grp * RPT + i) * ldp + r];
-        dsv[i] = ds_s[(grp * RPT + i) * ldp + r];
-      }
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const int d = ln + 16 * jj;
-        const float dov = d < D ? do_s[r * ld + d] : 0.f;
-        const float qv = d < D ? q_s[r * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          dv_acc[i][jj] = fmaf(av[i], dov, dv_acc[i][jj]);
-          dk_acc[i][jj] = fmaf(dsv[i], qv, dk_acc[i][jj]);
-        }
-      }
-    }
+    product_ay<T, DP>(dv_acc, s, do_s);
+    product_ay<T, DP>(dk_acc, da, q_s);
+    __syncthreads();  // every warp is done with query tile qt
   }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int col = c0 + grp * RPT + i;
-    if (col >= g.Tk) continue;
-    T* ko = dk + at(sdk, b, col, h);
-    T* vo = dv + at(sdv, b, col, h);
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = ln + 16 * jj;
-      if (d < D) {
-        ko[d] = from_f32<T>(dk_acc[i][jj]);
-        vo[d] = from_f32<T>(dv_acc[i][jj]);
-      }
-    }
-  }
+  cp_async_wait<0>();
+  store_acc<T>(dk_acc, dk, sdk, b, h, c0, g.Tk, g.D);
+  store_acc<T>(dv_acc, dv, sdv, b, h, c0, g.Tk, g.D);
 }
 
 size_t fwd_smem_bytes(int D) {
@@ -585,14 +697,27 @@ size_t fwd_smem_bytes(int D) {
                           (size_t)BN * D + (size_t)BM * (BN + 1));
 }
 
-size_t dq_smem_bytes(int D) {
-  return sizeof(float) *
-         (4 * (size_t)64 * (D + 1) + (size_t)BM * (BN + 1));
+// The backward's dynamic shared memory: four staged tiles (Q, dO, K, V),
+// and for dK/dV the query tile's row statistics and keep words.
+template <typename T, int DP>
+size_t bwd_smem_bytes(bool dkdv) {
+  return 4 * sizeof(T) * (size_t)Tile<T, DP>::ELEMS +
+         (dkdv ? 4 * (size_t)BM * sizeof(float) : 0);
 }
 
-size_t dkdv_smem_bytes(int D) {
-  return sizeof(float) * (4 * (size_t)64 * (D + 1) +
-                          2 * (size_t)BN * (BM + 1) + 3 * (size_t)BM);
+// The widest copy (16, 8 or 4 bytes, else one element) that a staged
+// row's bytes and every staged tensor's base and strides allow.
+int copy_unit(int row_bytes, int itemsize, const void* const (&ptrs)[4],
+              const Strides (&ss)[4]) {
+  for (int u = 16; u >= 4; u >>= 1) {
+    bool ok = row_bytes % u == 0;
+    for (int i = 0; i < 4 && ok; ++i)
+      ok = reinterpret_cast<uintptr_t>(ptrs[i]) % u == 0 &&
+           ss[i].b * itemsize % u == 0 && ss[i].t * itemsize % u == 0 &&
+           ss[i].h * itemsize % u == 0;
+    if (ok) return u;
+  }
+  return itemsize;
 }
 
 template <typename T, int DJ>
@@ -612,37 +737,42 @@ int launch_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DJ>
+template <typename T, int DP>
 int launch_bwd(const void* q, const void* k, const void* v, const float* o32,
                const void* dout, const float* bias, const int* seed,
-               const float* m, const float* l, float* d_row, void* dq,
-               void* dk, void* dv, const long long* st, int B, Geometry g,
-               cudaStream_t stream) {
-  const size_t smem_q = dq_smem_bytes(g.D);
-  const size_t smem_kv = dkdv_smem_bytes(g.D);
-  cudaError_t err = allow_smem(fused_bwd_dq_kernel<T, DJ>, smem_q);
+               const float* m, const float* l, float* rowbuf, uint32_t* keep,
+               void* dq, void* dk, void* dv, const long long* st, int B,
+               Geometry g, cudaStream_t stream) {
+  const size_t smem_q = bwd_smem_bytes<T, DP>(false);
+  const size_t smem_kv = bwd_smem_bytes<T, DP>(true);
+  cudaError_t err = allow_smem(fused_bwd_dq_kernel<T, DP>, smem_q);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(fused_bwd_dkdv_kernel<T, DJ>, smem_kv);
+  err = allow_smem(fused_bwd_dkdv_kernel<T, DP>, smem_kv);
   if (err != cudaSuccess) return (int)err;
   const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
                 sv = strides_at(st, 2), so = strides_at(st, 3),
                 sdo = strides_at(st, 4), sdq = strides_at(st, 5),
                 sdk = strides_at(st, 6), sdv = strides_at(st, 7);
+  const int unit = copy_unit(g.D * (int)sizeof(T), (int)sizeof(T),
+                             {q, k, v, dout}, {sq, sk, sv, sdo});
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  // dQ first: it also writes d_row, which the dK/dV kernel reads
-  fused_bwd_dq_kernel<T, DJ><<<dim3(B * g.H, (g.Tq + BM - 1) / BM), THREADS,
-                               smem_q, stream>>>(
-      qt, kt, vt, o32, dot, bias, seed, m, l, d_row,
-      static_cast<T*>(dq), sq, sk, sv, so, sdo, sdq, g);
+  const long long bht = (long long)B * g.H * g.Tq;
+  const long long q_blocks = (long long)B * g.H * ((g.Tq + BM - 1) / BM);
+  const long long k_blocks = (long long)B * g.H * ((g.Tk + BN - 1) / BN);
+  // dQ first: it also writes the row statistics and keep bits dK/dV reads
+  fused_bwd_dq_kernel<T, DP>
+      <<<(unsigned)q_blocks, BWD_THREADS, smem_q, stream>>>(
+          qt, kt, vt, o32, dot, bias, seed, m, l, rowbuf, keep,
+          static_cast<T*>(dq), sq, sk, sv, so, sdo, sdq, bht, unit, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  fused_bwd_dkdv_kernel<T, DJ><<<dim3(B * g.H, (g.Tk + BN - 1) / BN),
-                                 THREADS, smem_kv, stream>>>(
-      qt, kt, vt, dot, bias, seed, m, l, d_row, static_cast<T*>(dk),
-      static_cast<T*>(dv), sq, sk, sv, sdo, sdk, sdv, g);
+  fused_bwd_dkdv_kernel<T, DP>
+      <<<(unsigned)k_blocks, BWD_THREADS, smem_kv, stream>>>(
+          qt, kt, vt, dot, bias, rowbuf, keep, static_cast<T*>(dk),
+          static_cast<T*>(dv), sq, sk, sv, sdo, sdk, sdv, bht, unit, g);
   return (int)cudaGetLastError();
 }
 
@@ -693,8 +823,8 @@ int mxt_fused_attention_fwd(const void* q, const void* k, const void* v,
 int mxt_fused_attention_bwd(const void* q, const void* k, const void* v,
                             const void* o32, const void* dout,
                             const void* bias, const void* seed,
-                            const void* m, const void* l, void* d_row,
-                            void* dq, void* dk, void* dv,
+                            const void* m, const void* l, void* rowbuf,
+                            void* keep, void* dq, void* dk, void* dv,
                             const long long* strides, int B, int H, int Tq,
                             int Tk, int D, float scale, float inv_keep,
                             uint32_t threshold, int dropout, int causal,
@@ -708,21 +838,21 @@ int mxt_fused_attention_bwd(const void* q, const void* k, const void* v,
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
   const float* of = static_cast<const float*>(o32);
-  float* dr = static_cast<float*>(d_row);
+  float* rb = static_cast<float*>(rowbuf);
+  uint32_t* kp = static_cast<uint32_t*>(keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = D > 64;
-  if (dtype == 0)
-    return wide ? launch_bwd<float, 8>(q, k, v, of, dout, bs, sd, mf, lf, dr,
-                                       dq, dk, dv, strides, B, g, st)
-                : launch_bwd<float, 4>(q, k, v, of, dout, bs, sd, mf, lf, dr,
-                                       dq, dk, dv, strides, B, g, st);
-  if (dtype == 1)
-    return wide ? launch_bwd<__nv_bfloat16, 8>(q, k, v, of, dout, bs, sd, mf,
-                                               lf, dr, dq, dk, dv, strides, B,
-                                               g, st)
-                : launch_bwd<__nv_bfloat16, 4>(q, k, v, of, dout, bs, sd, mf,
-                                               lf, dr, dq, dk, dv, strides, B,
-                                               g, st);
+#define MXT_BWD(T, DP)                                                      \
+  return launch_bwd<T, DP>(q, k, v, of, dout, bs, sd, mf, lf, rb, kp, dq,  \
+                           dk, dv, strides, B, g, st)
+  if (dtype == 0) {
+    if (D <= 64) MXT_BWD(float, 64);
+    MXT_BWD(float, 128);
+  }
+  if (dtype == 1) {
+    if (D <= 64) MXT_BWD(__nv_bfloat16, 64);
+    MXT_BWD(__nv_bfloat16, 128);
+  }
+#undef MXT_BWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -64,8 +64,24 @@
 // table (the physical page), as the Pallas kernel does with its remapped
 // page index. q keeps its own dtype; it is never cast to the pool's.
 //
-// The decode kernel (one block per (slot, head)) stages each page
-// widened to float32 and runs the same online softmax.
+// The decode kernel: one query row per (slot, head) over float32 or
+// bfloat16 pools, 0.5 flop a byte of K/V, so bytes bound it, and at the
+// serve's shapes the latency of reading them: a long slot's pages read
+// one after another by one block leave most of the card idle. Design:
+//   * split over pages as a span call with Sq = 1 (span_split.cuh, the
+//     host's decode_split_plan): a long slot's pages spread over several
+//     blocks, whose float32 partials (m, l, acc) are combined in split
+//     order inside the launch;
+//   * 16-byte cp.async copies of the keys' K and V rows into a ring of
+//     32-key chunks in the pools' dtype (no float32 re-staging), every
+//     chunk of a split in flight before the first product;
+//   * a chunk a warp, a key a lane: per-warp online softmax with shuffle
+//     reductions, the warps merged once at the end; no block barrier per
+//     page. GEMV-shaped work: CUDA cores, no tensor cores.
+// It keeps P in float32 (the Pallas body rounds P to bfloat16 over
+// bfloat16 pages; the XLA reference and the plain version do not), and
+// its sums run in another order than the span kernel's: in float32 it
+// is not bit-identical with the span kernel at Sq = 1.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,6 +104,8 @@ constexpr int PV_ROWS = SPAN_TILE / (SPAN_THREADS / MAX_D);
 
 constexpr int DEC_THREADS = 128;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_CHUNK = 32;              // keys of a decode chunk: a lane each
+constexpr int DEC_RING_BYTES = 73728;      // a decode ring of 8 slots at most
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -470,107 +488,264 @@ __global__ void __launch_bounds__(SPAN_THREADS) ragged_span_kernel(
     span_combine(w, part, ml, out, Sq, H, D, n_split);
 }
 
-// Stage one page's (S, D) slices of head h into shared memory as f32
-// (the decode kernel's staging). K rows are padded to D + 1 floats so
-// that lanes reading different rows at the same column hit different
-// banks. Loads are scalar, so any D (40 included) needs no tail.
-template <typename T>
-__device__ __forceinline__ void stage_page(
-    const T* __restrict__ k_pages, const T* __restrict__ v_pages,
-    int page, int h, int S, int H, int D, float* k_s, float* v_s,
-    int tid, int nthreads) {
-  const size_t base = ((size_t)page * S * H + h) * D;
-  const size_t row_stride = (size_t)H * D;
-  for (int i = tid; i < S * D; i += nthreads) {
-    const int s = i / D, d = i - s * D;
-    const size_t g = base + (size_t)s * row_stride + d;
-    k_s[s * (D + 1) + d] = to_f32(k_pages[g]);
-    v_s[s * D + d] = to_f32(v_pages[g]);
+// cp.async.wait_group with a count known only at run time (0..7).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
   }
 }
 
-// Block-wide reduction through `red` (DEC_WARPS floats); every thread
-// gets the result. Two barriers: `red` may be reused right after.
-template <bool IS_MAX>
-__device__ __forceinline__ float block_reduce(float v, float* red, int lane,
-                                              int warp) {
-  v = IS_MAX ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
+// Copies the K and V rows of keys [kc0, kc0 + 32) of head h, each row
+// from the page the slot's table maps it to, into a chunk slot of the
+// decode ring: thread t moves `unit` bytes at column t % cpr of rows
+// t / cpr + k * rpp (cp.async for 16, 8 or 4; the caller commits; plain
+// loads for rows of a size 4 bytes do not divide). Rows at or past k1
+// are zero-filled, so that a masked key's V row adds 0 · 0.
+struct ChunkCopier {
+  int unit, col, r0, rpp;
+  bool active;
+
+  __device__ __forceinline__ ChunkCopier(int unit_, int row_bytes) {
+    unit = unit_;
+    const int cpr = row_bytes / unit;
+    rpp = DEC_THREADS / cpr;
+    col = (threadIdx.x % cpr) * unit;
+    r0 = threadIdx.x / cpr;
+    active = threadIdx.x < rpp * cpr;
+  }
+
+  __device__ __forceinline__ void copy(const uint8_t* pool,
+                                       const int* table_b, size_t head,
+                                       int kc0, int k1, int S,
+                                       size_t row_pitch, uint8_t* dst,
+                                       int dstride) const {
+    if (!active) return;
+    for (int r = r0; r < DEC_CHUNK; r += rpp) {
+      const int key = kc0 + r;
+      const bool in = key < k1;
+      const uint8_t* src = pool;
+      if (in) {
+        const int p = key / S;
+        src += ((size_t)table_b[p] * S + (key - p * S)) * row_pitch + head +
+               col;
+      }
+      uint8_t* d = dst + r * dstride + col;
+      const uint32_t ds = smem_u32(d);
+      if (unit == 16) {
+        cp_async16(ds, src, in ? 16 : 0);
+      } else if (unit == 8) {
+        cp_async8(ds, src, in ? 8 : 0);
+      } else if (unit == 4) {
+        cp_async4(ds, src, in ? 4 : 0);
+      } else {
+        // 2-byte elements (bfloat16 rows of an odd head dim)
+        *reinterpret_cast<uint16_t*>(d) =
+            in ? *reinterpret_cast<const uint16_t*>(src) : (uint16_t)0;
+      }
+    }
+  }
+};
+
+// CW columns of a staged V row, as floats: lane l holds columns
+// [l * CW, l * CW + CW) (fewer at the head dim's end).
+template <typename T, int CW>
+__device__ __forceinline__ void load_cols(const uint8_t* row, int c0,
+                                          int D, float* x) {
+  const T* e = reinterpret_cast<const T*>(row) + c0;
+  if (c0 + CW <= D) {
+    if constexpr (std::is_same<T, float>::value && CW == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(e);
+      x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+      return;
+    } else if constexpr (std::is_same<T, float>::value && CW == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(e);
+      x[0] = v.x; x[1] = v.y;
+      return;
+    } else if constexpr (!std::is_same<T, float>::value && CW >= 2) {
 #pragma unroll
-  for (int w = 1; w < DEC_WARPS; ++w) r = IS_MAX ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();
-  return r;
+      for (int i = 0; i < CW; i += 2) {
+        const float2 v =
+            __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(e)[i / 2]);
+        x[i] = v.x;
+        x[i + 1] = v.y;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < CW; ++i) x[i] = c0 + i < D ? to_f32(e[i]) : 0.f;
 }
 
-// One block per (slot b, head h) for a single query row per slot.
-template <typename T>
+// One query row per (slot, head), split over pages like a span call with
+// Sq = 1: block (b * H + h, sp) takes the slot's keys of split sp
+// (span_split.cuh; one live row, partials of one row a tile). Its keys
+// go through a ring of `nc` slots of 32-key chunks; chunk j is worked by
+// warp j % 4, lane i on key 32 j + i:
+//   * every chunk of the split (up to the ring) is requested by cp.async
+//     before the first product; a chunk's rows each find their page
+//     through the table, so a chunk may span pages and a page chunks;
+//   * the lane's score is q . k over the head dim in float32 (q read as
+//     a broadcast from shared memory, K converted where it is read);
+//   * per-warp online softmax: the warp's running max m, denominator l
+//     (shuffle reductions over the chunk's 32 keys) and its accumulator
+//     (lane l: columns [l CW, l CW + CW)), acc = acc * alpha + sum_i e_i
+//     v_i, e_i broadcast by shuffle, in key order;
+//   * one merge of the four warps' (m, l, acc) through shared memory at
+//     the end, in warp order; then the output, or the split's partial
+//     and span_split.cuh's combine.
+// P stays in float32: e multiplies V widened to float32 (the Pallas
+// body rounds e to bfloat16 over bfloat16 pages; the XLA reference and
+// the plain version here do not).
+template <typename T, int CW>
 __global__ void __launch_bounds__(DEC_THREADS) ragged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ page_table,
-    const int* __restrict__ lengths, T* __restrict__ out, int H, int D,
-    int S, int P, float scale) {
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int length = lengths[b];
+    const int* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ part, float2* __restrict__ ml,
+    int* __restrict__ counters, int H, int D, int S, int P, int pps,
+    int n_split, int unit, int nc, float scale) {
+  constexpr int VN = Vec<T>::N;
+  SpanWork w = span_block(1, H);
+  span_live(w, lengths[w.b], 1, 1, S, P, pps);
+  if (w.n_live == 0) {
+    // length 0: exact zeros, no page read
+    if (blockIdx.y == 0) span_zero_rows(w, out, 0, 1, H, D);
+    return;
+  }
+  if ((int)blockIdx.y >= w.n_live) return;   // past the live pages
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // D
-  float* k_s = q_s + D;               // S x (D + 1)
-  float* v_s = k_s + S * (D + 1);     // S x D
-  float* p_s = v_s + S * D;           // S
-  float* red = p_s + S;               // DEC_WARPS
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row_bytes = D * (int)sizeof(T);
+  const int kst = k_stride(row_bytes), vst = v_stride(row_bytes);
+  const int qs = (D + 3) & ~3;
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  float* q_s = reinterpret_cast<float*>(dec_smem);          // qs
+  uint8_t* ring = dec_smem + qs * 4;   // nc x (32 x kst, 32 x vst)
+  const int slot = DEC_CHUNK * (kst + vst);
+  float* m_s = reinterpret_cast<float*>(ring + nc * slot);  // 4
+  float* l_s = m_s + DEC_WARPS;                             // 4
+  float* a_s = l_s + DEC_WARPS;                             // 4 x D
 
-  const T* qb = q + ((size_t)b * H + h) * D;
-  for (int d = tid; d < D; d += DEC_THREADS) q_s[d] = to_f32(qb[d]);
+  const int* table_b = page_table + (size_t)w.b * P;
+  const ChunkCopier cc(unit, row_bytes);
+  const size_t head = (size_t)w.h * row_bytes;
+  const size_t pitch = (size_t)H * row_bytes;
+  const int nch = (w.k1 - w.k0 + DEC_CHUNK - 1) / DEC_CHUNK;
+  auto stage = [&](int j) {
+    uint8_t* dst = ring + (j % nc) * slot;
+    const int kc0 = w.k0 + j * DEC_CHUNK;
+    cc.copy(reinterpret_cast<const uint8_t*>(k_pages), table_b, head, kc0,
+            w.k1, S, pitch, dst, kst);
+    cc.copy(reinterpret_cast<const uint8_t*>(v_pages), table_b, head, kc0,
+            w.k1, S, pitch, dst + DEC_CHUNK * kst, vst);
+    cp_async_commit();
+  };
+  int issued = 0;
+  for (; issued < min(nc, nch); ++issued) stage(issued);
 
-  float m = NEG_INF, l = 0.f, acc = 0.f;  // acc: column d = tid
-  const int n_pages = length > 0 ? min((length + S - 1) / S, P) : 0;
-  const int* table_b = page_table + (size_t)b * P;
+  const T* qr = q + ((size_t)w.b * H + w.h) * D;
+  for (int d = tid; d < qs; d += DEC_THREADS)
+    q_s[d] = d < D ? to_f32(qr[d]) : 0.f;
 
-  for (int p = 0; p < n_pages; ++p) {
+  float m = NEG_INF, l = 0.f, acc[CW];
+#pragma unroll
+  for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+  const int c0 = lane * CW;
+
+  for (int g0 = 0; g0 < nch; g0 += DEC_WARPS) {
+    const int gend = min(g0 + DEC_WARPS, nch);
+    cp_async_wait_upto(issued - gend);   // chunks [0, gend) have landed
     __syncthreads();
-    stage_page<T>(k_pages, v_pages, table_b[p], h, S, H, D, k_s, v_s, tid,
-                  DEC_THREADS);
-    __syncthreads();
-    const int col0 = p * S;
-    float mx = NEG_INF;
-    for (int c = tid; c < S; c += DEC_THREADS) {
+    const int j = g0 + warp;
+    if (j < nch) {
+      const uint8_t* ks = ring + (j % nc) * slot;
+      const uint8_t* vs = ks + DEC_CHUNK * kst;
+      const int kc0 = w.k0 + j * DEC_CHUNK;
+      const int n = min(DEC_CHUNK, w.k1 - kc0);   // live keys of the chunk
       float sc = NEG_INF;
-      if (col0 + c < length) {
-        const float* kr = k_s + c * (D + 1);
+      if (lane < n) {
+        const uint8_t* kr = ks + lane * kst;
         float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(q_s[d], kr[d], dot);
+        int d = 0;
+        if (D % VN == 0) {
+          for (; d < D; d += VN) {
+            float kv[VN];
+            Vec<T>::load(kr + d * sizeof(T), kv);
+#pragma unroll
+            for (int e = 0; e < VN; e += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(q_s + d + e);
+              dot = fmaf(qv.x, kv[e], dot);
+              dot = fmaf(qv.y, kv[e + 1], dot);
+              dot = fmaf(qv.z, kv[e + 2], dot);
+              dot = fmaf(qv.w, kv[e + 3], dot);
+            }
+          }
+        }
+        for (; d < D; ++d)
+          dot = fmaf(q_s[d], to_f32(reinterpret_cast<const T*>(kr)[d]), dot);
         sc = dot * scale;
       }
-      p_s[c] = sc;
-      mx = fmaxf(mx, sc);
+      const float m_new = fmaxf(m, warp_max(sc));
+      const bool masked = m_new <= NEG_INF * 0.5f;
+      const float e = masked ? 0.f : expf(sc - m_new);
+      const float alpha = masked ? 1.f : expf(m - m_new);
+      l = l * alpha + warp_sum(e);
+      m = m_new;
+      float pv[CW] = {};
+      for (int i = 0; i < n; ++i) {
+        const float p = __shfl_sync(0xffffffffu, e, i);
+        float x[CW];
+        if (c0 < D) {
+          load_cols<T, CW>(vs + i * vst, c0, D, x);
+#pragma unroll
+          for (int c = 0; c < CW; ++c) pv[c] = fmaf(p, x[c], pv[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[c] = acc[c] * alpha + pv[c];
     }
-    mx = block_reduce<true>(mx, red, lane, warp);
-    const float m_new = fmaxf(m, mx);
-    const bool masked = m_new <= NEG_INF * 0.5f;
-    float sum = 0.f;
-    for (int c = tid; c < S; c += DEC_THREADS) {
-      const float e = masked ? 0.f : expf(p_s[c] - m_new);
-      p_s[c] = e;
-      sum += e;
-    }
-    sum = block_reduce<false>(sum, red, lane, warp);  // also publishes p_s
-    const float alpha = masked ? 1.f : expf(m - m_new);
-    l = l * alpha + sum;
-    m = m_new;
-    if (tid < D) {
-      float pv = 0.f;
-      for (int c = 0; c < S; ++c) pv = fmaf(p_s[c], v_s[c * D + tid], pv);
-      acc = acc * alpha + pv;
-    }
+    __syncthreads();   // the group's ring slots are free
+    for (; issued < min(gend + nc, nch); ++issued) stage(issued);
   }
-  if (tid < D)
-    out[((size_t)b * H + h) * D + tid] = span_cast<T>(acc / fmaxf(l, 1e-30f));
+
+  // merge the warps' states, in warp order
+  if (lane == 0) {
+    m_s[warp] = m;
+    l_s[warp] = l;
+  }
+#pragma unroll
+  for (int c = 0; c < CW; ++c)
+    if (c0 + c < D) a_s[warp * D + c0 + c] = acc[c];
+  __syncthreads();
+  float M = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < DEC_WARPS; ++i) M = fmaxf(M, m_s[i]);
+  float L = 0.f, A = 0.f;
+#pragma unroll
+  for (int i = 0; i < DEC_WARPS; ++i) {
+    const float e = m_s[i] <= NEG_INF * 0.5f ? 0.f : expf(m_s[i] - M);
+    L += e * l_s[i];
+    if (tid < D) A += e * a_s[i * D + tid];
+  }
+  if (w.n_live == 1) {
+    // the only live split: the output itself
+    if (tid < D)
+      out[((size_t)w.b * H + w.h) * D + tid] =
+          span_cast<T>(A * (1.f / fmaxf(L, 1e-30f)));
+    return;
+  }
+  const size_t p0 = part_index<1>(w, blockIdx.y, n_split);
+  if (tid < D) part[p0 * D + tid] = A;
+  if (tid == 0) ml[p0] = make_float2(M, L);
+  if (span_arrive(w, counters))
+    span_combine<1>(w, part, ml, out, 1, H, D, n_split);
 }
 
 // Dynamic shared memory of a span block with `stages` page stages: q as
@@ -589,9 +764,26 @@ constexpr size_t MAX_SMEM = 232448;   // a Hopper block's shared memory
 constexpr size_t STATIC_SMEM = sizeof(float) * SPAN_MAX_SPLITS * SPAN_TILE +
                                16;   // span_combine's weights and flag
 
-size_t decode_smem_bytes(int D, int S) {
-  return sizeof(float) * ((size_t)D + (size_t)S * (D + 1) + (size_t)S * D +
-                          (size_t)S + DEC_WARPS);
+// Dynamic shared memory of a decode block with `nc` chunk slots: q as
+// f32, the ring of K and V chunks in the pools' dtype, the four warps'
+// m, l and accumulators.
+size_t decode_smem_bytes(int D, int itemsize, int nc) {
+  const int row_bytes = D * itemsize;
+  return (size_t)4 * ((D + 3) & ~3) +
+         (size_t)nc * DEC_CHUNK * (k_stride(row_bytes) + v_stride(row_bytes)) +
+         (size_t)4 * DEC_WARPS * (2 + D);
+}
+
+// Chunk slots of a decode block whose splits hold `pps` pages of S keys:
+// every chunk of a split where that fits in DEC_RING_BYTES (8 slots at
+// most), else 4 (the ring then refills one group of four while the next
+// group is worked).
+int decode_slots(int D, int itemsize, int S, int pps) {
+  const int row_bytes = D * itemsize;
+  const int slot = DEC_CHUNK * (k_stride(row_bytes) + v_stride(row_bytes));
+  const int need = (int)(((long long)pps * S + DEC_CHUNK - 1) / DEC_CHUNK);
+  const int cap = 8 * slot <= DEC_RING_BYTES ? 8 : DEC_WARPS;
+  return need < cap ? need : cap;
 }
 
 template <typename Kernel>
@@ -641,21 +833,55 @@ int launch_span(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int CW>
+int launch_decode_cw(const void* q, const void* k_pages, const void* v_pages,
+                     const int* page_table, const int* lengths, void* out,
+                     void* part, void* ml, void* counters, int B, int H,
+                     int D, int S, int P, int n_split, float scale,
+                     cudaStream_t stream) {
+  const int pps = (P + n_split - 1) / n_split;
+  const int nc = decode_slots(D, sizeof(T), S, pps);
+  const size_t smem = decode_smem_bytes(D, sizeof(T), nc);
+  cudaError_t err = allow_smem(ragged_decode_kernel<T, CW>, smem);
+  if (err != cudaSuccess) return (int)err;
+  // the widest copy that the row's bytes and both pools' bases allow
+  const int row_bytes = D * (int)sizeof(T);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(k_pages) |
+                         reinterpret_cast<uintptr_t>(v_pages);
+  int unit = (int)sizeof(T);
+  for (int u = 16; u >= 4; u >>= 1)
+    if (row_bytes % u == 0 && base % u == 0) {
+      unit = u;
+      break;
+    }
+  ragged_decode_kernel<T, CW><<<dim3(B * H, n_split), DEC_THREADS, smem,
+                                stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), page_table, lengths,
+      static_cast<T*>(out), static_cast<float*>(part),
+      static_cast<float2*>(ml), static_cast<int*>(counters), H, D, S, P, pps,
+      n_split, unit, nc, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_decode(const void* q, const void* k_pages, const void* v_pages,
                   const int* page_table, const int* lengths, void* out,
-                  int B, int H, int D, int S, int P, float scale,
+                  void* part, void* ml, void* counters, int B, int H, int D,
+                  int S, int P, int n_split, float scale,
                   cudaStream_t stream) {
-  if (D < 1 || D > DEC_THREADS || S < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > MAX_D || S < 1 || n_split < 1 ||
+      n_split > SPAN_MAX_SPLITS || (n_split > 1 && !counters))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return (int)cudaSuccess;
-  const size_t smem = decode_smem_bytes(D, S);
-  cudaError_t err = allow_smem(ragged_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  ragged_decode_kernel<T><<<B * H, DEC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), page_table, lengths,
-      static_cast<T*>(out), H, D, S, P, scale);
-  return (int)cudaGetLastError();
+#define MXT_DEC(CW)                                                          \
+  return launch_decode_cw<T, CW>(q, k_pages, v_pages, page_table, lengths,  \
+                                 out, part, ml, counters, B, H, D, S, P,    \
+                                 n_split, scale, stream)
+  if (D <= 32) MXT_DEC(1);
+  if (D <= 64) MXT_DEC(2);
+  MXT_DEC(4);
+#undef MXT_DEC
 }
 
 }  // namespace
@@ -691,19 +917,26 @@ int mxt_ragged_span(const void* q, const void* k_pages, const void* v_pages,
   return (int)cudaErrorInvalidValue;
 }
 
+// The decode kernel, split like a span call with Sq = 1: with
+// n_split > 1, part (B * H * n_split * D floats), ml (B * H * n_split
+// float2) and counters (B * H ints, all 0, left 0) are the wrapper's
+// scratch.
 int mxt_ragged_decode(const void* q, const void* k_pages,
                       const void* v_pages, const void* page_table,
-                      const void* lengths, void* out, int B, int H, int D,
-                      int S, int P, float scale, int dtype, void* stream) {
+                      const void* lengths, void* out, void* part, void* ml,
+                      void* counters, int B, int H, int D, int S, int P,
+                      int n_split, float scale, int dtype, void* stream) {
   const int* tbl = static_cast<const int*>(page_table);
   const int* lens = static_cast<const int*>(lengths);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_decode<float>(q, k_pages, v_pages, tbl, lens, out, B, H, D,
-                                S, P, scale, st);
+    return launch_decode<float>(q, k_pages, v_pages, tbl, lens, out, part,
+                                ml, counters, B, H, D, S, P, n_split, scale,
+                                st);
   if (dtype == 1)
     return launch_decode<__nv_bfloat16>(q, k_pages, v_pages, tbl, lens, out,
-                                        B, H, D, S, P, scale, st);
+                                        part, ml, counters, B, H, D, S, P,
+                                        n_split, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

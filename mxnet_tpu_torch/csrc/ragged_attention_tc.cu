@@ -18,12 +18,19 @@
 // maximum is still masked takes e = 0 and alpha = 1, the denominator is
 // clamped at 1e-30, dead rows and idle slots are exact zeros, and the
 // split over pages and its combine are span_split.cuh's. Exponentials
-// are ex2.approx of the log2e-scaled argument. Rounding: P is rounded to
-// bfloat16 for P.V (the A operand of the product), as the Pallas float
-// kernel does (e.astype(v.dtype)); the Pallas quant kernel keeps P in
-// float32, so on int8 pages that rounding is this kernel's one departure
-// from the reference. With int8 pages P is rounded after the page's
-// v_scale is folded into it; the denominator sums the unscaled float32 e.
+// are ex2.approx of the log2e-scaled argument. Rounding of P, the A
+// operand of P.V: over bfloat16 pages P is rounded once to bfloat16, as
+// the Pallas float kernel does (e.astype(v.dtype)). The Pallas quant
+// kernel keeps P in float32 against V dequantized to float32, and so
+// does this kernel on int8 pages: P, with the page's v_scale folded in,
+// is split into three bfloat16 terms (hi = bf16(p), mid = bf16(p - hi),
+// lo = bf16(p - hi - mid), float32's 24 bits between them), and three
+// RS wgmmas run against the same tile of V codes into one float32
+// accumulator. The codes in [-127, 127] are exact in bfloat16, so V
+// carries no rounding. (Two terms, 16 bits, still left outputs a
+// bfloat16 rounding away from the plain version's on small inputs by
+// more than 2e-3 of the largest value: PERF.md section 6.)
+// The denominator sums the unscaled float32 e.
 //
 // What bounds it on an H100. A (slot, head) must read its live K and V
 // pages once; at a 64-row prefill chunk that is about 32 flops a byte of
@@ -42,8 +49,9 @@
 //     in flight at once;
 //   * S = Q.K^T is a wgmma m64n64k16 with both operands in shared memory
 //     (K-major); the causal-window mask and the online softmax run on the
-//     float32 accumulator fragment in registers; P is rounded to bfloat16
-//     as the register A operand of an RS wgmma against V read MN-major;
+//     float32 accumulator fragment in registers; P becomes the register A
+//     operand of an RS wgmma against V read MN-major (bfloat16 pages: P
+//     rounded; int8 pages: three wgmmas, one a bfloat16 term of P);
 //   * int8 pages land as codes by cp.async at one byte an element (8-byte
 //     copies) with their (page, head) scales beside them (one 4-byte copy
 //     a key), and each thread widens the chunks it copied into the
@@ -93,6 +101,7 @@ __global__ void __launch_bounds__(THREADS) ragged_span_tc_kernel(
   constexpr uint32_t TB = BN * DP * 2;        // a bfloat16 tile
   constexpr uint32_t CB = BN * DP;            // a tile of int8 codes
   constexpr int PG = ROWS + QUANT;            // table entries a tile
+  constexpr int PT = QUANT ? 3 : 1;           // bf16 terms of P in P.V
   const int tid = threadIdx.x;
   const int c = tid % CPR, r0 = tid / CPR;
   SpanWork w = span_block(Sq, H);
@@ -297,18 +306,25 @@ __global__ void __launch_bounds__(THREADS) ragged_span_tc_kernel(
     for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * alpha[i] + sum[i];
 #pragma unroll
     for (int j = 0; j < NA; ++j) acc[j] *= alpha[(j >> 1) & 1];
-    uint32_t pa[4][4];
-    to_a_frags(s, pa);
+    // float pages: P rounded once to bf16. int8 pages: P as PT bf16
+    // terms, PT products against the same (exact) V tile into one
+    // accumulator, issued and waited for together
+    uint32_t pa[PT][4][4];
+    to_a_frags_terms<PT>(s, pa);
     fence_regs(acc);
-    fence_regs(pa);
+#pragma unroll
+    for (int i = 0; i < PT; ++i) fence_regs(pa[i]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs(acc, pa[kk], mnmajor_desc<BN>(vt, kk));
+    for (int i = 0; i < PT; ++i)
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs(acc, pa[i][kk], mnmajor_desc<BN>(vt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    fence_regs(pa);
+#pragma unroll
+    for (int i = 0; i < PT; ++i) fence_regs(pa[i]);
     __syncthreads();   // every warp is done with stage st (and the tiles)
   }
   cp_async_wait<0>();

@@ -1,6 +1,8 @@
 // The work split of the ragged span kernels (ragged_attention.cu on the
 // CUDA cores, ragged_attention_tc.cu on the tensor cores) and the
-// combine of its partial results.
+// combine of its partial results. The decode kernel (ragged_attention.cu)
+// takes the same split as a span call with Sq = 1 and one live row a
+// slot, with partials of one row a tile.
 //
 // A block takes one (slot b, head h, 64-row query tile qt, page split
 // sp): blockIdx.x = (b * H + h) * n_qt + qt, blockIdx.y = sp. The host
@@ -55,12 +57,11 @@ __device__ __forceinline__ SpanWork span_block(int Sq, int H) {
 
 // The tile's live rows and this split's live keys, from the slot's
 // length and q_count.
-__device__ __forceinline__ void span_live(SpanWork& w,
-                                          const int* __restrict__ lengths,
-                                          const int* __restrict__ q_counts,
-                                          int Sq, int S, int P, int pps) {
-  w.length = lengths[w.b];
-  w.row_end = min(w.row0 + SPAN_TILE, min(q_counts[w.b], Sq));
+__device__ __forceinline__ void span_live(SpanWork& w, int length,
+                                          int q_count, int Sq, int S, int P,
+                                          int pps) {
+  w.length = length;
+  w.row_end = min(w.row0 + SPAN_TILE, min(q_count, Sq));
   const int kmax = w.row_end > w.row0
                        ? min(max(w.length + w.row_end - 1, 0), P * S)
                        : 0;
@@ -68,6 +69,12 @@ __device__ __forceinline__ void span_live(SpanWork& w,
   w.n_live = (kmax + span - 1) / span;
   w.k0 = blockIdx.y * span;
   w.k1 = min(w.k0 + span, kmax);
+}
+__device__ __forceinline__ void span_live(SpanWork& w,
+                                          const int* __restrict__ lengths,
+                                          const int* __restrict__ q_counts,
+                                          int Sq, int S, int P, int pps) {
+  span_live(w, lengths[w.b], q_counts[w.b], Sq, S, P, pps);
 }
 
 // Row `row` of (b, h) in a (B, Sq, H, D) tensor.
@@ -108,10 +115,13 @@ __device__ void span_zero_rows(const SpanWork& w, T* __restrict__ out,
 }
 
 // Partials of tile w.tile, split sp, start at row part_index(w, sp):
-// acc (64, D) float32 and (m, l) (64,) float2 a split.
+// acc (TILE, D) float32 and (m, l) (TILE,) float2 a split. TILE is the
+// rows a tile keeps partials for: 64 in the span kernels, 1 in the
+// decode kernel.
+template <int TILE = SPAN_TILE>
 __device__ __forceinline__ size_t part_index(const SpanWork& w, int sp,
                                              int n_split) {
-  return ((size_t)w.tile * n_split + sp) * SPAN_TILE;
+  return ((size_t)w.tile * n_split + sp) * TILE;
 }
 
 // Called by every thread of a live split's block after it wrote its
@@ -134,16 +144,16 @@ __device__ __forceinline__ bool span_arrive(const SpanWork& w,
 // Columns [d, d + V) of live row r of the combine: every live split's
 // partial is requested before any is summed (one L2 round trip, not
 // n_live), then summed in split order.
-template <int V, typename T>
+template <int V, int TILE, typename T>
 __device__ __forceinline__ void combine_cols(
     const SpanWork& w, const float* __restrict__ part,
-    const float (*wt)[SPAN_TILE], T* __restrict__ out, size_t p0, int r,
+    const float (*wt)[TILE], T* __restrict__ out, size_t p0, int r,
     int d, int Sq, int H, int D) {
   float x[SPAN_MAX_SPLITS][V];
 #pragma unroll
   for (int s = 0; s < SPAN_MAX_SPLITS; ++s)
     if (s < w.n_live) {
-      const float* src = part + (p0 + s * SPAN_TILE + r) * D + d;
+      const float* src = part + (p0 + s * TILE + r) * D + d;
       if constexpr (V == 4) {
         const float4 v = __ldcg(reinterpret_cast<const float4*>(src));
         x[s][0] = v.x; x[s][1] = v.y; x[s][2] = v.z; x[s][3] = v.w;
@@ -168,21 +178,21 @@ __device__ __forceinline__ void combine_cols(
 // denominator folded in, are formed first, one row a thread). The dead
 // rows are split 0's to zero (span_dead_rows). Partials are read
 // through L2 (__ldcg): other SMs wrote them.
-template <typename T>
+template <int TILE = SPAN_TILE, typename T>
 __device__ void span_combine(const SpanWork& w,
                              const float* __restrict__ part,
                              const float2* __restrict__ ml,
                              T* __restrict__ out, int Sq, int H, int D,
                              int n_split) {
-  __shared__ float wt[SPAN_MAX_SPLITS][SPAN_TILE];
+  __shared__ float wt[SPAN_MAX_SPLITS][TILE];
   const int live = w.row_end - w.row0;
-  const size_t p0 = part_index(w, 0, n_split);
+  const size_t p0 = part_index<TILE>(w, 0, n_split);
   for (int r = threadIdx.x; r < live; r += blockDim.x) {
     float2 v[SPAN_MAX_SPLITS];
     float M = SPAN_NEG_INF, L = 0.f;
 #pragma unroll
     for (int s = 0; s < SPAN_MAX_SPLITS; ++s)
-      if (s < w.n_live) v[s] = __ldcg(ml + p0 + s * SPAN_TILE + r);
+      if (s < w.n_live) v[s] = __ldcg(ml + p0 + s * TILE + r);
 #pragma unroll
     for (int s = 0; s < SPAN_MAX_SPLITS; ++s)
       if (s < w.n_live) M = fmaxf(M, v[s].x);
@@ -202,12 +212,13 @@ __device__ void span_combine(const SpanWork& w,
     const int cw = D / 4;
     for (int i = threadIdx.x; i < live * cw; i += blockDim.x) {
       const int r = i / cw;
-      combine_cols<4>(w, part, wt, out, p0, r, (i - r * cw) * 4, Sq, H, D);
+      combine_cols<4, TILE>(w, part, wt, out, p0, r, (i - r * cw) * 4, Sq,
+                            H, D);
     }
   } else {
     for (int i = threadIdx.x; i < live * D; i += blockDim.x) {
       const int r = i / D;
-      combine_cols<1>(w, part, wt, out, p0, r, i - r * D, Sq, H, D);
+      combine_cols<1, TILE>(w, part, wt, out, p0, r, i - r * D, Sq, H, D);
     }
   }
 }

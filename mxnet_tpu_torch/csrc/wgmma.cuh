@@ -244,6 +244,29 @@ __device__ __forceinline__ void to_a_frags(const float (&x)[32],
       a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
+// The A fragments of a 64 x 64 accumulator as N bf16 terms: term 0 =
+// bf16(x), term i = bf16(x - terms 0..i-1). Three terms carry x to
+// float32's 24 bits, so sum_i term_i·B keeps the product at float32
+// accuracy where B is exact in bf16.
+template <int N>
+__device__ __forceinline__ void to_a_frags_terms(const float (&x)[32],
+                                                 uint32_t (&a)[N][4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float x0 = x[8 * kk + 2 * r], x1 = x[8 * kk + 2 * r + 1];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        a[i][kk][r] = pack_bf16(x0, x1);
+        const float2 h = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&a[i][kk][r]));
+        x0 -= h.x;
+        x1 -= h.y;
+      }
+    }
+}
+
 // Accumulator element j of this thread: row (0..63) and column (0..63)
 // within the tile.
 __device__ __forceinline__ int frag_row(int j) {

@@ -16,9 +16,11 @@ launched:
     which the backward copies if it is not) a multiple of 8, every base
     address 16-byte aligned. wgmma products, float32 accumulators.
   * "cuda_core" (`csrc/fused_attention.cu`): float32, and bfloat16 that
-    the rule above refuses (D = 12, a misaligned stride or base). Scalar
-    float32 FMAs; float32 is held to 1e-5 against the plain version,
-    which TF32 or bfloat16 products cannot meet.
+    the rule above refuses (D = 12, a misaligned stride or base). The
+    forward on scalar float32 FMAs; the backward's products on the
+    tensor cores in split TF32 (each float32 operand as hi + lo TF32
+    terms, three products), which keeps float32's accuracy where plain
+    TF32 would not meet the 1e-4 gradient check.
 
 A plain PyTorch version of the same function sits beside them
 (`_fused_reference`); torch autograd differentiates it.
@@ -215,8 +217,8 @@ def _lib(route):
         flags = [i32] * (2 if tc else 3)     # dropout, causal[, dtype]
         fwd.argtypes = ([ptr] * 10 + [i32] * 5
                         + [f32, f32, ctypes.c_uint32] + flags + [ptr])
-        # the tensor-core backward also takes the keep-bit scratch
-        bwd.argtypes = ([ptr] * (15 if tc else 14) + [i32] * 5
+        # both backwards also take the row statistics and keep-bit scratch
+        bwd.argtypes = ([ptr] * 15 + [i32] * 5
                         + [f32, f32, ctypes.c_uint32] + flags + [ptr])
         fwd.restype = bwd.restype = i32
         lib._mxt_bound = True
@@ -360,23 +362,21 @@ class _FusedAttention(torch.autograd.Function):
             do = do.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
             torch.empty_like(v)
-        # scratch: CUDA-core d_row; tensor-core the row's log2-domain
-        # logsumexp and d_row, and with dropout the keep bits the dQ
-        # kernel hands to the dK/dV kernel (32 keys a word)
-        rowbuf = torch.empty((2 if tc else 1, B, H, Tq), dtype=torch.float32,
+        # scratch: the row's log2-domain logsumexp and d_row, and with
+        # dropout the keep bits the dQ kernel hands to the dK/dV kernel
+        # (32 keys a word)
+        rowbuf = torch.empty((2, B, H, Tq), dtype=torch.float32,
                              device=q.device)
-        extra = ()
-        if tc:
-            keep = torch.empty((B, H, Tq, (Tk + 31) // 32), dtype=torch.int32,
-                               device=q.device) if p_drop > 0.0 else None
-            extra = (None if keep is None else keep.data_ptr(),)
+        keep = torch.empty((B, H, Tq, (Tk + 31) // 32), dtype=torch.int32,
+                           device=q.device) if p_drop > 0.0 else None
         dtype = () if tc else (_DTYPES[q.dtype],)
         with torch.cuda.device(q.device):
             err = _lib(route)[1](
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(),
                 do.data_ptr(), bias.data_ptr(), seed.data_ptr(),
                 stats[0].data_ptr(), stats[1].data_ptr(),
-                rowbuf.data_ptr(), *extra, dq.data_ptr(), dk.data_ptr(),
+                rowbuf.data_ptr(), None if keep is None else keep.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(),
                 _strides((q, k, v, o32, do, dq, dk, dv), layout),
                 B, H, Tq, Tk, D, scale, inv_keep,

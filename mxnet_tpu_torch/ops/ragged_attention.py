@@ -22,7 +22,9 @@ version of the same math in this module:
     launch.
   * ragged_decode_attention — one query row per slot, float pools
     (`csrc/ragged_attention.cu`). Replaces the Pallas
-    `_ragged_decode_kernel`.
+    `_ragged_decode_kernel`. It splits a slot's pages over blocks by
+    `decode_split_plan` (static shapes only) and combines the splits'
+    partials as the span kernels do.
 
 impl="auto" takes the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA card; a call the kernel cannot take
@@ -48,7 +50,8 @@ from . import _build
 
 __all__ = ["ragged_span_attention", "ragged_decode_attention",
            "ragged_supported", "span_route", "span_split_plan",
-           "span_launch_key", "LAUNCHES", "reset_launches", "NEG_INF"]
+           "decode_split_plan", "span_launch_key", "LAUNCHES",
+           "reset_launches", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -71,6 +74,11 @@ _BLOCKS_PER_SM = 4
 _TC_STAGES = 3              # key tiles in flight on the tensor-core route
 _TC_MAX_S = 256             # page sizes the tensor-core route takes
 _DEC_WARPS = 4
+_DEC_CHUNK = 32             # keys of a decode ring slot, one a lane
+_DEC_RING_BYTES = 73728     # a decode ring of 8 slots at most
+# the decode plan's target, in blocks an SM: a decode block holds one
+# row, so its splits are short (PERF.md section 6)
+_DEC_BLOCKS_PER_SM = 16
 _MAX_SMEM = 232448          # bytes of shared memory a Hopper block may use
 # span_combine's static shared memory: the split weights and a flag
 _STATIC_SMEM = 4 * _MAX_SPLITS * _SPAN_TILE + 16
@@ -109,8 +117,24 @@ def _tc_smem(D, quant):
     return 1024 + tile + ring
 
 
-def _decode_smem(D, S):
-    return 4 * (D + S * (D + 1) + S * D + S + _DEC_WARPS)
+def _decode_slots(D, itemsize, S, pps):
+    """ragged_attention.cu decode_slots: the chunk slots of a decode
+    block's ring — every 32-key chunk of a split of `pps` pages where 8
+    slots fit in _DEC_RING_BYTES, else at most 4."""
+    row = D * itemsize
+    slot = _DEC_CHUNK * (_k_stride(row) + -(-row // 16) * 16)
+    cap = 8 if 8 * slot <= _DEC_RING_BYTES else _DEC_WARPS
+    return min(-(-pps * S // _DEC_CHUNK), cap)
+
+
+def _decode_smem(D, itemsize, nc):
+    """ragged_attention.cu decode_smem_bytes: q as f32, `nc` chunk
+    slots of K and V rows in the pools' dtype, the warps' m, l and
+    accumulators."""
+    row = D * itemsize
+    return 4 * ((D + 3) & ~3) \
+        + nc * _DEC_CHUNK * (_k_stride(row) + -(-row // 16) * 16) \
+        + 4 * _DEC_WARPS * (2 + D)
 
 
 def span_route(q, k_pages, v_pages=None):
@@ -157,6 +181,21 @@ def span_split_plan(B, H, Sq, P, sms):
     return -(-P // pps)
 
 
+def decode_split_plan(B, H, P, sms):
+    """How many page splits a decode launch takes, from static shapes
+    only: enough that the grid puts about _DEC_BLOCKS_PER_SM blocks on
+    each of the card's `sms` SMs, at least one page a split and at most
+    _MAX_SPLITS; no split left empty."""
+    if not all(type(x) is int for x in (B, H, P, sms)):
+        raise TypeError("decode_split_plan takes static shapes (int), "
+                        "never a tensor")
+    if B * H == 0 or P < 2:
+        return 1
+    n = max(1, min(-(-_DEC_BLOCKS_PER_SM * sms // (B * H)), P, _MAX_SPLITS))
+    pps = -(-P // n)
+    return -(-P // pps)
+
+
 def ragged_supported(q, k_pages, v_pages=None):
     """Can the CUDA kernels take this call? q (B, H, D) or (B, Sq, H, D)
     and one layer's pools (N, S, H, D): q float32 or bfloat16, the pools
@@ -176,7 +215,12 @@ def ragged_supported(q, k_pages, v_pages=None):
             _span_smem(D, S, k_pages.element_size(), 1) + _STATIC_SMEM \
             > _MAX_SMEM:
         return False
-    return k_pages.dtype == torch.int8 or _decode_smem(D, S) <= _MAX_SMEM
+    # the decode kernel at its largest ring: a split of 256 pages holds
+    # at least 8 chunks of 32 keys whatever the page size
+    item = k_pages.element_size()
+    return k_pages.dtype == torch.int8 or _decode_smem(
+        D, item, _decode_slots(D, item, S, 8 * _DEC_CHUNK)) \
+        + _STATIC_SMEM <= _MAX_SMEM
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +339,19 @@ def _ragged_span_split_reference(q, k_pages, v_pages, page_table, lengths,
     return out.to(q.dtype)
 
 
+def _ragged_decode_split_reference(q, k_pages, v_pages, page_table,
+                                   lengths, scale, n_split):
+    """Plain version of the decode kernel's split over pages: the span
+    kernels' split (`_ragged_span_split_reference`) at Sq = 1 with one
+    live row a slot — splits of ceil(P / n_split) pages, each with float32
+    partials over its keys alone, combined in split order. q (B, H, D)
+    -> (B, H, D); equal to _ragged_reference up to float32 rounding."""
+    ones = torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
+    return _ragged_span_split_reference(q[:, None], k_pages, v_pages,
+                                        page_table, lengths, ones, scale,
+                                        n_split)[:, 0]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -309,7 +366,7 @@ def _lib():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mxt_ragged_span.argtypes = _SPAN_ARGTYPES
         lib.mxt_ragged_span.restype = i32
-        lib.mxt_ragged_decode.argtypes = [ptr] * 6 + [i32] * 5 + [
+        lib.mxt_ragged_decode.argtypes = [ptr] * 9 + [i32] * 6 + [
             ctypes.c_float, i32, ptr]
         lib.mxt_ragged_decode.restype = i32
         lib._mxt_bound = True
@@ -483,12 +540,23 @@ def ragged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     _check_kernel_args(name, q, k_pages, v_pages,
                        {"page_table": page_table, "lengths": lengths})
     S, P = k_pages.shape[1], page_table.shape[1]
+    n_split = decode_split_plan(B, H, P, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    part = ml = counters = None
+    if n_split > 1:
+        rows = B * H * n_split
+        part = torch.empty(rows * D, dtype=torch.float32, device=q.device)
+        ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, B * H)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         err = _lib().mxt_ragged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, D, S, P, s, _DTYPES[q.dtype],
+            ptr(part), ptr(ml), ptr(counters), B, H, D, S, P, n_split, s,
+            _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise MXNetError(f"{name}: kernel launch failed (cudaError {err})")

@@ -281,3 +281,37 @@ def test_kernel_route(x, route):
     aligned = _bthd(x.shape[-1], x.dtype)
     assert fa.kernel_route(aligned, x, aligned, "BTHD") == route
     assert fa.supported(x, x, None, layout="BTHD")
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 fraction bits, to nearest, ties away
+    from zero), as cvt.rna.tf32.f32 does on the card."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("product", ["scores", "ds_k"])
+def test_split_tf32_products_keep_float32_accuracy(product):
+    """The float32 backward's products on the tensor cores: each operand
+    as hi = tf32(x) and lo = tf32(x - hi), the product as hi·hi + hi·lo +
+    lo·hi. On seeded BERT-shaped tiles (64 x 64, D = 64) one TF32
+    rounding of the operands misses the exact product by more than 1e-4
+    of its largest value, the gradients' tolerance; the split stays
+    within 1e-6, below float32's own rounding of the sum."""
+    rng = np.random.default_rng(3)
+    a = torch.tensor(rng.standard_normal((64, 64)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((64, 64)), dtype=torch.float32)
+    if product == "ds_k":
+        # dS = p·(dP - d_row)·scale: softmax weights over a wide range
+        p = torch.softmax(torch.tensor(
+            rng.standard_normal((64, 64)) * 3, dtype=torch.float32), -1)
+        a = p * a / 8.0
+    exact = a.double() @ b.double().T
+    top = exact.abs().max()
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    single = ah.double() @ bh.double().T
+    split = ah.double() @ bh.double().T + ah.double() @ bl.double().T \
+        + al.double() @ bh.double().T
+    assert (single - exact).abs().max() > 1e-4 * top
+    assert (split - exact).abs().max() <= 1e-6 * top

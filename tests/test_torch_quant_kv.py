@@ -262,6 +262,35 @@ def test_int8_scales_leave_the_products():
                                atol=1e-6)
 
 
+def _pv_terms(p, codes, n):
+    """What the int8 tensor-core kernel does with P (v_scale folded in)
+    in P.V: P as n bfloat16 terms, term i = bf16(p - terms 0..i-1), each
+    times the int8 codes (exact in bfloat16), the products summed in
+    float32. The kernel takes three; one is a single rounding of P."""
+    out, rest = 0.0, p
+    for _ in range(n):
+        term = rest.to(torch.bfloat16).float()
+        out = out + term @ codes.float()
+        rest = rest - term
+    return out
+
+
+def test_int8_p_split_keeps_float32_accuracy():
+    """P rounded once to bfloat16 before P.V misses the float32 product
+    (the Pallas quant kernel's) by more than 1e-3 of its largest value on
+    this seeded input; hi + lo terms stay within 1e-5 of it, and the
+    kernel's three terms within 1e-6."""
+    rng = np.random.default_rng(0)
+    codes = _t(rng.integers(-127, 128, (64, 64)).astype(np.int8))
+    x = _t(rng.standard_normal((16, 64)).astype(np.float32))
+    p = torch.softmax(x, dim=-1) * 0.0123        # P times a page's v_scale
+    exact = p @ codes.float()
+    top = exact.abs().max()
+    assert (_pv_terms(p, codes, 1) - exact).abs().max() > 1e-3 * top
+    assert (_pv_terms(p, codes, 2) - exact).abs().max() <= 1e-5 * top
+    assert (_pv_terms(p, codes, 3) - exact).abs().max() <= 1e-6 * top
+
+
 def test_int8_span_route():
     """int8 pages take the tensor cores under bfloat16 q, the CUDA
     cores under float32 q, and count under their own keys."""

@@ -10,6 +10,8 @@ kernels themselves run only on a card (chip_smoke.py holds them to
 these plain versions there); here the wrapper's gate and dispatch rules
 are checked.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -139,6 +141,67 @@ def test_decode_equals_span_at_one_row_in_plain_versions():
     span = ra.ragged_span_attention(_t(q4), *args)
     np.testing.assert_allclose(dec.numpy(), span[:, 0].numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+# the decode split's edge lengths at S = 8, P = 4: an idle slot, one key,
+# a full page, one key past it, every page
+DECODE_EDGES = [0, 1, 8, 9, 32]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_edges_jax():
+    """The JAX package's decode on the edge lengths, computed once: its
+    XLA reference and its Pallas kernel in interpret mode."""
+    q4, kp, vp, table = _pool(B=5, Sq=1, seed=7)
+    jargs = tuple(map(jnp.asarray, (q4[:, 0], kp, vp, table,
+                                    np.int32(DECODE_EDGES))))
+    return ((q4[:, 0], kp, vp, table),
+            np.asarray(pa.ragged_decode_attention(*jargs, impl="xla")),
+            np.asarray(pa.ragged_decode_attention(*jargs, impl="pallas",
+                                                  interpret=True)))
+
+
+@pytest.mark.parametrize("splits", ["1", "2", "P"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_plain_matches_jax(splits, dtype):
+    """The plain version of the decode kernel's split over pages against
+    the JAX package's ragged_decode_attention (impl="xla" and the Pallas
+    kernel in interpret mode) at lengths 0, 1, S, S + 1 and P * S, with
+    1, 2 and P splits: float32 at 1e-5, bfloat16 as
+    test_decode_bf16_tolerance; a length-0 slot gives exact zeros."""
+    (q, kp, vp, table), xla, kern = _decode_edges_jax()
+    P = table.shape[1]
+    n = {"1": 1, "2": 2, "P": P}[splits]
+    dt = getattr(torch, dtype)
+    got = ra._ragged_decode_split_reference(
+        _t(q, dt), _t(kp, dt), _t(vp, dt), _t(table),
+        _t(np.int32(DECODE_EDGES)), SCALE, n)
+    assert got.dtype == dt
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for ref in (xla, kern):
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol,
+                                   atol=tol)
+    assert (got[0] == 0).all()
+
+
+def test_decode_split_plan():
+    # the decode cell: 160 (slot, head) rows -> 8 splits of 2 pages
+    assert ra.decode_split_plan(8, 20, 16, 132) == 8
+    assert ra.decode_split_plan(0, 20, 16, 132) == 1
+    assert ra.decode_split_plan(1, 1, 1, 132) == 1
+    # a grid that fills the card alone takes no split
+    assert ra.decode_split_plan(256, 32, 16, 132) == 1
+    for B, H, P in [(1, 1, 64), (1, 2, 5), (2, 3, 9), (8, 20, 16),
+                    (3, 1, 33), (1, 1, 2), (64, 20, 16)]:
+        n = ra.decode_split_plan(B, H, P, 132)
+        pps = -(-P // n)
+        assert 1 <= n <= ra._MAX_SPLITS
+        assert (n - 1) * pps < P            # no split left empty
+    import inspect
+    assert list(inspect.signature(ra.decode_split_plan).parameters) == [
+        "B", "H", "P", "sms"]
+    with pytest.raises(TypeError):
+        ra.decode_split_plan(torch.tensor(8), 20, 16, 132)
 
 
 # ---------------------------------------------------------------------------
@@ -365,3 +428,21 @@ def test_shared_memory_mirrors_match_kernel_constants():
     assert ra._span_smem(64, 64, 4, 2) + ra._STATIC_SMEM <= ra._MAX_SMEM
     assert ra._span_smem(128, 128, 4, 2) + ra._STATIC_SMEM > ra._MAX_SMEM
     assert ra._span_smem(128, 128, 4, 1) + ra._STATIC_SMEM <= ra._MAX_SMEM
+    # the decode ring: 32-key chunk slots of K rows (odd 16-byte words)
+    # and V rows; 8 slots where they fit in DEC_RING_BYTES, else 4, and
+    # never more than a split's chunks
+    assert cc["DEC_CHUNK"] == ra._DEC_CHUNK == 32
+    assert cc["DEC_RING_BYTES"] == ra._DEC_RING_BYTES
+    assert cc["DEC_THREADS"] == 32 * ra._DEC_WARPS
+    assert ra._decode_slots(64, 2, 64, 2) == 4      # bf16, 2 pages: 4 chunks
+    assert ra._decode_slots(64, 2, 64, 16) == 8     # 8 x 8704 bytes fit
+    assert ra._decode_slots(64, 4, 64, 16) == 4     # 8 x 16896 do not
+    assert ra._decode_slots(64, 4, 16, 1) == 1
+    assert ra._decode_smem(64, 2, 4) == 256 + 4 * 32 * (144 + 128) \
+        + 4 * 4 * 66
+    assert ra._decode_smem(64, 4, 4) == 256 + 4 * 32 * (272 + 256) \
+        + 4 * 4 * 66
+    for D, item in ((128, 4), (128, 2), (40, 4), (12, 2)):
+        nc = ra._decode_slots(D, item, 256, 16)
+        assert ra._decode_smem(D, item, nc) + ra._STATIC_SMEM \
+            <= ra._MAX_SMEM
