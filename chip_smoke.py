@@ -94,9 +94,10 @@ script then exits non-zero without the final `ok` line):
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
               valid lengths U[384, 512], dropout 0.1) in BTHD and in
               BHTD, at GPT-2 774M causal shapes (B=8, T=1024, H=20, D=64,
-              dropout 0.1, BTHD), float32 through the CUDA-core kernels
-              (forward 1e-5 absolute, gradients 1e-4 relative to the
-              largest) and bfloat16 through the tensor-core kernels
+              dropout 0.1, BTHD), float32 through the "cuda_core" route
+              (csrc/fused_attention.cu: split TF32 by mma.sync; forward
+              1e-5 absolute, gradients 1e-4 relative to the largest) and
+              bfloat16 through the tensor-core kernels
               (forward and gradients 1.2e-2 relative to the largest), plus
               edge cases (a fully padded batch row, causal Tq < Tk, D = 40
               and 128, T off the 64 grid, T = 1100 past the reference's
@@ -108,7 +109,8 @@ script then exits non-zero without the final `ok` line):
               backward runs (float32 and bfloat16); forward and backward
               times of kernel, plain version and the
               F.scaled_dot_product_attention yardstick (and their ratio),
-              and the bound; the CUDA-core kernels in bfloat16 at the
+              and the bound (float32 also against the split-TF32 rate,
+              TF32X3_FLOPS); the CUDA-core kernels in bfloat16 at the
               BERT-base cell on padded rows, and timed at that cell with
               D = 40 on rows 44 elements apart (SDPA beside).
   7. bert     BERT-base MLM training at full width (12 layers, 768 units,
@@ -133,12 +135,24 @@ script then exits non-zero without the final `ok` line):
               peak memory and bert_base_mlm_mfu; then one more bfloat16
               step under torch.profiler (the fused kernels' share of
               device time).
+  7b. gpt2_train  GPT-2 774M at full width (seeded random weights) on
+              the cache=None training path: one forward and backward of
+              the next-token loss, B=2, T=1024, dropout and attention
+              dropout 0.1, float32 and bfloat16, kernel path against the
+              plain path from the same weights and dropout generator
+              (losses within 1e-5 relative in float32, 1e-4 in
+              bfloat16); each kernel pass launches its family's fused
+              forward and backward exactly 36 times (float32 the
+              "cuda_core" pair, bfloat16 the tensor-core pair) and
+              nothing else; the kernel path's ms a pass (median of 3)
+              and one profiled pass (busy share, time by kernel class).
   8. kernels  one line listing every ported kernel with its launches on
               its main path (phase 5's float32 serve for the CUDA-core
               span and the decode kernel, its bfloat16 serve for the
               tensor-core span kernel, phase 5b's serves for the int8
               ones, phase 7's float32 steps for the CUDA-core fused
-              pair, its bfloat16 steps for the tensor-core pair), errors,
+              pair, its bfloat16 steps for the tensor-core pair; each
+              fused entry also with its launches in phase 7b), errors,
               times, bound and library times.
 Then the last line: {"ok": true, "device": {...}}.
 """
@@ -153,6 +167,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 PEAK_FLOPS = {"float32": 67e12,    # H100 SXM, outside the tensor cores
               "bfloat16": 989e12}  # H100 SXM, dense tensor cores
+# the float32 fused kernels' products as split TF32, three tensor-core
+# products each: dense TF32 of the H100 SXM over three
+TF32X3_FLOPS = 494.7e12 / 3
 # bfloat16 kernel-against-plain tolerance, relative to the largest
 # magnitude of the plain result: 1.5 units in the last place of it (bf16
 # spacing is at most 2**-7 of a value); both round once from float32
@@ -236,6 +253,8 @@ FAMILY_KEYS = {"tensor_core": ("fused_attention_fwd_tc",
 SPLIT_TARGETS = (1, 2, 8)
 # phase 7 traffic (bench.py bench_bert): batch, sequence, masked per row
 BERT_TRAFFIC = dict(B=32, T=512, M=76)
+# phase 7b: GPT-2 774M's training forward and backward, batch and sequence
+GPT2_TRAIN = dict(B=2, T=1024)
 DEV = "cuda"
 
 
@@ -824,6 +843,12 @@ def fused_case(torch, F, fa, B, H, Tq, Tk, D, layout, causal, p, lens,
                                     causal, lens)
     out["bound_ms"], out["bound_by"] = bound(fb, ff, name_t)
     out["bwd_bound_ms"], out["bwd_bound_by"] = bound(bb, bf, name_t)
+    if name_t == "float32":
+        # the same work with every product as three TF32 products
+        out["bound_tf32x3_ms"] = max(fb / HBM_BYTES_PER_S,
+                                     ff / TF32X3_FLOPS) * 1e3
+        out["bwd_bound_tf32x3_ms"] = max(bb / HBM_BYTES_PER_S,
+                                         bf / TF32X3_FLOPS) * 1e3
     out.update(bytes=fb, flops=ff, bwd_bytes=bb, bwd_flops=bf)
     for impl, key in (("auto", ""), ("torch", "plain_")):
         with torch.no_grad():
@@ -1692,6 +1717,95 @@ def phase_bert(torch, fa, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7b: GPT-2 774M's training forward (cache=None) and backward
+# ---------------------------------------------------------------------------
+
+def phase_gpt2_train(torch, fa, card):
+    """One forward and backward of GPT-2 774M's causal LM loss at full
+    width on the cache=None path, B = 2, T = 1024, dropout and attention
+    dropout 0.1 (train() mode), float32 and bfloat16: the kernel path
+    (attention_impl "auto") against the plain path ("torch") from the
+    same weights and the same dropout generator. Each kernel pass must
+    launch its family's fused forward and backward once a layer and
+    nothing else; then the kernel path's forward and backward timed, and
+    once more under the profiler."""
+    from mxnet_tpu_torch import rng
+    from mxnet_tpu_torch.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import (GPT2ForCausalLM, gpt2_774m_config,
+                                        init_params)
+    B, T = GPT2_TRAIN["B"], GPT2_TRAIN["T"]
+    out = {"phase": "gpt2_train", "card": card, "config": "gpt2_774m_config",
+           "batch": B, "seq_len": T, "dropout": 0.1}
+
+    def make(dtype, impl):
+        cfg = gpt2_774m_config(dropout=0.1, attention_dropout=0.1,
+                               attention_impl=impl, dtype=dtype)
+        require(cfg.num_layers == GPT2_LAYERS, "774M config changed")
+        model = init_params(GPT2ForCausalLM(cfg, device=DEV), seed=0,
+                            std=0.02)
+        model.train()
+        return model, cfg
+
+    def fwd_bwd(model, ids):
+        """The next-token loss (float32 logits) and its backward, dropout
+        drawn from a fixed generator; wall ms, ending in a device sync."""
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rng.generator_scope(rng.step_generator(0, 1, DEV)):
+            logits = model(ids)
+            loss = SoftmaxCrossEntropyLoss()(logits[:, :-1].float(),
+                                             ids[:, 1:]).mean()
+            loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), (time.perf_counter() - t0) * 1e3
+
+    ids = None
+    for dtype, family, tol in (("float32", "cuda_core", 1e-5),
+                               ("bfloat16", "tensor_core",
+                                BF16_MODEL_LOSS_TOL)):
+        res = {}
+        for impl in ("auto", "torch"):
+            model, cfg = make(dtype, impl)
+            if ids is None:
+                ids = torch.tensor(np.random.default_rng(0).integers(
+                    0, cfg.vocab_size, (B, T)), dtype=torch.int64,
+                    device=DEV)
+            fa.reset_launches()
+            loss, ms = fwd_bwd(model, ids)
+            launches = dict(fa.LAUNCHES)
+            want = {k: (GPT2_LAYERS if impl == "auto"
+                        and k in FAMILY_KEYS[family] else 0)
+                    for k in launches}
+            require(launches == want, f"gpt2_train {dtype} impl={impl}: "
+                    f"launches {launches}, not {want}")
+            grads_ok = all(p.grad is not None
+                           and bool(torch.isfinite(p.grad).all())
+                           for p in model.parameters())
+            require(np.isfinite(loss) and grads_ok,
+                    f"gpt2_train {dtype} impl={impl}: non-finite loss "
+                    f"{loss} or gradients")
+            r = {"loss": loss, "first_ms": ms, "launches": launches}
+            if impl == "auto":
+                r["ms"] = [fwd_bwd(model, ids)[1] for _ in range(3)]
+                r["median_ms"] = float(np.median(r["ms"]))
+                r["trace"] = profiled(
+                    torch, lambda: fwd_bwd(model, ids)[1] / 1e3, 10)
+            res[impl] = r
+            del model
+            torch.cuda.empty_cache()
+        rel = abs(res["auto"]["loss"] - res["torch"]["loss"]) \
+            / abs(res["torch"]["loss"])
+        require(rel <= tol, f"gpt2_train {dtype}: losses "
+                f"{res['auto']['loss']} and {res['torch']['loss']} differ "
+                f"by {rel} relative, over {tol}")
+        out[dtype] = {"kernel": res["auto"], "plain": res["torch"],
+                      "loss_rel_diff": rel, "loss_tol": tol}
+    emit(out)
+    return out
+
+
 def kernel_entry(name, source, launches, f32, b16, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches,
@@ -1739,13 +1853,14 @@ def span_entries(span, span8, gpt2, gpt2_int8, card):
                   gpt2_int8["launches_bf16"][INT8_TC])]
 
 
-def fused_entries(fused, launches, launches16, card):
+def fused_entries(fused, launches, launches16, gpt2_train, card):
     """The fused kernels' four kernels-line entries at the BERT-base BTHD
     cell (the main path's shape), the BHTD and GPT-2 cells beside: the
-    CUDA-core pair (float32; its bfloat16 errors from the untimed
-    padded-row run, its bfloat16 times null; launches from phase 7's
-    float32 kernel steps) and the tensor-core pair (bfloat16; launches
-    from phase 7's bfloat16 steps)."""
+    CUDA-core pair (float32, with the split-TF32 bound beside; bfloat16
+    times at the unaligned D = 40 cell; launches from phase 7's float32
+    kernel steps) and the tensor-core pair (bfloat16; launches from phase
+    7's bfloat16 steps); each with its launches in phase 7b's GPT-2
+    774M training pass of its dtype."""
     main = fused["bert_bthd"]
     f32, b16 = main["float32"], main["bfloat16"]
     cells = ("bert_bhtd", "gpt2_774m_causal")
@@ -1756,11 +1871,19 @@ def fused_entries(fused, launches, launches16, card):
                 "ms": r.get("bwd_ms"), "plain_ms": r.get("plain_bwd_ms"),
                 "bound_ms": r.get("bwd_bound_ms"),
                 "bound_by": r.get("bwd_bound_by"),
+                "bound_tf32x3_ms": r.get("bwd_bound_tf32x3_ms"),
                 "library_ms": r.get("library_bwd_ms")}
 
-    def other(dtype, key, lib_key):
+    def other(dtype, key, lib_key, bound_key):
         return {c: {"ms": fused[c][dtype][key],
-                    "library_ms": fused[c][dtype][lib_key]} for c in cells}
+                    "library_ms": fused[c][dtype][lib_key],
+                    "bound_ms": fused[c][dtype][bound_key],
+                    "bound_tf32x3_ms": fused[c][dtype].get(
+                        bound_key.replace("bound", "bound_tf32x3"))}
+                for c in cells}
+
+    def train(dtype, key):
+        return gpt2_train[dtype]["kernel"]["launches"][key]
 
     def tc_entry(name, r, n, cells_):
         return {"name": name, "route": "cuda", "source": FUSED_TC_SOURCE,
@@ -1779,23 +1902,35 @@ def fused_entries(fused, launches, launches16, card):
     return [
         kernel_entry("fused_attention_fwd", FUSED_SOURCE,
                      launches["fused_attention_fwd"], f32, d40, card,
+                     bound_tf32x3_ms=f32["bound_tf32x3_ms"],
                      bf16_cell=cell16, bert_cell_rel_err_bf16=cc16["rel_err"],
-                     other_cells=other("float32", "ms", "library_ms")),
+                     gpt2_train_launches=train("float32",
+                                               "fused_attention_fwd"),
+                     other_cells=other("float32", "ms", "library_ms",
+                                       "bound_ms")),
         kernel_entry("fused_attention_bwd", FUSED_SOURCE,
                      launches["fused_attention_bwd"], bwd_view(f32),
                      bwd_view(d40), card,
+                     bound_tf32x3_ms=f32["bwd_bound_tf32x3_ms"],
                      grad_rel_err=max(f32["grad_rel_err"]),
                      grad_rel_err_bf16=max(d40["grad_rel_err"]),
                      bf16_cell=cell16,
                      bert_cell_grad_rel_err_bf16=max(cc16["grad_rel_err"]),
+                     gpt2_train_launches=train("float32",
+                                               "fused_attention_bwd"),
                      other_cells=other("float32", "bwd_ms",
-                                       "library_bwd_ms")),
-        tc_entry("fused_attention_fwd_tc", b16,
-                 launches16["fused_attention_fwd_tc"],
-                 other("bfloat16", "ms", "library_ms")),
-        tc_entry("fused_attention_bwd_tc", bwd_view(b16),
-                 launches16["fused_attention_bwd_tc"],
-                 other("bfloat16", "bwd_ms", "library_bwd_ms"))]
+                                       "library_bwd_ms", "bwd_bound_ms")),
+        dict(tc_entry("fused_attention_fwd_tc", b16,
+                      launches16["fused_attention_fwd_tc"],
+                      other("bfloat16", "ms", "library_ms", "bound_ms")),
+             gpt2_train_launches=train("bfloat16",
+                                       "fused_attention_fwd_tc")),
+        dict(tc_entry("fused_attention_bwd_tc", bwd_view(b16),
+                      launches16["fused_attention_bwd_tc"],
+                      other("bfloat16", "bwd_ms", "library_bwd_ms",
+                            "bwd_bound_ms")),
+             gpt2_train_launches=train("bfloat16",
+                                       "fused_attention_bwd_tc"))]
 
 
 def main():
@@ -1834,6 +1969,7 @@ def main():
     phase_prefix(torch, ra, card)
     fused = phase_fused(torch, F, fa)
     bert = phase_bert(torch, fa, card)
+    gpt2_train = phase_gpt2_train(torch, fa, card)
 
     kernels = span_entries(span, span8, gpt2, gpt2_int8, card)
     kernels.append(kernel_entry(
@@ -1843,7 +1979,7 @@ def main():
         span_sq1_ms=decode["float32"]["span_sq1_ms"],
         span_sq1_ms_bf16=decode["bfloat16"]["span_sq1_ms"]))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
-                             card)
+                             gpt2_train, card)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,12 @@
-// Pieces of the fused training attention that the CUDA-core kernels
+// Pieces of the fused training attention that the split-TF32 kernels
 // (fused_attention.cu) and the tensor-core kernels (fused_attention_tc.cu)
 // share: the reference's dropout hash, strided addressing of (batch,
 // time, head) rows, the launch geometry and host-side launch helpers;
-// and the backward's per-element work on a 64 x 64 score tile held as an
+// and the per-element work on a 64 x 64 score tile held as an
 // accumulator fragment (wgmma.cuh's layout, which is also mma.sync's
-// m16n8 layout over eight 8-column blocks): the bias, the causal test,
-// the probabilities, dS, and the dropout keep bits that the dQ kernel
-// hands to the dK/dV kernel.
+// m16n8 layout over eight 8-column blocks): the forward's online softmax
+// (bias, causal test, dropout), and the backward's probabilities, dS and
+// the dropout keep bits that the dQ kernel hands to the dK/dV kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,6 +77,51 @@ __device__ __forceinline__ void load_bias(float (&bc)[16],
     const int col = c0 + frag_col(4 * (j >> 1) + (j & 1));
     bc[j] = col < Tk ? __ldg(bias_b + col) : -INFINITY;
   }
+}
+
+// One key tile of the forward's online softmax, in place: the scores s
+// (Q·Kᵀ of columns c0..c0+63) become the probabilities before
+// normalisation, dropout applied, unrounded; the running max m and this
+// thread's partial denominators l (pre-dropout) move on; alpha is the
+// factor the output accumulator must take for the new max.
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], const float (&bc)[16], const Geometry& g, int c0,
+    const int (&rows)[2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    uint32_t s0, uint32_t s1) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int i = (j >> 1) & 1;
+    float x = fmaf(s[j], g.scale, bc[2 * (j >> 2) + (j & 1)]);
+    // causal keys take NEG_INF; an absent key stays -inf
+    if (g.causal)
+      x = rows[i] + (g.Tk - g.Tq) < c0 + frag_col(j) ? fminf(x, NEG_INF) : x;
+    s[j] = x;
+  }
+  // a dead row's scaled max is +inf: its exponentials come out 0
+  float ms[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], row_max(s, i));
+    const bool dead = m_new <= NEG_INF * 0.5f;
+    alpha[i] = dead ? 1.f : ex2((m[i] - m_new) * LOG2E);
+    m[i] = m_new;
+    ms[i] = dead ? INFINITY : m_new * LOG2E;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int i = (j >> 1) & 1;
+    const float e = ex2(fmaf(s[j], LOG2E, -ms[i]));
+    sum[i] += e;
+    s[j] = !g.dropout || keep_bit(s0, s1, rows[i], c0 + frag_col(j), g.Tk,
+                                  g.threshold)
+               ? e
+               : 0.f;
+  }
+  // alpha is common to the four threads of a row, so l can stay a
+  // per-thread partial sum until the end
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 }
 
 // dS of one key tile, in place of s (S = Q·Kᵀ); da = dO·Vᵀ. Rows carry

@@ -31,9 +31,9 @@
 // at T = 1024 a float32 tile is 4 MB and a Hopper block has 227 KB of
 // shared memory, so this is tiled, flash-attention style:
 //   forward  one block per (b, h, 64-query tile); loops over 64-key
-//            tiles staged in shared memory, keeps the online-softmax
-//            state (m, l, a D-wide accumulator) in registers, writes O
-//            and the row statistics m, l (float32, (B, H, Tq)).
+//            tiles, keeps the online-softmax state (m, l, a DP-wide
+//            accumulator) in registers, writes O and the row statistics
+//            m, l (float32, (B, H, Tq)).
 //   backward d_row = rowsum(dO ⊙ O) (equal to the reference's Σ a·da),
 //            read from a float32 O (for bfloat16 the forward writes a
 //            float32 copy, so a row with one live key gets ds = 0
@@ -45,12 +45,10 @@
 //            with dropout, the keep bits that the second reads instead of
 //            hashing again.
 //   Causal tiles stop at the diagonal (forward, dQ) or start there (dK,
-//   dV). Forward: 256 threads, 16 row groups of 4 rows x 16 lanes of 4
-//   columns; a row's 16 lanes are one half-warp, so row reductions are
-//   shuffles. Backward: 128 threads, four warps of 16 rows, the score
+//   dV). Every kernel: 128 threads, four warps of 16 rows, the score
 //   tiles in the accumulator layout of the tensor-core kernels, whose
-//   per-element work (attention_common.cuh: ds_tile, grads_tile,
-//   store_keep) it shares.
+//   per-element work (attention_common.cuh: softmax_tile, ds_tile,
+//   grads_tile, store_keep) they share.
 //
 // What bounds it on an H100: operations. At BERT-base shapes (T = 512,
 // D = 64) a (b, h) cell does 4·T²·D flops forward on 4·T·D values read
@@ -58,21 +56,20 @@
 // float32 byte, far above the float32 ridge (~20); in bfloat16 (256 and
 // ~360 per byte) near the tensor cores' ridge (~295). float32 is held to
 // 1e-5 (forward) and 1e-4 (gradients), which one TF32 rounding of the
-// operands misses (~3e-4 of a product). The forward's products are
-// scalar FMAs on float32 values staged in shared memory (rows padded to
-// D + 1 floats against bank conflicts). The backward's run on the tensor
-// cores as mma.sync m16n8k8 TF32 in split form: each float32 operand is
-// hi + lo TF32 terms and each product hi·hi + hi·lo + lo·hi, float32
-// sums, so it keeps float32's accuracy at three tensor-core products a
-// step (bfloat16 operands are exact in TF32 and take one); its
+// operands misses (~3e-4 of a product). So every product runs on the
+// tensor cores as mma.sync m16n8k8 TF32 in split form: each float32
+// operand is hi + lo TF32 terms and each product hi·hi + hi·lo + lo·hi,
+// float32 sums, which keeps float32's accuracy at three tensor-core
+// products a step (bfloat16 operands are exact in TF32 and take one);
 // exponentials are ex2.approx of the log2e-scaled argument. Tiles are
 // staged by cp.async (16-byte copies where rows, strides and bases
 // allow, narrower ones else) with rows padded to 16 bytes past a
-// multiple of 128, so every fragment load meets each bank once; S and
-// dS stay in registers, dS·K and Pᵀ·dO take them as A fragments as they
-// stand (the fragment's k index permuted within each 8-key step). A
-// probe against register-tiled CUDA-core FMAs on the dQ pass is in
-// fused_bwd_probe.cu.
+// multiple of 128, so every fragment load meets each bank once; S (and
+// dS) stay in registers, and P·V, dS·K and Pᵀ·dO take them as A
+// fragments as they stand (the fragment's k index permuted within each
+// 8-key step). A probe against register-tiled CUDA-core FMAs on the dQ
+// pass is in fused_bwd_probe.cu, one of the forward's K/V stage counts
+// in fused_fwd_probe.cu.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,9 +83,10 @@
 namespace {
 
 constexpr int MAX_D = 128;
-constexpr int THREADS = 256;         // forward: 16 row groups x 16 lanes
-constexpr int RPT = 4;               // rows of a thread (BM / 16)
-constexpr int CPT = 4;               // columns of a thread (BN / 16)
+constexpr int THREADS = 128;         // four warps, 16 rows of a tile each
+// K/V stages of the forward: one at three blocks an SM hides a block's
+// copies behind the others' products (fused_fwd_probe.cu times two)
+constexpr int FWD_STAGES = 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -109,189 +107,9 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// reductions over the 16 lanes of a half-warp (one row group)
-__device__ __forceinline__ float half_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage rows [t0, t0 + 64) of head (b, h) into shared memory as f32 with
-// row stride ld; rows past n are zero.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ x,
-                                      const Strides& s, int b, int h,
-                                      int t0, int n, int D, float* dst,
-                                      int ld) {
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
-    const int t = t0 + r;
-    dst[r * ld + d] =
-        t < n ? to_f32(x[at(s, b, t, h) + d]) : 0.f;
-  }
-}
-
-// The masked score of (row, col): scale and bias applied, causal keys
-// set to NEG_INF. Columns past Tk are absent: -inf, ignored by the max.
-__device__ __forceinline__ float masked_score(float dot, const Geometry& g,
-                                              float bias, int row,
-                                              int col) {
-  if (col >= g.Tk) return -INFINITY;
-  float x = dot * g.scale + bias;
-  if (g.causal && row + (g.Tk - g.Tq) < col) x = NEG_INF;
-  return x;
-}
-
 // --------------------------------------------------------------------------
-// forward
+// products on the tensor cores in split TF32, and tile staging
 // --------------------------------------------------------------------------
-
-template <typename T, int DJ>
-__global__ void __launch_bounds__(THREADS) fused_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ bias,
-    const int* __restrict__ seed, T* __restrict__ o, float* __restrict__ o32,
-    float* __restrict__ m_out, float* __restrict__ l_out, Strides sq,
-    Strides sk, Strides sv, Strides so, Geometry g) {
-  const int bh = blockIdx.x;
-  const int b = bh / g.H, h = bh - b * g.H;
-  const int r0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, grp = tid >> 4, ln = tid & 15;
-  const int D = g.D;
-  const int ldq = D + 1, ldk = D + 1, ldv = D, ldp = BN + 1;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // BM x (D + 1)
-  float* k_s = q_s + BM * ldq;       // BN x (D + 1)
-  float* v_s = k_s + BN * ldk;       // BN x D
-  float* p_s = v_s + BN * ldv;       // BM x (BN + 1)
-
-  stage<T>(q, sq, b, h, r0, g.Tq, D, q_s, ldq);
-  const uint32_t s0 = (uint32_t)seed[0];
-  const uint32_t s1 = (uint32_t)seed[1] ^ (uint32_t)bh;
-  const float* bias_b = bias + (long long)b * g.Tk;
-
-  float m_i[RPT], l_i[RPT], acc[RPT][DJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_tiles = key_tiles(g, r0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int c0 = kt * BN;
-    __syncthreads();  // the previous tile is consumed
-    stage<T>(k, sk, b, h, c0, g.Tk, D, k_s, ldk);
-    stage<T>(v, sv, b, h, c0, g.Tk, D, v_s, ldv);
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = q_s[(grp * RPT + i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = k_s[(ln + 16 * j) * ldk + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    float bcol[CPT];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = c0 + ln + 16 * j;
-      bcol[j] = col < g.Tk ? bias_b[col] : 0.f;
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int lr = grp * RPT + i;
-      const int row = r0 + lr;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = masked_score(s[i][j], g, bcol[j], row, c0 + ln + 16 * j);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = half_max(mx);
-      const float m_new = fmaxf(m_i[i], mx);
-      const bool masked = m_new <= NEG_INF * 0.5f;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = c0 + ln + 16 * j;
-        float e = (masked || col >= g.Tk) ? 0.f : expf(s[i][j] - m_new);
-        sum += e;
-        if (g.dropout && !keep_bit(s0, s1, row, col, g.Tk, g.threshold))
-          e = 0.f;
-        p_s[lr * ldp + ln + 16 * j] = round_to<T>(e);
-      }
-      sum = half_sum(sum);
-      const float alpha = masked ? 1.f : expf(m_i[i] - m_new);
-      l_i[i] = l_i[i] * alpha + sum;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncwarp();  // a row group's probabilities are in p_s
-
-    for (int c = 0; c < BN; ++c) {
-      float pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = p_s[(grp * RPT + i) * ldp + c];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const int d = ln + 16 * jj;
-        const float vv = d < D ? v_s[c * ldv + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = r0 + grp * RPT + i;
-    if (row >= g.Tq) continue;
-    const float f = g.inv_keep / fmaxf(l_i[i], 1e-30f);
-    T* orow = o + at(so, b, row, h);
-    float* o32row = o32 ? o32 + at(so, b, row, h) : nullptr;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = ln + 16 * jj;
-      if (d < D) {
-        orow[d] = from_f32<T>(acc[i][jj] * f);
-        if (o32row) o32row[d] = acc[i][jj] * f;
-      }
-    }
-    if (ln == 0) {
-      m_out[(long long)bh * g.Tq + row] = m_i[i];
-      l_out[(long long)bh * g.Tq + row] = l_i[i];
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// backward: dQ and dK/dV, products on the tensor cores in split TF32
-// --------------------------------------------------------------------------
-
-constexpr int BWD_THREADS = 128;     // four warps, 16 rows of a tile each
 
 // A staged 64-row tile of DP columns: row stride DP + 4 floats or DP + 8
 // bfloat16, 16 bytes past a multiple of 128, so that a fragment load (8
@@ -341,14 +159,35 @@ __device__ __forceinline__ void mma_step(float* d, const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh0, bh1);
 }
 
+// One k-step with the small terms kept apart (SPLIT only): c += lo·hi +
+// hi·lo, d += hi·hi. The tensor cores truncate each sum they
+// accumulate; summed into d, the two correction products would add two
+// truncations at d's magnitude a step, while in c they truncate at
+// 2^-10 of it.
+__device__ __forceinline__ void mma_step_apart(float* d, float* c,
+                                               const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4],
+                                               uint32_t bh0, uint32_t bh1,
+                                               uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
 // acc (16 x 64) = X·Yᵀ over DP columns: X this warp's 16 rows of a staged
 // tile, Y all 64 rows of another (S = Q·Kᵀ and dP = dO·Vᵀ; Sᵀ = K·Qᵀ and
 // dPᵀ = V·dOᵀ in the dK/dV kernel). acc is in the accumulator layout
-// (frag_row, frag_col), eight 8-column blocks.
-template <typename T, int DP>
+// (frag_row, frag_col), eight 8-column blocks. APART (the forward's S in
+// float32, held to 1e-5) sums the correction products in 32 more
+// registers (mma_step_apart).
+template <typename T, int DP, bool APART = false>
 __device__ __forceinline__ void product_xyt(float (&acc)[32], const T* x,
                                             const T* y) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr bool SEP = SPLIT && APART;
+  float corr[SEP ? 32 : 1];
+#pragma unroll
+  for (int j = 0; j < (SEP ? 32 : 1); ++j) corr[j] = 0.f;
   constexpr int LD = Tile<T, DP>::LD;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const T* xr = x + (16 * (threadIdx.x >> 5) + g) * LD + t;
@@ -368,8 +207,16 @@ __device__ __forceinline__ void product_xyt(float (&acc)[32], const T* x,
       uint32_t bh0, bl0, bh1, bl1;
       tf32_terms<SPLIT>(to_f32(yb[0]), bh0, bl0);
       tf32_terms<SPLIT>(to_f32(yb[4]), bh1, bl1);
-      mma_step<SPLIT>(acc + 4 * nb, ah, al, bh0, bh1, bl0, bl1);
+      if constexpr (SEP)
+        mma_step_apart(acc + 4 * nb, corr + 4 * nb, ah, al, bh0, bh1, bl0,
+                       bl1);
+      else
+        mma_step<SPLIT>(acc + 4 * nb, ah, al, bh0, bh1, bl0, bl1);
     }
+  }
+  if constexpr (SEP) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] += corr[j];
   }
 }
 
@@ -404,6 +251,53 @@ __device__ __forceinline__ void product_ay(float (&acc)[DP / 2],
   }
 }
 
+// acc (16 x DP) = acc·alpha[row half] + A·Y: the forward's P·V of one key
+// tile, with A (P) and Y (V) as in product_ay, but A·Y summed over this
+// tile alone in fresh registers and then added in float32. The tensor
+// cores truncate each sum they accumulate, so a running accumulator
+// carried across every key tile took 3 truncations a k-step at the
+// magnitude of the unnormalised output (up to l times the output),
+// about 1e-5 of the output at BERT-base shapes; a tile's own sum holds
+// its truncations at the tile's magnitude (the correction products
+// apart, mma_step_apart). A's TF32 terms are formed once (the hi terms
+// are P's own bits), and the loop runs over output columns outermost so
+// that each sum needs eight registers.
+template <typename T, int DP>
+__device__ __forceinline__ void rescale_add_ay(float (&acc)[DP / 2],
+                                               const float (&alpha)[2],
+                                               const float (&a)[32],
+                                               const T* y) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = Tile<T, DP>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const T* yr = y + 2 * t * LD + g;
+  uint32_t ah[32], al[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) tf32_terms<SPLIT>(a[j], ah[j], al[j]);
+#pragma unroll
+  for (int nb = 0; nb < DP / 8; ++nb) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t fh[4] = {ah[4 * kk], ah[4 * kk + 2], ah[4 * kk + 1],
+                              ah[4 * kk + 3]};
+      const uint32_t fl[4] = {al[4 * kk], al[4 * kk + 2], al[4 * kk + 1],
+                              al[4 * kk + 3]};
+      const T* yb = yr + 8 * kk * LD + 8 * nb;
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_terms<SPLIT>(to_f32(yb[0]), bh0, bl0);
+      tf32_terms<SPLIT>(to_f32(yb[LD]), bh1, bl1);
+      if constexpr (SPLIT)
+        mma_step_apart(d, c, fh, fl, bh0, bh1, bl0, bl1);
+      else
+        mma_step<SPLIT>(d, fh, fl, bh0, bh1, bl0, bl1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[4 * nb + e] = fmaf(acc[4 * nb + e], alpha[e >> 1], d[e] + c[e]);
+  }
+}
+
 // Copies 64-row tiles of one head (b, h) of a (batch, time, head)-strided
 // tensor into staged tiles: thread t moves `unit` bytes at column t % cpr
 // of rows t / cpr + k·(128 / cpr), by cp.async for 16, 8 or 4 bytes (the
@@ -420,7 +314,7 @@ struct RowCopier {
                                        int h, int D, int unit_) {
     unit = unit_;
     const int cpr = D * (int)sizeof(T) / unit;
-    rpp = BWD_THREADS / cpr;
+    rpp = THREADS / cpr;
     r0 = threadIdx.x / cpr;
     col = (threadIdx.x - r0 * cpr) * unit;
     active = threadIdx.x < rpp * cpr;
@@ -457,31 +351,132 @@ template <typename T, int DP>
 __device__ __forceinline__ void zero_pad(T* tiles, int count, int D) {
   constexpr int LD = Tile<T, DP>::LD;
   const int w = DP - D;
-  for (int i = threadIdx.x; i < count * 64 * w; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < count * 64 * w; i += THREADS) {
     const int r = i / w;
     tiles[r * LD + D + (i - r * w)] = from_f32<T>(0.f);
   }
 }
 
-// Store this thread's part of a 64 x DP accumulator as rows t0 +
-// frag_row (those below n), columns below D.
+// Store this thread's part of a 64 x DP accumulator, times f[row half],
+// as rows t0 + frag_row (those below n), columns below D; and as float32
+// into x32 when it is given.
 template <typename T, int NA>
-__device__ __forceinline__ void store_acc(const float (&acc)[NA], T* x,
-                                          const Strides& s, int b, int h,
-                                          int t0, int n, int D) {
+__device__ __forceinline__ void store_acc(const float (&acc)[NA],
+                                          const float (&f)[2], T* x,
+                                          float* x32, const Strides& s,
+                                          int b, int h, int t0, int n,
+                                          int D) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = t0 + frag_row(2 * i);
     if (t >= n) continue;
-    T* row = x + at(s, b, t, h);
+    const long long base = at(s, b, t, h);
 #pragma unroll
     for (int nb = 0; nb < NA / 4; ++nb) {
       const int d = frag_col(4 * nb);
-      if (d < D) row[d] = from_f32<T>(acc[4 * nb + 2 * i]);
-      if (d + 1 < D) row[d + 1] = from_f32<T>(acc[4 * nb + 2 * i + 1]);
+      const float v0 = acc[4 * nb + 2 * i] * f[i];
+      const float v1 = acc[4 * nb + 2 * i + 1] * f[i];
+      if (d < D) x[base + d] = from_f32<T>(v0);
+      if (d + 1 < D) x[base + d + 1] = from_f32<T>(v1);
+      if (x32 && d < D) x32[base + d] = v0;
+      if (x32 && d + 1 < D) x32[base + d + 1] = v1;
     }
   }
 }
+
+// --------------------------------------------------------------------------
+// forward
+// --------------------------------------------------------------------------
+
+// One block per (b, h, 64-query tile), four warps of 16 rows. Over the
+// key tiles (to the causal diagonal): S = Q·Kᵀ (product_xyt), the online
+// softmax on the fragment (softmax_tile: bias, causal test, the
+// pre-dropout partial l, the keep hash; alpha rescales the accumulator
+// per row), then O = O·alpha + P·V (rescale_add_ay) with P taken from
+// registers as it stands, rounded to T first (bfloat16: the reference's rounding point
+// before its MXU product; float32 takes none). Q is staged once, K and V
+// tiles through STAGES cp.async stages (with two, tile kt + 1 is in
+// flight while tile kt is multiplied). At DP = 64 in float32 one stage
+// takes 52 KB of shared memory; at most 168 registers a thread put three
+// blocks on an SM.
+template <typename T, int DP, int STAGES>
+__global__ void __launch_bounds__(THREADS, 3) fused_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ bias,
+    const int* __restrict__ seed, T* __restrict__ o, float* __restrict__ o32,
+    float* __restrict__ m_out, float* __restrict__ l_out, Strides sq,
+    Strides sk, Strides sv, Strides so, int unit, Geometry g) {
+  constexpr int TE = Tile<T, DP>::ELEMS;
+  extern __shared__ __align__(16) uint8_t fwd_smem[];
+  T* q_s = reinterpret_cast<T*>(fwd_smem);
+  T* k_s = q_s + TE;                 // STAGES tiles
+  T* v_s = k_s + STAGES * TE;        // STAGES tiles
+
+  const int nqt = (g.Tq + BM - 1) / BM;
+  const int bh = blockIdx.x / nqt, r0 = (blockIdx.x - bh * nqt) * BM;
+  const int b = bh / g.H, h = bh - b * g.H;
+  const int rows[2] = {r0 + frag_row(0), r0 + frag_row(2)};
+  const int n = key_tiles(g, r0);
+  const RowCopier<T, DP> kc(k, sk, b, h, g.D, unit),
+      vc(v, sv, b, h, g.D, unit);
+  auto load_kv = [&](int t) {
+    kc.copy(k_s + (t % STAGES) * TE, t * BN, g.Tk);
+    vc.copy(v_s + (t % STAGES) * TE, t * BN, g.Tk);
+  };
+  RowCopier<T, DP>(q, sq, b, h, g.D, unit).copy(q_s, r0, g.Tq);
+#pragma unroll
+  for (int t = 0; t < STAGES; ++t) {  // one group a tile, Q in the first
+    if (t < n) load_kv(t);
+    cp_async_commit();
+  }
+  zero_pad<T, DP>(q_s, 1 + 2 * STAGES, g.D);
+
+  const uint32_t s0 = (uint32_t)seed[0];
+  const uint32_t s1 = (uint32_t)seed[1] ^ (uint32_t)bh;
+  const float* bias_b = bias + (long long)b * g.Tk;
+  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f}, alpha[2];
+  float acc[DP / 2], s[32], bc[16];
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+  for (int kt = 0; kt < n; ++kt) {
+    const int st = kt % STAGES;
+    load_bias(bc, bias_b, kt * BN, g.Tk);
+    cp_async_wait<STAGES - 1>();  // Q (and the pads) and key tile kt
+    __syncthreads();
+    product_xyt<T, DP, true>(s, q_s, k_s + st * TE);
+    softmax_tile(s, bc, g, kt * BN, rows, m_i, l_i, alpha, s0, s1);
+    if constexpr (!std::is_same<T, float>::value) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = round_to<T>(s[j]);
+    }
+    rescale_add_ay<T, DP>(acc, alpha, s, v_s + st * TE);
+    __syncthreads();  // every warp is done with stage st
+    if (kt + STAGES < n) load_kv(kt + STAGES);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // fully masked rows: l = 0 and acc = 0, so the output is exactly 0
+  float f[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_i[i] = quad_sum(l_i[i]);
+    f[i] = g.inv_keep / fmaxf(l_i[i], 1e-30f);
+  }
+  store_acc<T>(acc, f, o, o32, so, b, h, r0, g.Tq, g.D);
+  if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rows[i] < g.Tq) {
+        m_out[(long long)bh * g.Tq + rows[i]] = m_i[i];
+        l_out[(long long)bh * g.Tq + rows[i]] = l_i[i];
+      }
+  }
+}
+
+// --------------------------------------------------------------------------
+// backward: dQ and dK/dV
+// --------------------------------------------------------------------------
 
 // One block per (b, h, 64-query tile): d_row = rowsum(dO ⊙ O) and the
 // row statistics the dK/dV kernel reads (rowbuf: float32 (2, B, H, Tq),
@@ -493,7 +488,7 @@ __device__ __forceinline__ void store_acc(const float (&acc)[NA], T* x,
 // 168 registers a thread put three blocks on an SM, which hide each
 // other's copies (a second stage, and so two blocks an SM, was slower).
 template <typename T, int DP>
-__global__ void __launch_bounds__(BWD_THREADS, 3) fused_bwd_dq_kernel(
+__global__ void __launch_bounds__(THREADS, 3) fused_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ o32,
     const T* __restrict__ dout, const float* __restrict__ bias,
@@ -586,7 +581,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 3) fused_bwd_dq_kernel(
     __syncthreads();  // every warp is done with key tile kt
   }
   cp_async_wait<0>();
-  store_acc<T>(acc, dq, sdq, b, h, r0, g.Tq, g.D);
+  const float one[2] = {1.f, 1.f};
+  store_acc<T>(acc, one, dq, nullptr, sdq, b, h, r0, g.Tq, g.D);
 }
 
 // One block per (b, h, 64-key tile): over the query tiles (from the
@@ -597,7 +593,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 3) fused_bwd_dq_kernel(
 // kernel. No atomics: dK and dV are summed in one block, in query
 // order.
 template <typename T, int DP>
-__global__ void __launch_bounds__(BWD_THREADS, 3) fused_bwd_dkdv_kernel(
+__global__ void __launch_bounds__(THREADS, 3) fused_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ bias, const float* __restrict__ rowbuf,
@@ -688,13 +684,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 3) fused_bwd_dkdv_kernel(
     __syncthreads();  // every warp is done with query tile qt
   }
   cp_async_wait<0>();
-  store_acc<T>(dk_acc, dk, sdk, b, h, c0, g.Tk, g.D);
-  store_acc<T>(dv_acc, dv, sdv, b, h, c0, g.Tk, g.D);
+  const float one[2] = {1.f, 1.f};
+  store_acc<T>(dk_acc, one, dk, nullptr, sdk, b, h, c0, g.Tk, g.D);
+  store_acc<T>(dv_acc, one, dv, nullptr, sdv, b, h, c0, g.Tk, g.D);
 }
 
-size_t fwd_smem_bytes(int D) {
-  return sizeof(float) * ((size_t)BM * (D + 1) + (size_t)BN * (D + 1) +
-                          (size_t)BN * D + (size_t)BM * (BN + 1));
+// The forward's dynamic shared memory: Q and STAGES tiles each of K and V.
+template <typename T, int DP, int STAGES>
+size_t fwd_smem_bytes() {
+  return (1 + 2 * STAGES) * sizeof(T) * (size_t)Tile<T, DP>::ELEMS;
 }
 
 // The backward's dynamic shared memory: four staged tiles (Q, dO, K, V),
@@ -707,11 +705,12 @@ size_t bwd_smem_bytes(bool dkdv) {
 
 // The widest copy (16, 8 or 4 bytes, else one element) that a staged
 // row's bytes and every staged tensor's base and strides allow.
-int copy_unit(int row_bytes, int itemsize, const void* const (&ptrs)[4],
-              const Strides (&ss)[4]) {
+template <int N>
+int copy_unit(int row_bytes, int itemsize, const void* const (&ptrs)[N],
+              const Strides (&ss)[N]) {
   for (int u = 16; u >= 4; u >>= 1) {
     bool ok = row_bytes % u == 0;
-    for (int i = 0; i < 4 && ok; ++i)
+    for (int i = 0; i < N && ok; ++i)
       ok = reinterpret_cast<uintptr_t>(ptrs[i]) % u == 0 &&
            ss[i].b * itemsize % u == 0 && ss[i].t * itemsize % u == 0 &&
            ss[i].h * itemsize % u == 0;
@@ -720,20 +719,24 @@ int copy_unit(int row_bytes, int itemsize, const void* const (&ptrs)[4],
   return itemsize;
 }
 
-template <typename T, int DJ>
+template <typename T, int DP, int STAGES>
 int launch_fwd(const void* q, const void* k, const void* v,
                const float* bias, const int* seed, void* o, float* o32,
                float* m, float* l, const long long* st, int B, Geometry g,
                cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(g.D);
-  cudaError_t err = allow_smem(fused_fwd_kernel<T, DJ>, smem);
+  const size_t smem = fwd_smem_bytes<T, DP, STAGES>();
+  cudaError_t err = allow_smem(fused_fwd_kernel<T, DP, STAGES>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * g.H, (g.Tq + BM - 1) / BM);
-  fused_fwd_kernel<T, DJ><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, seed, static_cast<T*>(o), o32, m, l,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), g);
+  const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
+                sv = strides_at(st, 2);
+  const int unit = copy_unit<3>(g.D * (int)sizeof(T), (int)sizeof(T),
+                                {q, k, v}, {sq, sk, sv});
+  const long long blocks = (long long)B * g.H * ((g.Tq + BM - 1) / BM);
+  fused_fwd_kernel<T, DP, STAGES>
+      <<<(unsigned)blocks, THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), bias, seed, static_cast<T*>(o), o32, m,
+          l, sq, sk, sv, strides_at(st, 3), unit, g);
   return (int)cudaGetLastError();
 }
 
@@ -753,8 +756,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* o32,
                 sv = strides_at(st, 2), so = strides_at(st, 3),
                 sdo = strides_at(st, 4), sdq = strides_at(st, 5),
                 sdk = strides_at(st, 6), sdv = strides_at(st, 7);
-  const int unit = copy_unit(g.D * (int)sizeof(T), (int)sizeof(T),
-                             {q, k, v, dout}, {sq, sk, sv, sdo});
+  const int unit = copy_unit<4>(g.D * (int)sizeof(T), (int)sizeof(T),
+                                {q, k, v, dout}, {sq, sk, sv, sdo});
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -764,13 +767,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* o32,
   const long long k_blocks = (long long)B * g.H * ((g.Tk + BN - 1) / BN);
   // dQ first: it also writes the row statistics and keep bits dK/dV reads
   fused_bwd_dq_kernel<T, DP>
-      <<<(unsigned)q_blocks, BWD_THREADS, smem_q, stream>>>(
+      <<<(unsigned)q_blocks, THREADS, smem_q, stream>>>(
           qt, kt, vt, o32, dot, bias, seed, m, l, rowbuf, keep,
           static_cast<T*>(dq), sq, sk, sv, so, sdo, sdq, bht, unit, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_bwd_dkdv_kernel<T, DP>
-      <<<(unsigned)k_blocks, BWD_THREADS, smem_kv, stream>>>(
+      <<<(unsigned)k_blocks, THREADS, smem_kv, stream>>>(
           qt, kt, vt, dot, bias, rowbuf, keep, static_cast<T*>(dk),
           static_cast<T*>(dv), sq, sk, sv, sdo, sdk, sdv, bht, unit, g);
   return (int)cudaGetLastError();
@@ -806,17 +809,18 @@ int mxt_fused_attention_fwd(const void* q, const void* k, const void* v,
   float* mf = static_cast<float*>(m);
   float* lf = static_cast<float*>(l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = D > 64;
-  if (dtype == 0)
-    return wide ? launch_fwd<float, 8>(q, k, v, bs, sd, o, of, mf, lf,
+#define MXT_FWD(T, DP)                                                      \
+  return launch_fwd<T, DP, FWD_STAGES>(q, k, v, bs, sd, o, of, mf, lf,     \
                                        strides, B, g, st)
-                : launch_fwd<float, 4>(q, k, v, bs, sd, o, of, mf, lf,
-                                       strides, B, g, st);
-  if (dtype == 1)
-    return wide ? launch_fwd<__nv_bfloat16, 8>(q, k, v, bs, sd, o, of, mf, lf,
-                                               strides, B, g, st)
-                : launch_fwd<__nv_bfloat16, 4>(q, k, v, bs, sd, o, of, mf, lf,
-                                               strides, B, g, st);
+  if (dtype == 0) {
+    if (D <= 64) MXT_FWD(float, 64);
+    MXT_FWD(float, 128);
+  }
+  if (dtype == 1) {
+    if (D <= 64) MXT_FWD(__nv_bfloat16, 64);
+    MXT_FWD(__nv_bfloat16, 128);
+  }
+#undef MXT_FWD
   return (int)cudaErrorInvalidValue;
 }
 

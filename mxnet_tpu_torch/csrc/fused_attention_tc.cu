@@ -9,8 +9,9 @@
 //   fused_bwd_dq_tc_kernel, fused_bwd_dkdv_tc_kernel
 //                                         <- _bwd_kernel_packed (BTHD),
 //                                            _bwd_kernel (BHTD)
-// float32 keeps the CUDA-core kernels of fused_attention.cu, and so do
-// bfloat16 calls whose rows the 16-byte async copies cannot stage (the
+// float32 keeps the kernels of fused_attention.cu (route "cuda_core":
+// mma.sync in split TF32, any row alignment), and so do bfloat16 calls
+// whose rows the 16-byte async copies cannot stage (the
 // wrapper's route rule, ops/fused_attention.py `kernel_route`): here
 // D % 8 == 0, every (batch, time, head) element stride is a multiple of
 // 8 and every base address is 16-byte aligned.
@@ -166,51 +167,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NA],
         *reinterpret_cast<float2*>(x32 + base + d) = make_float2(v0, v1);
     }
   }
-}
-
-// One key tile of the forward's online softmax, in place: the scores s
-// (Q·Kᵀ of columns c0..c0+63) become the probabilities before
-// normalisation, dropout applied, unrounded; the running max m and this
-// thread's partial denominators l (pre-dropout) move on; alpha is the
-// factor the output accumulator must take for the new max.
-__device__ __forceinline__ void softmax_tile(
-    float (&s)[32], const float (&bc)[16], const Geometry& g, int c0,
-    const int (&rows)[2], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    uint32_t s0, uint32_t s1) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int i = (j >> 1) & 1;
-    float x = fmaf(s[j], g.scale, bc[2 * (j >> 2) + (j & 1)]);
-    // causal keys take NEG_INF; an absent key stays -inf
-    if (g.causal)
-      x = rows[i] + (g.Tk - g.Tq) < c0 + frag_col(j) ? fminf(x, NEG_INF) : x;
-    s[j] = x;
-  }
-  // a dead row's scaled max is +inf: its exponentials come out 0
-  float ms[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float m_new = fmaxf(m[i], row_max(s, i));
-    const bool dead = m_new <= NEG_INF * 0.5f;
-    alpha[i] = dead ? 1.f : ex2((m[i] - m_new) * LOG2E);
-    m[i] = m_new;
-    ms[i] = dead ? INFINITY : m_new * LOG2E;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int i = (j >> 1) & 1;
-    const float e = ex2(fmaf(s[j], LOG2E, -ms[i]));
-    sum[i] += e;
-    s[j] = !g.dropout || keep_bit(s0, s1, rows[i], c0 + frag_col(j), g.Tk,
-                                  g.threshold)
-               ? e
-               : 0.f;
-  }
-  // alpha is common to the four threads of a row, so l can stay a
-  // per-thread partial sum until the end
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
 }
 
 // --------------------------------------------------------------------------

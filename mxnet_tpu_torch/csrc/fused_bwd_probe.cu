@@ -26,6 +26,13 @@ __device__ __forceinline__ int sw(int r, int c) {
   return r * PD + ((c ^ ((r >> 2) & 15)) << 2);
 }
 
+// the sum over the 16 lanes of a half-warp
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __device__ __forceinline__ float dot4(const float4& a, const float4& b,
                                       float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -218,7 +225,7 @@ extern "C" int mxt_probe_fused_bwd_dq(
   const size_t smem = bwd_smem_bytes<float, 64>(false);
   cudaError_t err = allow_smem(fused_bwd_dq_kernel<float, 64>, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_bwd_dq_kernel<float, 64><<<blocks, BWD_THREADS, smem, st>>>(
+  fused_bwd_dq_kernel<float, 64><<<blocks, THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(o32),
       static_cast<const float*>(dout), static_cast<const float*>(bias),

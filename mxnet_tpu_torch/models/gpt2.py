@@ -1,21 +1,28 @@
-"""GPT-2 for serving over a ragged paged KV cache.
+"""GPT-2 for training and for serving over a ragged paged KV cache.
 
 Counterpart of mxnet_tpu/models/gpt2.py. Module and parameter names
 follow the reference (`backbone.layer3.attn.query.weight`,
 `backbone.ln_f.gamma`, ...), so models/convert.py can carry JAX weights
 across by name. The LM head is tied to `backbone.word_embed.weight`.
 
-Ported: the ragged-cache forward the serving engine runs — every slot
-writes its rows at its own length (`PagedKVCache.write_decode`) and
-attends over its own pages through the ragged attention kernels: one
-query row per slot goes to `ragged_decode_attention`, anything else to
-`ragged_span_attention` with the cache's per-slot `spans` as q_counts.
-A quantized (int8) cache sends every call, one row included, to
-`ragged_span_attention` with the layer's scales, and q keeps its dtype.
+Ported:
+  * the `cache=None` training forward: positions 0..t-1, the embedding
+    and block dropouts, and per layer one causal attention over the
+    (B, T, H, D) head split through ops.nn.dot_product_attention at the
+    config's attention_impl (the fused attention kernels). Dropout is
+    active only in train() mode; the model starts in eval() mode, as the
+    reference applies dropout only under autograd training.
+  * the ragged-cache forward the serving engine runs — every slot
+    writes its rows at its own length (`PagedKVCache.write_decode`) and
+    attends over its own pages through the ragged attention kernels: one
+    query row per slot goes to `ragged_decode_attention`, anything else
+    to `ragged_span_attention` with the cache's per-slot `spans` as
+    q_counts. A quantized (int8) cache sends every call, one row
+    included, to `ragged_span_attention` with the layer's scales, and q
+    keeps its dtype.
 
-Not ported yet: the `cache=None` training forward (fused attention
-kernels), the lockstep KVCache path, `generate()`, LoRA adapters and
-the tensor-parallel split.
+Not ported yet: the lockstep KVCache path, `generate()`, LoRA adapters
+and the tensor-parallel split.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 from torch import nn
 
 from ..base import MXNetError, not_ported, resolve_device
-from ..nn import Dense, Embedding, LayerNorm
+from ..nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops import nn as _ops
 from ..ops.ragged_attention import (ragged_decode_attention,
                                     ragged_span_attention)
@@ -91,13 +98,16 @@ def gpt2_xl_config(**kw):              # 1.5B
 
 
 class GPT2Attention(nn.Module):
-    """Causal self-attention over a ragged paged KV cache."""
+    """Causal self-attention: over the chunk itself (no cache, training)
+    or over a ragged paged KV cache."""
 
-    def __init__(self, units, num_heads, device, dtype):
+    def __init__(self, units, num_heads, device, dtype, dropout=0.0,
+                 attention_impl="auto"):
         super().__init__()
         if units % num_heads:
             raise MXNetError(f"units {units} % heads {num_heads} != 0")
         self._units, self._num_heads = units, num_heads
+        self._dropout, self._impl = dropout, attention_impl
         kw = dict(device=device, dtype=dtype)
         self.query = Dense(units, units, **kw)
         self.key = Dense(units, units, **kw)
@@ -110,6 +120,14 @@ class GPT2Attention(nn.Module):
         q = self.query(x).view(b, t, h, d)
         k = self.key(x).view(b, t, h, d)
         v = self.value(x).view(b, t, h, d)
+        if cache is None:
+            # training: the head split stays (B, T, H, D), which the fused
+            # kernel reads through its strides
+            out = _ops.dot_product_attention(
+                q, k, v, causal=True,
+                dropout_p=self._dropout if self.training else 0.0,
+                impl=self._impl, layout="BTHD")
+            return self.proj(out.reshape(b, t, h * d)), None
         # the cache takes the reference's (B, H, t, D) layout
         cache = cache.write_decode(layer_idx, k.transpose(1, 2),
                                    v.transpose(1, 2))
@@ -142,17 +160,23 @@ class GPT2Block(nn.Module):
         super().__init__()
         c, kw = cfg, dict(device=device, dtype=dtype)
         self.ln1 = LayerNorm(c.units, c.layer_norm_eps, **kw)
-        self.attn = GPT2Attention(c.units, c.num_heads, **kw)
+        self.attn = GPT2Attention(c.units, c.num_heads,
+                                  dropout=c.attention_dropout,
+                                  attention_impl=c.attention_impl, **kw)
         self.ln2 = LayerNorm(c.units, c.layer_norm_eps, **kw)
         self.fc1 = Dense(c.units, c.hidden_size, **kw)
         self.fc2 = Dense(c.hidden_size, c.units, **kw)
         self._activation = c.activation
+        self.dropout = Dropout(c.dropout) if c.dropout else None
+
+    def _drop(self, h):
+        return self.dropout(h) if self.dropout is not None else h
 
     def forward(self, x, cache, layer_idx):
         h, cache = self.attn(self.ln1(x), cache, layer_idx)
-        x = x + h
+        x = x + self._drop(h)
         h = _ops.activation(self.fc1(self.ln2(x)), self._activation)
-        return x + self.fc2(h), cache
+        return x + self._drop(self.fc2(h)), cache
 
 
 class GPT2Model(nn.Module):
@@ -164,6 +188,7 @@ class GPT2Model(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.word_embed = Embedding(c.vocab_size, c.units, **kw)
         self.position_embed = Embedding(c.max_length, c.units, **kw)
+        self.embed_dropout = Dropout(c.dropout) if c.dropout else None
         for i in range(c.num_layers):
             self.add_module(f"layer{i}", GPT2Block(c, **kw))
         self.ln_f = LayerNorm(c.units, c.layer_norm_eps, **kw)
@@ -172,22 +197,27 @@ class GPT2Model(nn.Module):
         return [getattr(self, f"layer{i}")
                 for i in range(self.config.num_layers)]
 
-    def forward(self, inputs, cache):
-        if cache is None or not cache.ragged:
-            raise not_ported("the GPT-2 forward without a ragged cache")
+    def forward(self, inputs, cache=None):
+        """(hidden states (B, t, C), cache advanced by t or None)."""
+        if cache is not None and not cache.ragged:
+            raise not_ported("the GPT-2 forward over a lockstep cache")
         t = inputs.shape[1]
-        # per-slot positions: slot b's row j sits at length[b] + j. Dead
-        # rows of a slot near capacity (and parked free slots) run past
-        # the position table; jnp.take fills those with NaN, a torch
-        # index would fault, so they are clamped. Their values never
-        # reach a live row: dead rows write no KV and attend nothing.
-        positions = cache.length[:, None].long() \
-            + torch.arange(t, device=inputs.device)
-        positions = positions.clamp(max=self.config.max_length - 1)
+        positions = torch.arange(t, device=inputs.device)
+        if cache is not None:
+            # per-slot positions: slot b's row j sits at length[b] + j.
+            # Dead rows of a slot near capacity (and parked free slots)
+            # run past the position table; jnp.take fills those with NaN,
+            # a torch index would fault, so they are clamped. Their values
+            # never reach a live row: dead rows write no KV and attend
+            # nothing.
+            positions = (cache.length[:, None].long() + positions).clamp(
+                max=self.config.max_length - 1)
         x = self.word_embed(inputs) + self.position_embed(positions)
+        if self.embed_dropout is not None:
+            x = self.embed_dropout(x)
         for i, block in enumerate(self.blocks()):
             x, cache = block(x, cache, i)
-        return self.ln_f(x), cache.advance(t)
+        return self.ln_f(x), None if cache is None else cache.advance(t)
 
 
 class GPT2ForCausalLM(nn.Module):
@@ -196,7 +226,8 @@ class GPT2ForCausalLM(nn.Module):
     The parameters live on `device` (default: the CUDA card; raises
     without one) in `config.dtype`, and start as seeded random weights
     (models/convert.py init_params, seed 0); load_jax_params replaces
-    them with a JAX model's."""
+    them with a JAX model's. The model starts in eval() mode (no
+    dropout)."""
 
     def __init__(self, config, device=None):
         super().__init__()
@@ -207,6 +238,7 @@ class GPT2ForCausalLM(nn.Module):
         self.backbone = GPT2Model(config, resolve_device(device),
                                   _DTYPES[config.dtype])
         init_params(self)
+        self.eval()
 
     @property
     def device(self):
@@ -217,13 +249,13 @@ class GPT2ForCausalLM(nn.Module):
         return self.backbone.word_embed.weight.dtype
 
     def forward(self, inputs, cache=None):
-        """inputs (B, t) int token ids; cache a ragged PagedKVCache.
-        Returns (logits (B, t, V), cache advanced by t)."""
-        if cache is None:
-            raise not_ported("GPT2ForCausalLM.forward without a cache")
+        """inputs (B, t) int token ids; cache None (training: positions
+        0..t-1, causal attention over the chunk) or a ragged
+        PagedKVCache. Returns the logits (B, t, V) alone without a cache,
+        as the reference does, else (logits, cache advanced by t)."""
         h, cache = self.backbone(inputs, cache)
         logits = _ops.fully_connected(h, self.backbone.word_embed.weight)
-        return logits, cache
+        return logits if cache is None else (logits, cache)
 
     def make_cache(self, batch, max_length, paged=True, page_size=64,
                    dtype=None, page_table=None, lengths=None,

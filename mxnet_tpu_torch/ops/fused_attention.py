@@ -16,11 +16,13 @@ launched:
     which the backward copies if it is not) a multiple of 8, every base
     address 16-byte aligned. wgmma products, float32 accumulators.
   * "cuda_core" (`csrc/fused_attention.cu`): float32, and bfloat16 that
-    the rule above refuses (D = 12, a misaligned stride or base). The
-    forward on scalar float32 FMAs; the backward's products on the
-    tensor cores in split TF32 (each float32 operand as hi + lo TF32
-    terms, three products), which keeps float32's accuracy where plain
-    TF32 would not meet the 1e-4 gradient check.
+    the rule above refuses (D = 12, a misaligned stride or base). Rows
+    staged by cp.async at whatever width they allow; every product on
+    the tensor cores by mma.sync in split TF32 (each float32 operand as
+    hi + lo TF32 terms, three products; bfloat16 operands take one),
+    which keeps float32's accuracy where plain TF32 would not meet the
+    1e-5 forward and 1e-4 gradient checks. The route keeps the name of
+    its first design, scalar FMAs on the CUDA cores.
 
 A plain PyTorch version of the same function sits beside them
 (`_fused_reference`); torch autograd differentiates it.

@@ -16,6 +16,8 @@ before dQ and dK) the tensor-core kernels follow on the card. The
 kernels themselves run only on a card (chip_smoke.py); here the route a
 CUDA call would take is checked without launching.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -283,35 +285,155 @@ def test_kernel_route(x, route):
     assert fa.supported(x, x, None, layout="BTHD")
 
 
-def _tf32(x):
-    """float32 rounded to TF32 (10 fraction bits, to nearest, ties away
-    from zero), as cvt.rna.tf32.f32 does on the card."""
+def _tf32(x, rule="rna"):
+    """float32 as a TF32 operand (10 fraction bits): "rna" to nearest,
+    ties away from zero, as cvt.rna.tf32.f32 rounds; "truncate" the top
+    19 bits, as the tensor cores read a float32's raw bits (the kernels
+    pass them so)."""
     b = x.contiguous().view(torch.int32)
-    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+    if rule == "rna":
+        b = b + 0x1000
+    return (b & ~0x1FFF).view(torch.float32)
 
 
-@pytest.mark.parametrize("product", ["scores", "ds_k"])
-def test_split_tf32_products_keep_float32_accuracy(product):
-    """The float32 backward's products on the tensor cores: each operand
+@pytest.mark.parametrize("rule", ["rna", "truncate"])
+@pytest.mark.parametrize("product", ["scores", "ds_k", "pv"])
+def test_split_tf32_products_keep_float32_accuracy(product, rule):
+    """The float32 kernels' products on the tensor cores: each operand
     as hi = tf32(x) and lo = tf32(x - hi), the product as hi·hi + hi·lo +
-    lo·hi. On seeded BERT-shaped tiles (64 x 64, D = 64) one TF32
-    rounding of the operands misses the exact product by more than 1e-4
-    of its largest value, the gradients' tolerance; the split stays
-    within 1e-6, below float32's own rounding of the sum."""
+    lo·hi, under either term rule. On seeded BERT-shaped tiles (64 x 64,
+    D = 64) one TF32 term of the operands misses the exact product by
+    more than 1e-4 of its largest value, the gradients' tolerance; the
+    split stays within 1e-6, below float32's own rounding of the sum.
+    Products: S = Q·Kᵀ, the backward's dS·K, and the forward's P·V (the
+    unnormalised probabilities, at most 1, against V)."""
     rng = np.random.default_rng(3)
     a = torch.tensor(rng.standard_normal((64, 64)), dtype=torch.float32)
     b = torch.tensor(rng.standard_normal((64, 64)), dtype=torch.float32)
-    if product == "ds_k":
-        # dS = p·(dP - d_row)·scale: softmax weights over a wide range
-        p = torch.softmax(torch.tensor(
-            rng.standard_normal((64, 64)) * 3, dtype=torch.float32), -1)
-        a = p * a / 8.0
+    if product in ("ds_k", "pv"):
+        # softmax weights over a wide range
+        x = torch.tensor(rng.standard_normal((64, 64)) * 3,
+                         dtype=torch.float32)
+        if product == "ds_k":
+            # dS = p·(dP - d_row)·scale
+            a = torch.softmax(x, -1) * a / 8.0
+        else:
+            a = torch.exp(x - x.amax(-1, keepdim=True))
     exact = a.double() @ b.double().T
     top = exact.abs().max()
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
+    ah, bh = _tf32(a, rule), _tf32(b, rule)
+    al, bl = _tf32(a - ah, rule), _tf32(b - bh, rule)
     single = ah.double() @ bh.double().T
     split = ah.double() @ bh.double().T + ah.double() @ bl.double().T \
         + al.double() @ bh.double().T
     assert (single - exact).abs().max() > 1e-4 * top
     assert (split - exact).abs().max() <= 1e-6 * top
+
+
+def _rz(x):
+    """float64 sums as float32 rounded toward zero: the tensor cores
+    truncate each sum they accumulate."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    f[over] = torch.nextafter(f[over], torch.zeros_like(f[over]))
+    return f
+
+
+def _mma_product(x, y, split):
+    """x (M, K) · y (K, N) as the kernels form it with mma.sync m16n8k8
+    TF32 in k-steps of 8: operands read truncated to TF32, every
+    accumulation truncated to float32; with `split` (float32 operands)
+    the lo·hi and hi·lo products summed apart and added at the end
+    (mma_step_apart)."""
+    def terms(z):
+        hi = _tf32(z, "truncate")
+        lo = _tf32(z - hi, "truncate") if split else torch.zeros_like(z)
+        return hi.double(), lo.double()
+    (xh, xl), (yh, yl) = terms(x), terms(y)
+    d = torch.zeros((x.shape[0], y.shape[1]), dtype=torch.float32)
+    c = torch.zeros_like(d)
+    for k0 in range(0, x.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        if split:
+            c = _rz(c.double() + xl[:, ks] @ yh[ks])
+            c = _rz(c.double() + xh[:, ks] @ yl[ks])
+        d = _rz(d.double() + xh[:, ks] @ yh[ks])
+    return d + c
+
+
+def _emulated_forward(q, k, v, bias, keep, scale, inv_keep, causal,
+                      dtype):
+    """fused_fwd_kernel's arithmetic for one (b, h) on the CPU: 64-row
+    query tiles, 64-key tiles (causal tiles stop at the diagonal), S by
+    _mma_product, the online softmax of softmax_tile (bias, causal keys
+    at NEG_INF, ex2 of the log2e-scaled argument, the pre-dropout l,
+    dead rows contributing 0), dropout, e rounded to bfloat16 for
+    bfloat16, and O = O·alpha + P·V with each tile's P·V summed apart.
+    q (Tq, D), k and v (Tk, D) as float32 values, bias (Tk,), keep
+    (Tq, Tk) bool or None. Returns O (Tq, D) in `dtype`."""
+    split = dtype == torch.float32
+    Tq, Tk = q.shape[0], k.shape[0]
+    neg, log2e = fa.NEG_INF, 1.4426950408889634
+    out = torch.empty_like(q)
+    for r0 in range(0, Tq, 64):
+        rows = torch.arange(r0, min(r0 + 64, Tq))
+        n = -(-Tk // 64)
+        if causal:
+            last = rows[-1].item() + Tk - Tq
+            n = 0 if last < 0 else min(n, last // 64 + 1)
+        m = torch.full((len(rows),), neg)
+        l = torch.zeros(len(rows))
+        acc = torch.zeros((len(rows), q.shape[1]))
+        for kt in range(n):
+            cols = torch.arange(kt * 64, min(kt * 64 + 64, Tk))
+            x = _mma_product(q[rows], k[cols].T, split) * scale + bias[cols]
+            if causal:
+                x = torch.where(rows[:, None] + (Tk - Tq) < cols[None, :],
+                                x.clamp(max=neg), x)
+            m_new = torch.maximum(m, x.amax(1))
+            dead = m_new <= neg / 2
+            alpha = torch.where(dead, 1.0, torch.exp2((m - m_new) * log2e))
+            ms = torch.where(dead, torch.inf, m_new * log2e)
+            e = torch.exp2(x * log2e - ms[:, None])
+            l = l * alpha + e.sum(1)
+            m = m_new
+            if keep is not None:
+                e = torch.where(keep[rows][:, cols], e, 0.0)
+            if dtype != torch.float32:
+                e = e.to(dtype).float()
+            acc = acc * alpha[:, None] + _mma_product(e, v[cols], split)
+        out[rows] = acc * (inv_keep / l.clamp_min(1e-30))[:, None]
+    return out.to(dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_forward_tile_loop_meets_the_kernel_tolerance(dtype,
+                                                               causal):
+    """The redesigned forward's arithmetic (split-TF32 products whose
+    sums the tensor cores truncate, the online softmax over 64-key tiles,
+    bfloat16 rounding of e) against the plain version on BERT-shaped
+    inputs for one (b, h): T = 130 (off the tile grid), D = 64, key
+    padding, dropout 0.1, causal and not; float32 within 1e-5 absolute,
+    bfloat16 within 1.2e-2 of the largest plain value, the tolerances
+    chip_smoke.py holds the kernel to on the card."""
+    T, D, p = 130, 64, 0.1
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.tensor(rng.standard_normal((1, 1, T, D)),
+                            dtype=dtype) for _ in range(3))
+    mask = torch.arange(T)[None, :] < torch.tensor([[101]])
+    bias = fa._key_bias(mask, 1, T, q.device)
+    seed = torch.tensor([12345, -678], dtype=torch.int32)
+    scale = 1.0 / math.sqrt(D)
+    want = fa._fused_reference(q, k, v, bias, seed, scale, p, causal,
+                               "BHTD")[0, 0].float()
+    keep = fa._keep_mask(seed, p, 1, 1, T, T)[0, 0]
+    got = _emulated_forward(q[0, 0].float(), k[0, 0].float(),
+                            v[0, 0].float(), bias[0], keep, scale,
+                            1.0 / (1.0 - p), causal, dtype).float()
+    err = (got - want).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5
+    else:
+        assert err <= 1.2e-2 * want.abs().max().item()
+    assert got.abs().max().item() > 0

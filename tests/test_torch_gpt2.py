@@ -331,8 +331,8 @@ def test_slot_near_capacity_clamps_dead_positions(pair):
 def test_unported_paths_raise(pair):
     _, _, net = pair
     ids = torch.zeros((1, 3), dtype=torch.int64)
-    with pytest.raises(MXNetError, match="not ported"):
-        net(ids)
+    # the cache=None training forward is ported
+    # (tests/test_torch_gpt2_train.py); the lockstep paths are not
     with pytest.raises(MXNetError, match="not ported"):
         net.make_cache(1, 64, paged=False)
     with pytest.raises(MXNetError, match="not ported"):
