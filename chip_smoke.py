@@ -18,7 +18,9 @@ script then exits non-zero without the final `ok` line):
               pages per slot, 128 pages, permuted table): the kernel cell
               (long contexts, mixed q_counts) and serve_decode, phase
               gpt2's decode dispatch (q_counts 1, lengths its prompts +
-              16); then edge cases (SPAN_EDGES: split boundaries, splits
+              16); a third, serve_verify, phase gpt2_spec's verify
+              dispatch (q_counts 1 + drafts, 1 to 8, at lengths its
+              prompts + 32, rows ending mid-page); then edge cases (SPAN_EDGES: split boundaries, splits
               with no live page, both routes in bfloat16, misaligned
               pools). Every call: the family span_route names launches
               (counted under its key alone), two runs give the same
@@ -89,6 +91,40 @@ script then exits non-zero without the final `ok` line):
               7*256 + 255 prompt tokens saved, prefill(on) + saved =
               prefill(off), the page audit clean, the tree's pages
               untouched by the split; ms per serve.
+  5d. gpt2_spec  the 774M model with ServingEngine(num_slots=8,
+              max_length=1024, page_size=64, chunk_tokens=64,
+              speculative=True, spec_tokens=8): 8 greedy requests, each a
+              random head of U[2, 6] tokens and a 4-token pattern repeated
+              U[4, 8] times (numpy seed 2), 64 new tokens. float32 and
+              bfloat16 on float pages, float32 on int8 pages. The kernel
+              path with speculation on (the span kernel of the dtype
+              exactly 36 times a dispatch, its plain version never) against
+              the same with speculation off (streams equal, float pages)
+              and against the plain path with speculation on (float32 and
+              int8: a divergence only where the plain path's own top-2 gap
+              at that token, read by a forward hook, is below 1e-4;
+              bfloat16: phase gpt2's first-token rule); drafts accepted;
+              acceptance rate, tokens and ms per dispatch on and off, and
+              20 dispatches of the float32 serve under the profiler
+              (dispatches 10-29, every prompt landed).
+  5e. gpt2_w8  the 774M model with weight_dtype="int8" (float32
+              activations), phase gpt2's traffic: the kernel path against
+              the plain path (top-2 rule, as 5d) and against a float engine
+              over the dequantized weights (its own top-2 gaps, 1e-4); int8
+              and float32 weight bytes; ms per dispatch of the w8 and the
+              dequantized float engine; the pages
+              each engine admits under one hbm_budget_bytes that float32
+              weights bind, with hbm_budget_includes_weights=True.
+  5f. gpt2_lora  the 774M model in float32 with AdapterPool(slots=4,
+              max_rank=8): four adapters (random_lora seeds 1-4, ranks
+              4/8/8/8) over its three usable slots, phase gpt2's traffic
+              wearing adapters 1, 2, 3, 4, none, 1, 2, none (eviction,
+              page-in and slab backpressure run). Each adapter's streams
+              against a plain-path engine over merged_weights (top-2
+              rule, as 5d), the null-adapter streams equal to an engine
+              without a pool; then the same with an int8 slab against its
+              effective_weights; ms per dispatch with and without the
+              pool, page-ins and evictions.
   6. fused    fused_attention's CUDA forward and backward against its
               plain PyTorch version (forward output, dq, dk, dv) at
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
@@ -152,8 +188,9 @@ script then exits non-zero without the final `ok` line):
               tensor-core span kernel, phase 5b's serves for the int8
               ones, phase 7's float32 steps for the CUDA-core fused
               pair, its bfloat16 steps for the tensor-core pair; each
-              fused entry also with its launches in phase 7b), errors,
-              times, bound and library times.
+              fused entry also with its launches in phase 7b; each span
+              entry with its serve_verify cell and its launches in phase
+              5d), errors, times, bound and library times.
 Then the last line: {"ok": true, "device": {...}}.
 """
 import json
@@ -255,6 +292,13 @@ SPLIT_TARGETS = (1, 2, 8)
 BERT_TRAFFIC = dict(B=32, T=512, M=76)
 # phase 7b: GPT-2 774M's training forward and backward, batch and sequence
 GPT2_TRAIN = dict(B=2, T=1024)
+# phase 5d: the speculative engine options (BENCH_SERVING_SPEC.json's shape)
+SPEC = dict(speculative=True, spec_tokens=8)
+# the serve_verify cell: live rows of the verify dispatch of each slot (1 +
+# its drafts); its lengths are phase 5d's prompts + 32
+VERIFY_Q_COUNTS = [8, 1, 8, 5, 8, 2, 3, 8]
+# phase 5f: adapter ids the 8 requests wear (None = the null adapter)
+LORA_WEAR = [1, 2, 3, 4, None, 1, 2, None]
 DEV = "cuda"
 
 
@@ -530,6 +574,9 @@ def phase_span(torch, F, ra, quant=False):
     out["serve_decode"] = span_cell(
         torch, F, ra, quant, f"{label} serve_decode",
         [128, 103, 89, 62, 66, 36, 40, 33], [1] * 8, 2)
+    out["serve_verify"] = span_cell(
+        torch, F, ra, quant, f"{label} serve_verify",
+        [len(p) + 32 for p in spec_traffic(50257)], VERIFY_Q_COUNTS, 3)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     routes = {"float32": set(), "bfloat16": set()}
     for i, (b, sq, h, d, s, p, lens, qcs, off) in enumerate(SPAN_EDGES):
@@ -1020,6 +1067,32 @@ def trace_serve(torch, eng, prompts, n_new, Request):
                     lambda: serve(torch, eng, prompts, n_new, Request)[1], 8)
 
 
+def trace_window(torch, eng, prompts, n_new, Request, skip, steps):
+    """Serve `prompts` with dispatches skip .. skip + steps - 1 under the
+    profiler (a steady window once every prompt has landed; the
+    profiler's cost grows with the events it keeps), the rest outside
+    it."""
+    for i, p in enumerate(prompts):
+        eng.submit(Request(p, n_new, request_id=i))
+    for _ in range(skip):
+        eng.step()
+    require(all(x is None for x in eng._pending), "trace window: prompts "
+            "still prefilling")
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    out = profiled(torch, run, 8)
+    while eng.has_work:
+        eng.step()
+    out["dispatches"] = steps
+    return out
+
+
 def float_logits(torch, model, tokens, impl="torch"):
     """The float path's next-token logits after `tokens` (one slot, the
     whole prefix as one span), in float32: plain (impl "torch") or
@@ -1035,6 +1108,31 @@ def gap2(logits):
     """The gap between the two largest logits."""
     top = logits.topk(2).values
     return (top[0] - top[1]).item()
+
+
+def first_token_rule(torch, model, prompts, got, want, label):
+    """bfloat16 kernel path against bfloat16 plain path: with d the
+    largest |kernel - plain| first-token logit (each prompt as one span),
+    the first tokens must agree wherever the plain path's top-2 gap
+    exceeds 2*d. Returns the readings and the streams' agreement."""
+    first = []
+    for i, p in enumerate(prompts):
+        lk = float_logits(torch, model, p, "auto")
+        lp = float_logits(torch, model, p)
+        first.append({"request": i, "max_abs_logit_diff":
+                      (lk - lp).abs().max().item(), "plain_top2_gap":
+                      gap2(lp), "equal": got[i][0] == want[i][0]})
+    d = max(r["max_abs_logit_diff"] for r in first)
+    for r in first:
+        if r["plain_top2_gap"] > 2 * d:
+            require(r["equal"], f"{label} first token of request "
+                    f"{r['request']} differs from the plain path where its "
+                    f"gap {r['plain_top2_gap']} exceeds 2 x {d}")
+    return {"max_abs_logit_diff": d, "first_tokens": first,
+            "tokens_equal": sum(x == y for a, b in zip(got, want)
+                                for x, y in zip(a, b)),
+            "tokens": sum(map(len, want)),
+            "streams_equal": sum(a == b for a, b in zip(got, want))}
 
 
 def phase_gpt2(torch, ra, card):
@@ -1163,25 +1261,8 @@ def phase_gpt2(torch, ra, card):
     require(ra.LAUNCHES == before, "the bf16 plain path launched a kernel")
     del eng
     torch.cuda.empty_cache()
-    first = []
-    for i, p in enumerate(prompts):
-        lk = float_logits(torch, model, p, "auto")
-        lp = float_logits(torch, model, p)
-        first.append({"request": i, "max_abs_logit_diff":
-                      (lk - lp).abs().max().item(), "plain_top2_gap":
-                      gap2(lp), "equal": got16[i][0] == want16[i][0]})
-    d = max(r["max_abs_logit_diff"] for r in first)
-    for r in first:
-        if r["plain_top2_gap"] > 2 * d:
-            require(r["equal"], f"bf16 first token of request "
-                    f"{r['request']} differs from the plain path where its "
-                    f"gap {r['plain_top2_gap']} exceeds 2 x {d}")
-    out["bfloat16_vs_plain"] = {
-        "max_abs_logit_diff": d, "first_tokens": first,
-        "tokens_equal": sum(x == y for a, b in zip(got16, want16)
-                            for x, y in zip(a, b)),
-        "tokens": sum(map(len, want16)),
-        "streams_equal": sum(a == b for a, b in zip(got16, want16))}
+    out["bfloat16_vs_plain"] = first_token_rule(torch, model, prompts,
+                                                got16, want16, "bf16")
     del model
     torch.cuda.empty_cache()
     emit(out)
@@ -1493,6 +1574,369 @@ def phase_prefix(torch, ra, card):
         for r in (off, on):
             del r["streams"]
         out[kv] = {"off": off, "on": on, "streams_identical": True}
+    del model
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def spec_traffic(vocab):
+    """Phase 5d's prompts: a random head of U[2, 6] tokens, then a 4-token
+    pattern repeated U[4, 8] times (numpy seed 2), 8 of them."""
+    rng = np.random.default_rng(2)
+    prompts = []
+    for _ in range(8):
+        head = rng.integers(0, vocab, int(rng.integers(2, 7))).tolist()
+        pat = rng.integers(0, vocab, 4).tolist()
+        prompts.append(head + pat * int(rng.integers(4, 9)))
+    return prompts
+
+
+def gpt2_traffic(vocab):
+    """Phase 5's prompts: lengths U[16, 128] (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, int(n)).tolist()
+            for n in rng.integers(16, 129, 8)]
+
+
+class counting:
+    """Count the calls of module attribute `name` while in the block (the
+    plain version of a kernel must not run on a kernel path)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def serve_gaps(torch, eng, prompts, n_new, Request, wear=None):
+    """Serve greedy requests as serve() does, stepping the engine by hand
+    under a forward hook on its model that reads the top-2 logit gap of
+    every row of every dispatch. Returns (streams, gaps, wall): gaps[i][k]
+    is the gap of the logits token k of request i was the argmax of (the
+    final prompt chunk's last row for the first token, the verify or
+    decode row that emitted it for later ones)."""
+    wear = wear or [None] * len(prompts)
+    reqs = [Request(p, n_new, request_id=i, adapter_id=wear[i])
+            for i, p in enumerate(prompts)]
+    gaps = [[] for _ in reqs]
+    rows = []
+
+    def hook(module, args, output):
+        top = output[0].float().topk(2, dim=-1).values
+        g = (top[..., 0] - top[..., 1]).cpu()
+        for s in eng.scheduler.active_slots:
+            r = eng.scheduler.request_at(s)
+            pend = eng._pending[s]
+            rows.append((r, len(r.output_tokens),
+                         0 if pend is None else int(pend.size), g[s]))
+    handle = eng.model.register_forward_hook(hook)
+    try:
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.has_work:
+            eng.step()
+            for r, k0, pend, g in rows:
+                new = len(r.output_tokens) - k0
+                if new and pend:     # the final chunk held `pend` tokens
+                    gaps[r.id].append(float(g[pend - 1]))
+                elif new:
+                    gaps[r.id] += g[:new].tolist()
+            rows.clear()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        handle.remove()
+    return [r.output_tokens for r in reqs], gaps, wall
+
+
+def held_to(got, want, gaps, label, tol=1e-4):
+    """Streams equal, except where the other path's own top-2 gap at the
+    first differing token is below `tol`. Returns the divergences."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        j = next((k for k in range(min(len(a), len(b))) if a[k] != b[k]),
+                 min(len(a), len(b)))
+        g = gaps[i][j] if j < len(gaps[i]) else None
+        out.append({"request": i, "token": j, "top2_gap": g})
+        require(g is not None and g < tol, f"{label}: request {i} diverges "
+                f"at token {j} where the other path's top-2 gap is {g}")
+    return out
+
+
+def serve_stats(eng, wall, streams):
+    st = eng.stats
+    d = st["decode_dispatches"]
+    return {"wall_s": wall, "dispatches": d,
+            "tokens": sum(map(len, streams)),
+            "tokens_per_dispatch": sum(map(len, streams)) / d,
+            "ms_per_dispatch": wall / d * 1e3}
+
+
+def phase_gpt2_spec(torch, ra, card):
+    """Phase 5d: speculative decoding on the 774M model."""
+    from mxnet_tpu_torch.serving import Request, ServingEngine
+
+    model, cfg = gpt2_774m(torch)
+    prompts = spec_traffic(cfg.vocab_size)
+    n_new = 64
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
+    out = {"phase": "gpt2_spec", "card": card, "config": "gpt2_774m_config",
+           "engine": dict(ekw, **SPEC), "prompt_lens": list(map(len, prompts)),
+           "new_tokens": n_new}
+    for label, dtype, kv in (("float32", torch.float32, None),
+                             ("int8_pages", torch.float32, "int8"),
+                             ("bfloat16", torch.bfloat16, None)):
+        model.to(dtype)
+        kw = dict(ekw, kv_dtype=kv)
+        key = INT8 if kv else (SPAN if dtype == torch.float32 else SPAN_TC)
+        res = {"card": card}
+        if kv is None:
+            # speculation off first (it warms the path up)
+            eng = ServingEngine(model, device=DEV, **kw)
+            off, wall = serve(torch, eng, prompts, n_new, Request)
+            res["off"] = serve_stats(eng, wall, off)
+            del eng
+        # the main path of this family with speculation: counts read here
+        eng = ServingEngine(model, device=DEV, **kw, **SPEC)
+        with counting(ra, "_ragged_span_reference") as plain_calls:
+            ra.reset_launches()
+            got, wall = serve(torch, eng, prompts, n_new, Request)
+            launches = dict(ra.LAUNCHES)
+        st = eng.stats
+        d = st["decode_dispatches"]
+        require(launches[key] == GPT2_LAYERS * d and sum(launches.values())
+                == launches[key], f"spec {label}: launches {launches} for "
+                f"{d} dispatches")
+        require(plain_calls.calls == 0, f"spec {label}: the plain span "
+                f"version ran {plain_calls.calls} times on the kernel path")
+        require(all(len(t) == n_new for t in got), f"spec {label}: short")
+        require(st["spec_accepted_tokens"] > 0, f"spec {label}: no draft "
+                "was accepted")
+        require(eng.audit_pages() == [], f"spec {label}: page audit")
+        res["on"] = serve_stats(eng, wall, got)
+        res["launches"] = launches
+        res["spec"] = {k: st[k] for k in ("spec_draft_tokens",
+                                          "spec_accepted_tokens",
+                                          "spec_rollbacks")}
+        res["acceptance_rate"] = st["spec_accepted_tokens"] \
+            / st["spec_draft_tokens"]
+        del eng
+        if kv is None:
+            require(got == off, f"spec {label}: streams differ with "
+                    "speculation on and off")
+            res["streams_equal_on_off"] = True
+            res["on_over_off_ms_per_token"] = (
+                res["on"]["wall_s"] / res["on"]["tokens"]) / (
+                res["off"]["wall_s"] / res["off"]["tokens"])
+            if dtype == torch.float32:
+                eng = ServingEngine(model, device=DEV, **kw, **SPEC)
+                res["trace"] = trace_window(torch, eng, prompts, n_new,
+                                            Request, skip=10, steps=20)
+                del eng
+        # the plain path with speculation on
+        eng = ServingEngine(model, attn_impl="torch", device=DEV, **kw,
+                            **SPEC)
+        before = dict(ra.LAUNCHES)
+        want, gaps, _ = serve_gaps(torch, eng, prompts, n_new, Request)
+        require(ra.LAUNCHES == before, f"spec {label}: the plain path "
+                "launched a kernel")
+        if dtype == torch.float32:
+            res["divergences"] = held_to(got, want, gaps, f"spec {label}")
+        else:
+            res["vs_plain"] = first_token_rule(torch, model, prompts, got,
+                                               want, f"spec {label}")
+        res["streams_equal_kernel_plain"] = got == want
+        del eng
+        torch.cuda.empty_cache()
+        out[label] = res
+    out["launches_by_family"] = {
+        "float32": out["float32"]["launches"][SPAN],
+        "bfloat16": out["bfloat16"]["launches"][SPAN_TC],
+        "int8": out["int8_pages"]["launches"][INT8]}
+    del model
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_gpt2_w8(torch, ra, card, gpt2):
+    """Phase 5e: w8 weights on the 774M model."""
+    from mxnet_tpu_torch.serving import Request, ServingEngine, dequantize
+
+    model, cfg = gpt2_774m(torch)
+    prompts = gpt2_traffic(cfg.vocab_size)
+    require(list(map(len, prompts)) == gpt2["prompt_lens"],
+            "phase gpt2 and gpt2_w8 traffic differ")
+    n_new = 32
+    ekw = dict(num_slots=8, max_length=1024, page_size=64)
+    out = {"phase": "gpt2_w8", "card": card, "config": "gpt2_774m_config",
+           "weight_dtype": "int8", "prompt_lens": gpt2["prompt_lens"],
+           "new_tokens": n_new}
+    # the w8 main path: the kernels; counts read here. The engine
+    # quantizes the model's dense weights in place
+    eng = ServingEngine(model, device=DEV, weight_dtype="int8", **ekw)
+    plan = eng._w8_plan
+    ra.reset_launches()
+    got, wall = serve(torch, eng, prompts, n_new, Request)
+    d = eng.stats["decode_dispatches"]
+    require(ra.LAUNCHES[SPAN] == GPT2_LAYERS * d, f"w8 span launches "
+            f"{ra.LAUNCHES[SPAN]} for {d} dispatches")
+    require(all(len(t) == n_new for t in got), "w8: short streams")
+    out["launches"] = dict(ra.LAUNCHES)
+    out["w8_kernel"] = serve_stats(eng, wall, got)
+    out["weight_bytes"] = {"w8": dict(eng.weight_bytes)}
+    out["quantized_weights"] = len(plan)
+    del eng
+    # the plain path (the model now serves its codes in any engine)
+    eng = ServingEngine(model, attn_impl="torch", device=DEV, **ekw)
+    require(eng.weight_dtype == "int8", "the quantized model serves float")
+    want, gaps, wall = serve_gaps(torch, eng, prompts, n_new, Request)
+    out["w8_plain"] = serve_stats(eng, wall, want)
+    out["divergences_plain"] = held_to(got, want, gaps, "w8 kernel/plain")
+    del eng
+    # the float engine over the dequantized weights, kernel path
+    ref, _ = gpt2_774m(torch)
+    with torch.no_grad():
+        for q in plan:
+            ref.get_parameter(q.name).copy_(dequantize(q))
+    eng = ServingEngine(ref, device=DEV, **ekw)
+    deq, wall = serve(torch, eng, prompts, n_new, Request)
+    out["float32_kernel"] = serve_stats(eng, wall, deq)
+    out["weight_bytes"]["float32"] = dict(eng.weight_bytes)
+    out["w8_over_float32_ms_per_dispatch"] = \
+        out["w8_kernel"]["ms_per_dispatch"] \
+        / out["float32_kernel"]["ms_per_dispatch"]
+    page_bytes = eng.page_pool.page_bytes
+    del eng
+    out["streams_equal_dequantized"] = got == deq
+    gaps = None
+    if got != deq:
+        # the float engine's own gaps, read again only where needed
+        eng = ServingEngine(ref, device=DEV, **ekw)
+        deq, gaps, _ = serve_gaps(torch, eng, prompts, n_new, Request)
+        del eng
+    out["divergences_dequantized"] = held_to(got, deq, gaps,
+                                             "w8 / dequantized float")
+    torch.cuda.empty_cache()
+    # one budget the float32 weights bind: their bytes + 48 pages (the
+    # slots want 128)
+    budget = sum(out["weight_bytes"]["float32"].values()) + 48 * page_bytes
+    pages = {}
+    for name, m in (("float32", ref), ("w8", model)):
+        eng = ServingEngine(m, device=DEV, hbm_budget_bytes=budget,
+                            hbm_budget_includes_weights=True, **ekw)
+        pages[name] = eng.page_pool.num_pages
+        del eng
+        torch.cuda.empty_cache()
+    require(pages["float32"] == 48 and pages["w8"] > pages["float32"],
+            f"w8 admitted pages {pages}")
+    out["budget"] = {"hbm_budget_bytes": budget, "page_bytes": page_bytes,
+                     "pages": pages}
+    out["gpt2_float32_kernel_ms_per_dispatch"] = \
+        gpt2["float32_kernel"]["ms_per_dispatch"]
+    del model, ref
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_gpt2_lora(torch, ra, card, gpt2):
+    """Phase 5f: LoRA adapters on the 774M model."""
+    from mxnet_tpu_torch.serving import (AdapterPool, Request, ServingEngine,
+                                         merged_weights, random_lora)
+
+    model, cfg = gpt2_774m(torch)
+    prompts = gpt2_traffic(cfg.vocab_size)
+    n_new = 32
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64,
+               prefill_chunk_budget=8 * 64, retry_backoff_s=0.0)
+    out = {"phase": "gpt2_lora", "card": card, "config": "gpt2_774m_config",
+           "pool": dict(slots=4, max_rank=8), "wear": LORA_WEAR,
+           "prompt_lens": gpt2["prompt_lens"], "new_tokens": n_new}
+    adapters = {i: random_lora(cfg, rank=r, seed=i)
+                for i, r in zip((1, 2, 3, 4), (4, 8, 8, 8))}
+    # without a pool: the null-adapter streams' oracle, and the time
+    eng = ServingEngine(model, device=DEV, **ekw)
+    bare, wall = serve(torch, eng, prompts, n_new, Request)
+    out["no_pool"] = serve_stats(eng, wall, bare)
+    del eng
+    # the attention weights as they are, to merge each adapter into
+    attn = {(li, p): model.get_parameter(
+        f"backbone.layer{li}.attn.{p}.weight")
+        for li in range(cfg.num_layers)
+        for p in ("query", "key", "value", "proj")}
+    base = {k: w.detach().cpu().numpy().copy() for k, w in attn.items()}
+    for slab in (None, "int8"):
+        pool = AdapterPool(cfg, slots=4, max_rank=8, dtype=slab, device=DEV)
+        for i, w in adapters.items():
+            pool.register(i, w)
+        eng = ServingEngine(model, device=DEV, adapter_pool=pool, **ekw)
+        reqs = [Request(p, n_new, request_id=i, adapter_id=LORA_WEAR[i])
+                for i, p in enumerate(prompts)]
+        ra.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [r.output_tokens for r in reqs]
+        st = eng.stats
+        d = st["decode_dispatches"]
+        require(ra.LAUNCHES[SPAN] == GPT2_LAYERS * d, f"lora span launches "
+                f"{ra.LAUNCHES[SPAN]} for {d} dispatches")
+        require(all(len(t) == n_new for t in got), "lora: short streams")
+        require(eng.audit_pages() == [], "lora: page or adapter audit")
+        require(st["adapter_evictions"] > 0 and st["dispatch_retries"] > 0,
+                f"lora: the slab never evicted or pushed back: {st}")
+        res = {"pool": serve_stats(eng, wall, got),
+               "adapter_page_ins": st["adapter_page_ins"],
+               "adapter_evictions": st["adapter_evictions"],
+               "dispatch_retries": st["dispatch_retries"],
+               "slab_bytes": pool.slab_bytes()}
+        del eng
+        for i, aid in enumerate(LORA_WEAR):
+            if aid is None:
+                require(got[i] == bare[i], f"lora {slab}: null-adapter "
+                        f"request {i} differs from the engine without pool")
+        res["divergences"] = {}
+        for aid, w in adapters.items():
+            eff = pool.effective_weights(aid)
+            with torch.no_grad():
+                for (li, p), t in attn.items():
+                    t.copy_(torch.from_numpy(merged_weights(
+                        base[(li, p)], eff, p, li)))
+            idx = [i for i, a in enumerate(LORA_WEAR) if a == aid]
+            eng = ServingEngine(model, attn_impl="torch", device=DEV, **ekw)
+            want, gaps, _ = serve_gaps(torch, eng, [prompts[i] for i in idx],
+                                       n_new, Request)
+            del eng
+            res["divergences"][aid] = held_to(
+                [got[i] for i in idx], want, gaps,
+                f"lora {slab} adapter {aid} / merged")
+        with torch.no_grad():
+            for k, t in attn.items():
+                t.copy_(torch.from_numpy(base[k]))
+        del pool
+        torch.cuda.empty_cache()
+        out["float_slab" if slab is None else "int8_slab"] = res
+    out["pool_over_no_pool_ms_per_dispatch"] = \
+        out["float_slab"]["pool"]["ms_per_dispatch"] \
+        / out["no_pool"]["ms_per_dispatch"]
     del model
     torch.cuda.empty_cache()
     emit(out)
@@ -1821,15 +2265,18 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
             "library_ms_bf16": b16.get("library_ms"), "card": card, **extra}
 
 
-def span_entries(span, span8, gpt2, gpt2_int8, card):
+def span_entries(span, span8, gpt2, gpt2_int8, spec, card):
     """The four span kernels' kernels-line entries: the CUDA-core kernel
     at float32 q (launches from the float32 serves, phases 5 and 5b) and
     the tensor-core kernel at bfloat16 q (launches from the bfloat16
     serves), float and int8 pages, each at the kernel cell with the
-    serve's decode cell beside."""
-    def entry(name, source, res, dtype, launches):
+    serve's decode and verify cells beside, and its launches on the
+    speculative serve of phase 5d (none: bfloat16 q on int8 pages is not
+    served with speculation there)."""
+    def entry(name, source, res, dtype, launches, spec_launches):
         cell, dec = res[dtype], res["serve_decode"][dtype]
-        require(cell["route"] == dec["route"] == (
+        ver = res["serve_verify"][dtype]
+        require(cell["route"] == dec["route"] == ver["route"] == (
             "tensor_core" if name.endswith("_tc") else "cuda_core"),
             f"{name}: the cells ran on another route")
         keys = ("ms", "plain_ms", "library_ms", "ms_over_library",
@@ -1843,14 +2290,18 @@ def span_entries(span, span8, gpt2, gpt2_int8, card):
                 "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
                 "library_ms": cell["library_ms"],
                 "ms_over_library": cell["ms_over_library"],
-                "serve_decode": {k: dec[k] for k in keys}, "card": card}
-    return [entry(SPAN, SOURCE, span, "float32", gpt2["launches"][SPAN]),
+                "serve_decode": {k: dec[k] for k in keys},
+                "serve_verify": {k: ver[k] for k in keys},
+                "gpt2_spec_launches": spec_launches, "card": card}
+    fam = spec["launches_by_family"]
+    return [entry(SPAN, SOURCE, span, "float32", gpt2["launches"][SPAN],
+                  fam["float32"]),
             entry(SPAN_TC, SPAN_TC_SOURCE, span, "bfloat16",
-                  gpt2["launches_bf16"][SPAN_TC]),
+                  gpt2["launches_bf16"][SPAN_TC], fam["bfloat16"]),
             entry(INT8, SOURCE, span8, "float32",
-                  gpt2_int8["launches"][INT8]),
+                  gpt2_int8["launches"][INT8], fam["int8"]),
             entry(INT8_TC, SPAN_TC_SOURCE, span8, "bfloat16",
-                  gpt2_int8["launches_bf16"][INT8_TC])]
+                  gpt2_int8["launches_bf16"][INT8_TC], None)]
 
 
 def fused_entries(fused, launches, launches16, gpt2_train, card):
@@ -1967,11 +2418,14 @@ def main():
     gpt2 = phase_gpt2(torch, ra, card)
     gpt2_int8 = phase_gpt2_int8(torch, ra, card, gpt2)
     phase_prefix(torch, ra, card)
+    spec = phase_gpt2_spec(torch, ra, card)
+    phase_gpt2_w8(torch, ra, card, gpt2)
+    phase_gpt2_lora(torch, ra, card, gpt2)
     fused = phase_fused(torch, F, fa)
     bert = phase_bert(torch, fa, card)
     gpt2_train = phase_gpt2_train(torch, fa, card)
 
-    kernels = span_entries(span, span8, gpt2, gpt2_int8, card)
+    kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, card)
     kernels.append(kernel_entry(
         "ragged_decode_attention", SOURCE,
         gpt2["launches"]["ragged_decode_attention"], decode["float32"],

@@ -2,11 +2,12 @@
 from .bert import (BertConfig, BertForMaskedLM, BertModel, bert_base_config,
                    bert_large_config)
 from .convert import init_params, load_jax_params
-from .gpt2 import (GPT2Config, GPT2ForCausalLM, GPT2Model, gpt2_774m_config,
-                   gpt2_medium_config, gpt2_small_config, gpt2_xl_config)
+from .gpt2 import (AdapterBatch, GPT2Config, GPT2ForCausalLM, GPT2Model,
+                   gpt2_774m_config, gpt2_medium_config, gpt2_small_config,
+                   gpt2_xl_config)
 from .kv_cache import KVCache, PagedKVCache
 
-__all__ = ["BertConfig", "BertForMaskedLM", "BertModel", "GPT2Config",
+__all__ = ["AdapterBatch", "BertConfig", "BertForMaskedLM", "BertModel", "GPT2Config",
            "GPT2ForCausalLM", "GPT2Model", "KVCache", "PagedKVCache",
            "bert_base_config", "bert_large_config",
            "gpt2_774m_config", "gpt2_medium_config", "gpt2_small_config",

@@ -20,11 +20,19 @@ Ported:
     q_counts. A quantized (int8) cache sends every call, one row
     included, to `ragged_span_attention` with the layer's scales, and q
     keeps its dtype.
+  * LoRA adapters (the reference's `_lora`/`_lora_delta`): the forward
+    takes an `AdapterBatch` (a serving AdapterPool's slab and each
+    row's slab slot) and adds each row's own low-rank delta to the
+    query/key/value/proj outputs. The reference installs it as a module
+    global around its traced program; here it is a forward argument.
+    Without one the forward is the adapter-free one, bit for bit.
 
-Not ported yet: the lockstep KVCache path, `generate()`, LoRA adapters
-and the tensor-parallel split.
+Not ported yet: the lockstep KVCache path, `generate()` and the
+tensor-parallel split.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -38,9 +46,41 @@ from .convert import init_params
 from .kv_cache import PagedKVCache
 
 __all__ = ["GPT2Config", "GPT2Model", "GPT2ForCausalLM", "gpt2_small_config",
-           "gpt2_medium_config", "gpt2_774m_config", "gpt2_xl_config"]
+           "gpt2_medium_config", "gpt2_774m_config", "gpt2_xl_config",
+           "AdapterBatch"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class AdapterBatch(NamedTuple):
+    """The LoRA operand of a batched forward: an AdapterPool's slab, A
+    (4, L, S, U, R) and B (4, L, S, R, U) with scale (S,) = alpha/rank
+    (the leading 4 = query/key/value/proj), and each batch row's slab
+    slot `slots` (Bsz,). Slot 0 is the null adapter (zeros, scale 0).
+    An int8 slab carries per-(proj, layer, slot) float32 dequant scales
+    `a_scale`/`b_scale` (4, L, S); a float slab None."""
+    A: torch.Tensor
+    B: torch.Tensor
+    scale: torch.Tensor
+    slots: torch.Tensor
+    a_scale: Optional[torch.Tensor] = None
+    b_scale: Optional[torch.Tensor] = None
+
+
+def lora_delta(ad, pidx, layer, x):
+    """Each row's low-rank delta for projection `pidx` of `layer`: x @
+    A_s @ B_s * alpha/r with s the row's slab slot, in the reference's
+    order (the products in the slab's dtype, float32 for an int8 slab
+    after the gathered slices are dequantized; scaled in float32; cast
+    to x's dtype)."""
+    slots = ad.slots.long()
+    ag = ad.A[pidx, layer][slots]                 # (Bsz, U, R)
+    bg = ad.B[pidx, layer][slots]                 # (Bsz, R, U)
+    if ad.a_scale is not None:
+        ag = ag.float() * ad.a_scale[pidx, layer][slots][:, None, None]
+        bg = bg.float() * ad.b_scale[pidx, layer][slots][:, None, None]
+    d = torch.bmm(torch.bmm(x.to(ag.dtype), ag), bg)
+    return (d.float() * ad.scale[slots][:, None, None]).to(x.dtype)
 
 
 class GPT2Config:
@@ -114,12 +154,19 @@ class GPT2Attention(nn.Module):
         self.value = Dense(units, units, **kw)
         self.proj = Dense(units, units, **kw)
 
-    def forward(self, x, cache, layer_idx):
+    def _project(self, dense, pidx, x, layer_idx, adapters):
+        y = dense(x)
+        if adapters is None:
+            return y
+        return y + lora_delta(adapters, pidx, layer_idx, x)
+
+    def forward(self, x, cache, layer_idx, adapters=None):
         b, t, _ = x.shape
         h, d = self._num_heads, self._units // self._num_heads
-        q = self.query(x).view(b, t, h, d)
-        k = self.key(x).view(b, t, h, d)
-        v = self.value(x).view(b, t, h, d)
+        q = self._project(self.query, 0, x, layer_idx, adapters)
+        k = self._project(self.key, 1, x, layer_idx, adapters)
+        v = self._project(self.value, 2, x, layer_idx, adapters)
+        q, k, v = (y.view(b, t, h, d) for y in (q, k, v))
         if cache is None:
             # training: the head split stays (B, T, H, D), which the fused
             # kernel reads through its strides
@@ -127,7 +174,9 @@ class GPT2Attention(nn.Module):
                 q, k, v, causal=True,
                 dropout_p=self._dropout if self.training else 0.0,
                 impl=self._impl, layout="BTHD")
-            return self.proj(out.reshape(b, t, h * d)), None
+            out = out.reshape(b, t, h * d)
+            return self._project(self.proj, 3, out, layer_idx,
+                                 adapters), None
         # the cache takes the reference's (B, H, t, D) layout
         cache = cache.write_decode(layer_idx, k.transpose(1, 2),
                                    v.transpose(1, 2))
@@ -150,7 +199,7 @@ class GPT2Attention(nn.Module):
                 k_scale=cache.k_scale[layer_idx] if quant else None,
                 v_scale=cache.v_scale[layer_idx] if quant else None)
         out = out.to(q.dtype).reshape(b, t, h * d)
-        return self.proj(out), cache
+        return self._project(self.proj, 3, out, layer_idx, adapters), cache
 
 
 class GPT2Block(nn.Module):
@@ -172,8 +221,8 @@ class GPT2Block(nn.Module):
     def _drop(self, h):
         return self.dropout(h) if self.dropout is not None else h
 
-    def forward(self, x, cache, layer_idx):
-        h, cache = self.attn(self.ln1(x), cache, layer_idx)
+    def forward(self, x, cache, layer_idx, adapters=None):
+        h, cache = self.attn(self.ln1(x), cache, layer_idx, adapters)
         x = x + self._drop(h)
         h = _ops.activation(self.fc1(self.ln2(x)), self._activation)
         return x + self._drop(self.fc2(h)), cache
@@ -197,7 +246,7 @@ class GPT2Model(nn.Module):
         return [getattr(self, f"layer{i}")
                 for i in range(self.config.num_layers)]
 
-    def forward(self, inputs, cache=None):
+    def forward(self, inputs, cache=None, adapters=None):
         """(hidden states (B, t, C), cache advanced by t or None)."""
         if cache is not None and not cache.ragged:
             raise not_ported("the GPT-2 forward over a lockstep cache")
@@ -216,7 +265,7 @@ class GPT2Model(nn.Module):
         if self.embed_dropout is not None:
             x = self.embed_dropout(x)
         for i, block in enumerate(self.blocks()):
-            x, cache = block(x, cache, i)
+            x, cache = block(x, cache, i, adapters)
         return self.ln_f(x), None if cache is None else cache.advance(t)
 
 
@@ -248,12 +297,13 @@ class GPT2ForCausalLM(nn.Module):
     def dtype(self):
         return self.backbone.word_embed.weight.dtype
 
-    def forward(self, inputs, cache=None):
+    def forward(self, inputs, cache=None, adapters=None):
         """inputs (B, t) int token ids; cache None (training: positions
         0..t-1, causal attention over the chunk) or a ragged
-        PagedKVCache. Returns the logits (B, t, V) alone without a cache,
-        as the reference does, else (logits, cache advanced by t)."""
-        h, cache = self.backbone(inputs, cache)
+        PagedKVCache; adapters None or an AdapterBatch (each row's LoRA
+        delta). Returns the logits (B, t, V) alone without a cache, as
+        the reference does, else (logits, cache advanced by t)."""
+        h, cache = self.backbone(inputs, cache, adapters)
         logits = _ops.fully_connected(h, self.backbone.word_embed.weight)
         return logits if cache is None else (logits, cache)
 

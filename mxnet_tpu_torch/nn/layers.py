@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..base import MXNetError
 from ..ops import nn as _ops
 
 __all__ = ["Dense", "LayerNorm", "Embedding", "Dropout"]
@@ -24,7 +25,11 @@ def _param(*shape, device, dtype):
 
 
 class Dense(nn.Module):
-    """y = x @ weight.T + bias with weight (units, in_units)."""
+    """y = x @ weight.T + bias with weight (units, in_units).
+
+    `quantize_(codes, scale)` turns the layer into a w8 layer for
+    serving: the int8 `codes` (units, in_units) and float32 per-out-tile
+    `scale` become buffers and the float weight is dropped."""
 
     def __init__(self, in_units, units, use_bias=True, device=None,
                  dtype=torch.float32):
@@ -32,8 +37,23 @@ class Dense(nn.Module):
         self.weight = _param(units, in_units, device=device, dtype=dtype)
         self.bias = _param(units, device=device, dtype=dtype) \
             if use_bias else None
+        self.register_buffer("codes", None)
+        self.register_buffer("scale", None)
+
+    def quantize_(self, codes, scale):
+        if tuple(codes.shape) != tuple(self.weight.shape):
+            raise MXNetError(f"w8 codes of shape {tuple(codes.shape)} for "
+                             f"a weight of {tuple(self.weight.shape)}")
+        del self.weight
+        self.weight = None
+        self.codes = codes.to(torch.int8)
+        self.scale = scale.float()
+        return self
 
     def forward(self, x):
+        if self.codes is not None:
+            return _ops.fully_connected(x, self.codes, self.bias,
+                                        scale=self.scale)
         return _ops.fully_connected(x, self.weight, self.bias)
 
 

@@ -26,10 +26,28 @@ __all__ = ["fully_connected", "layer_norm", "activation", "gelu", "dropout",
            "dot_product_attention"]
 
 
-def fully_connected(x, weight, bias=None):
+def fully_connected(x, weight, bias=None, scale=None):
     """x @ weight.T (+ bias): weight is (num_hidden, in_features) as in
-    the reference (parity: src/operator/nn/fully_connected.cc)."""
-    return F.linear(x, weight, bias)
+    the reference (parity: src/operator/nn/fully_connected.cc).
+
+    An int8 weight is a w8 code array (serving/weight_quant.py) and needs
+    its per-out-tile float32 `scale`: y[..., o] = (x @ codes.T)[..., o] *
+    scale[o // tile], before the bias (the reference's
+    `_w8_dequant_matmul`). The codes are cast to x's dtype for the
+    product, which writes a float copy of the weight on every call."""
+    if weight.dtype != torch.int8:
+        return F.linear(x, weight, bias)
+    if scale is None:
+        raise MXNetError("an int8 weight reached fully_connected without "
+                         "its w8 scales")
+    n_out, n_tiles = weight.shape[0], scale.shape[0]
+    if n_out % n_tiles:
+        raise MXNetError(f"w8 scale count {n_tiles} does not divide out "
+                         f"dim {n_out}")
+    y = torch.matmul(x, weight.to(x.dtype).T)
+    y = y.reshape(*y.shape[:-1], n_tiles, n_out // n_tiles)
+    y = (y * scale.to(x.dtype)[:, None]).reshape(*y.shape[:-2], n_out)
+    return y if bias is None else y + bias
 
 
 def layer_norm(x, gamma, beta, eps=1e-5):

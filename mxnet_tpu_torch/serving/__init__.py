@@ -1,4 +1,6 @@
 """Continuous-batching serving (counterpart of mxnet_tpu.serving, core)."""
+from .adapters import (AdapterPool, AdapterPoolExhausted, merged_weights,
+                       random_lora)
 from .engine import ServingEngine
 from .page_pool import PagePool, PagePoolExhausted
 from .prefix_cache import PrefixCache
@@ -6,8 +8,15 @@ from .sampling import filtered_logits, sample_tokens
 from .scheduler import (TERMINAL_STATUSES, QueueFullError, RejectedError,
                         Request, ShedError, SlotScheduler, TenantQuota,
                         TenantQuotaError)
+from .speculative import PromptLookupProposer, verify_tokens
+from .weight_quant import (QuantizedWeight, build_weight_plan, dequantize,
+                           pick_out_tile, quantize_weight)
 
 __all__ = ["ServingEngine", "PagePool", "PagePoolExhausted", "PrefixCache",
            "filtered_logits", "sample_tokens", "TERMINAL_STATUSES",
            "QueueFullError", "RejectedError", "Request", "ShedError",
-           "SlotScheduler", "TenantQuota", "TenantQuotaError"]
+           "SlotScheduler", "TenantQuota", "TenantQuotaError",
+           "AdapterPool", "AdapterPoolExhausted", "merged_weights",
+           "random_lora", "PromptLookupProposer", "verify_tokens",
+           "QuantizedWeight", "build_weight_plan", "dequantize",
+           "pick_out_tile", "quantize_weight"]

@@ -20,15 +20,33 @@ per-(layer, page, head) float32 scales beside them, fresh pages reset to
 scale 0 at admission), the radix-tree prefix cache (`prefix_cache=True`:
 longest-prefix page attach, the copy-on-write split of a fully cached
 prompt, LRU reclaim, the prompt's full pages adopted when its final
-chunk lands), byte-denominated pool sizing (`hbm_budget_bytes`), and
-admission backpressure: an admission the page pool cannot serve rolls
-its slot back and requeues the request, blaming nobody.
+chunk lands), byte-denominated pool sizing (`hbm_budget_bytes`, with
+`hbm_budget_includes_weights` charging the served weight bytes to it),
+admission backpressure (an admission the page pool or the adapter slab
+cannot serve rolls its slot back and requeues the request, blaming
+nobody), and three options that ride the same (B, W) dispatch:
 
-Not ported yet (constructor options raise, see _NOT_PORTED):
-speculative decoding, LoRA adapters, w8 weights, tensor parallelism,
-the host KV tier, shedding policy, the dispatch supervisor (any other
-exception in an admission or a dispatch propagates), restarts and the
-replay of a request's recorded int8 write schedule, request deadlines,
+  * speculative decoding (`speculative=True`): each decoding slot feeds
+    its current token plus up to spec_tokens - 1 prompt-lookup drafts
+    from its own history (serving/speculative.py), and the dispatch
+    verifies them (verify rows are span-kernel rows with q_counts 1 +
+    drafts). Greedy output equals speculation-off output token for
+    token. Rejected drafts write KV past the slot's length, where later
+    writes overwrite it; on int8 pages they also raise the pages'
+    scales, as in the reference, so int8 streams with and without
+    speculation may differ.
+  * w8 weights (`weight_dtype="int8"`): the megatron column/row dense
+    weights are quantized ONCE, in place, to int8 codes with per-out-tile
+    float32 scales (serving/weight_quant.py); the model serves from them.
+  * LoRA adapters (`adapter_pool=AdapterPool(...)`): each slot's slab
+    slot is one more per-slot device scalar, and the forward adds each
+    row's low-rank delta (serving/adapters.py).
+
+Not ported yet (constructor options raise, see _NOT_PORTED): tensor
+parallelism, the host KV tier, shedding policy, tenant quotas, the
+dispatch supervisor and its degraded mode (any other exception in an
+admission or a dispatch propagates), restarts and the replay of a
+request's recorded int8 write schedule, request deadlines,
 cancel/migration, streaming and telemetry.
 """
 from __future__ import annotations
@@ -42,22 +60,21 @@ from ..analysis import loop_only
 from ..base import MXNetError, not_ported, resolve_device
 from ..models.gpt2 import _DTYPES
 from ..models.kv_cache import PagedKVCache
+from .adapters import AdapterPoolExhausted
 from .page_pool import PagePool, PagePoolExhausted
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
 from .scheduler import QueueFullError, Request, SlotScheduler
+from .speculative import PromptLookupProposer, verify_tokens
+from .weight_quant import build_weight_plan
 
 __all__ = ["ServingEngine"]
 
 # JAX-engine options this port does not cover yet, with the default that
 # means "off"; any other value raises
 _NOT_PORTED = {
-    "speculative": False, "spec_tokens": 4, "spec_max_ngram": 3,
-    "spec_min_ngram": 1, "policy": None, "max_retries": 3,
-    "adapter_pool": None, "host_kv_bytes": None, "tp": 1,
-    "tp_devices": None, "weight_dtype": None,
-    "hbm_budget_includes_weights": False, "clock": None,
-    "tenant_quotas": None,
+    "policy": None, "max_retries": 3, "host_kv_bytes": None, "tp": 1,
+    "tp_devices": None, "clock": None, "tenant_quotas": None,
 }
 _KV_DTYPES = (None, "int8", torch.int8)
 
@@ -89,6 +106,18 @@ class ServingEngine:
     request waits before its admission is retried after the pool ran
     dry. device: default the CUDA card (raises without one); it must be
     the model's device.
+
+    speculative: prompt-lookup speculative decoding; spec_tokens (>= 2)
+    positions a decoding slot feeds per dispatch (the current token and
+    up to spec_tokens - 1 drafts; the width becomes W = max(chunk_tokens,
+    spec_tokens, 2)); spec_max_ngram / spec_min_ngram bound the lookup.
+    weight_dtype: None (the model's weights as they are) or "int8" (w8:
+    the model's megatron dense weights are quantized in place, and any
+    later engine over the model serves the codes).
+    hbm_budget_includes_weights: charge the served weight bytes (int8
+    codes plus every float tensor) to hbm_budget_bytes before sizing
+    the pool. adapter_pool: an AdapterPool on this engine's device;
+    requests then name their adapter by Request.adapter_id.
     """
 
     def __init__(self, model, num_slots, max_length=None, page_size=64,
@@ -97,6 +126,9 @@ class ServingEngine:
                  max_queue=None, num_priorities=3, kv_dtype=None,
                  prefix_cache=False, prefix_cache_pages=None,
                  hbm_budget_bytes=None, retry_backoff_s=0.02, device=None,
+                 speculative=False, spec_tokens=4, spec_max_ngram=3,
+                 spec_min_ngram=1, weight_dtype=None,
+                 hbm_budget_includes_weights=False, adapter_pool=None,
                  **options):
         for key, value in options.items():
             if key not in _NOT_PORTED:
@@ -135,11 +167,43 @@ class ServingEngine:
             prefill_chunk_budget or self.chunk_tokens)
         if self.prefill_chunk_budget < 1:
             raise MXNetError("prefill_chunk_budget must be >= 1")
-        # ONE dispatch width forever; >= 2 keeps every dispatch on the
-        # span kernel
-        self._width = max(self.chunk_tokens, 2)
+        self.speculative = bool(speculative)
+        self.spec_tokens = int(spec_tokens)
+        if self.speculative:
+            if self.spec_tokens < 2:
+                raise MXNetError("spec_tokens must be >= 2 (the current "
+                                 "token + at least one draft)")
+            self._proposer = PromptLookupProposer(
+                self.spec_tokens - 1, max_ngram=spec_max_ngram,
+                min_ngram=spec_min_ngram)
+        # per-slot token history (prompt + emitted) the drafter matches
+        # against: None until the slot's final prompt chunk lands
+        self._hist = [None] * B
+        # ONE dispatch width forever: a prefill chunk, a verify window or
+        # a decode row; >= 2 keeps every dispatch on the span kernel
+        self._width = max(self.chunk_tokens,
+                          self.spec_tokens if self.speculative else 0, 2)
         self.scheduler = SlotScheduler(B, max_queue=max_queue,
                                        num_priorities=num_priorities)
+
+        self._w8_plan = self._quantize_weights(weight_dtype)
+        self.weight_bytes = self._served_weight_bytes()
+        # what the engine serves: a model an earlier engine quantized
+        # serves its codes here too
+        self.weight_dtype = "int8" if self.weight_bytes["int8"] \
+            else str(model.dtype).replace("torch.", "")
+        self.adapter_pool = adapter_pool
+        if adapter_pool is not None:
+            if adapter_pool.device != self.device:
+                raise MXNetError(f"the adapter pool lives on "
+                                 f"{adapter_pool.device}, the engine on "
+                                 f"{self.device}")
+            if adapter_pool.A.shape[1] != cfg.num_layers \
+                    or adapter_pool.A.shape[3] != cfg.units:
+                raise MXNetError("the adapter pool's layers or units do "
+                                 "not match the model's")
+        self._slot_state = _SLOT_STATE + (
+            ("aslot",) if adapter_pool is not None else ())
 
         P = self._pages_per_slot = max_length // page_size
         # pool sizing: every slot can always claim its full P exclusive
@@ -168,7 +232,17 @@ class ServingEngine:
         if self._quant:
             page_bytes += 2 * L * H * 4
         if hbm_budget_bytes is not None:
-            afford = int(hbm_budget_bytes) // page_bytes
+            page_budget = int(hbm_budget_bytes)
+            if hbm_budget_includes_weights:
+                # the served weights come out of the same device bytes:
+                # this turns w8's smaller weights into admitted pages
+                page_budget -= sum(self.weight_bytes.values())
+                if page_budget <= 0:
+                    raise MXNetError(
+                        f"hbm_budget_bytes {hbm_budget_bytes} is below the "
+                        f"{sum(self.weight_bytes.values())} B the "
+                        f"{self.weight_dtype} weights alone need")
+            afford = page_budget // page_bytes
             if afford < P:
                 raise MXNetError(
                     f"hbm_budget_bytes {hbm_budget_bytes} affords {afford} "
@@ -205,20 +279,59 @@ class ServingEngine:
         self._top_p = np.ones(B, np.float32)
         self._do_sample = np.zeros(B, bool)
         self._eos = np.full(B, -1, np.int32)
+        # each slot's adapter slab slot (0 = the null adapter) and the
+        # adapter id it pins
+        self._aslot = np.zeros(B, np.int32)
+        self._adapter_of = [None] * B
         # per-slot chunk queues: the not-yet-fed tail of each admitted
         # prompt (None = no prefill work), drained chunk_tokens at a time
         # under prefill_chunk_budget from a rotating slot cursor
         self._pending = [None] * B
         self._chunk_rr = 0
         self._dstate = {name: self._upload(getattr(self, "_" + name))
-                        for name in _SLOT_STATE}
+                        for name in self._slot_state}
         self._dstate["table"] = self._upload(self._table_host)
         self._d_lock = self._upload(self._page_lock_host())
         self.stats = {"prefills": 0, "prefill_chunks": 0,
                       "prefill_tokens": 0, "decode_dispatches": 0,
                       "tokens_emitted": 0, "requests_finished": 0,
                       "prefix_hits": 0, "prefix_misses": 0,
-                      "prefix_tokens_saved": 0, "dispatch_retries": 0}
+                      "prefix_tokens_saved": 0, "dispatch_retries": 0,
+                      "spec_draft_tokens": 0, "spec_accepted_tokens": 0,
+                      "spec_rollbacks": 0, "adapter_page_ins": 0,
+                      "adapter_evictions": 0,
+                      "weight_bytes_int8": self.weight_bytes["int8"],
+                      "weight_bytes_float32": self.weight_bytes["float32"]}
+
+    def _quantize_weights(self, weight_dtype):
+        """w8: quantize the model's megatron column/row dense weights in
+        place (each Dense keeps codes and scales instead of its float
+        weight); col tiles pinned to num_heads shards, as the reference.
+        Returns the plan (empty without w8)."""
+        if weight_dtype is None:
+            return []
+        if str(weight_dtype).replace("torch.", "") != "int8":
+            raise MXNetError(f"weight_dtype {weight_dtype!r} unsupported "
+                             "(int8 or None)")
+        plan = build_weight_plan(self.model.named_parameters(),
+                                 max_shards=self.model.config.num_heads)
+        if not plan:
+            raise MXNetError("weight_dtype='int8' found no megatron col/row "
+                             "dense weights to quantize on this model")
+        for q in plan:
+            self.model.get_submodule(q.name.rsplit(".", 1)[0]).quantize_(
+                q.codes, q.scale)
+        return plan
+
+    def _served_weight_bytes(self):
+        """The device bytes of the weights this engine serves: int8 =
+        w8 code slabs, float32 = every other tensor (parameters, w8
+        scales), whatever its float dtype, as in the reference."""
+        out = {"int8": 0, "float32": 0}
+        for t in list(self.model.parameters()) + list(self.model.buffers()):
+            key = "int8" if t.dtype == torch.int8 else "float32"
+            out[key] += t.numel() * t.element_size()
+        return out
 
     def _upload(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
@@ -233,7 +346,12 @@ class ServingEngine:
                 f"prompt of {request.prompt_len} tokens exceeds slot "
                 f"capacity {self.max_length}")
         if request.adapter_id not in (None, 0):
-            raise not_ported("LoRA adapters (Request.adapter_id)")
+            pool = self.adapter_pool
+            if pool is None or not pool.has(request.adapter_id):
+                raise MXNetError(
+                    f"adapter {request.adapter_id!r} is not registered "
+                    + ("(engine has no adapter pool)" if pool is None
+                       else "with this engine's adapter pool"))
         if request.deadline_ms is not None:
             raise not_ported("request deadlines (Request.deadline_ms)")
         request.t_submit = time.perf_counter()
@@ -260,7 +378,7 @@ class ServingEngine:
         for slot, req in self.scheduler.admit(time.perf_counter()):
             try:
                 self._admit(slot, req)
-            except PagePoolExhausted:
+            except (PagePoolExhausted, AdapterPoolExhausted):
                 self._requeue_admission(slot, req)
         if not self.scheduler.num_active:
             return []
@@ -270,7 +388,8 @@ class ServingEngine:
         """Page-pool invariant audit with this engine's lease map: every
         mapped slot's table row, the prefix cache's member pages, and
         (int8 pools) each page's largest scale, which must be finite and
-        >= 0. Returns the violation list ([] = clean)."""
+        >= 0; with an adapter pool also its audit against the slots'
+        pinned adapters. Returns the violation list ([] = clean)."""
         leases = [self._table_host[s] for s in range(self.num_slots)
                   if self._mapped[s]]
         members = ()
@@ -286,6 +405,9 @@ class ServingEngine:
                 self._vs[:, :N].abs().amax(dim=(0, 2))).cpu().numpy()
         out = self.page_pool.audit(leases=leases, members=members,
                                    scales=scales)
+        if self.adapter_pool is not None:
+            out += self.adapter_pool.audit(
+                assignments=[a for a in self._adapter_of if a is not None])
         if out and raise_on_error:
             raise MXNetError("page pool audit failed: " + "; ".join(out))
         return out
@@ -330,7 +452,7 @@ class ServingEngine:
         """Upload one slot's host state, its page-table row and the
         pool's page_lock mask (all change together) to the device."""
         d = self._dstate
-        for name in _SLOT_STATE:
+        for name in self._slot_state:
             d[name][slot] = getattr(self, "_" + name)[slot].item()
         d["table"][slot] = self._upload(self._table_host[slot])
         self._d_lock = self._upload(self._page_lock_host())
@@ -409,6 +531,7 @@ class ServingEngine:
         now = time.perf_counter()
         self.scheduler.release(slot)
         self._free_slot_pages(slot)
+        self._release_adapter(slot)
         self._pending[slot] = None
         self._done[slot] = True
         self._remaining[slot] = 0
@@ -425,7 +548,18 @@ class ServingEngine:
         chunk queue; no forward runs here. The dispatch streams the queue
         chunk_tokens at a time beside everyone else's decode rows and
         samples the first token when the final chunk lands. A prefix
-        cache hit starts the slot at the cached offset."""
+        cache hit starts the slot at the cached offset. The adapter is
+        pinned before the pages are mapped: either can raise its pool's
+        exhaustion (backpressure), and _requeue_admission rolls back
+        what was taken."""
+        pool = self.adapter_pool
+        if pool is not None:
+            seen = pool.page_ins, pool.evictions
+            self._aslot[slot] = pool.acquire(req.adapter_id)
+            self._adapter_of[slot] = req.adapter_id \
+                if req.adapter_id not in (None, 0) else None
+            self.stats["adapter_page_ins"] += pool.page_ins - seen[0]
+            self.stats["adapter_evictions"] += pool.evictions - seen[1]
         tokens = np.asarray(req.prompt, np.int32)
         offset = self._map_slot_pages(slot, tokens)
         req.status = "prefilling"
@@ -459,6 +593,7 @@ class ServingEngine:
         self._eos[slot] = -1 if req.eos_token_id is None \
             else req.eos_token_id
         self._done[slot] = False
+        self._hist[slot] = None         # drafting starts after prefill
         self._sync_slot(slot)
 
     def _release_slot(self, slot):
@@ -472,8 +607,21 @@ class ServingEngine:
         self._remaining[slot] = 0
         self._lengths[slot] = self.max_length
         self._free_slot_pages(slot)
+        self._release_adapter(slot)
+        self._hist[slot] = None
         self._sync_slot(slot)
         return req
+
+    def _release_adapter(self, slot):
+        """Drop the slot's adapter pin (none without a pool or for the
+        null adapter) and park the slot on slab slot 0."""
+        if self.adapter_pool is None:
+            return
+        aid = self._adapter_of[slot]
+        if aid is not None:
+            self.adapter_pool.release(aid)
+            self._adapter_of[slot] = None
+        self._aslot[slot] = 0
 
     def _finish(self, slot):
         req = self._release_slot(slot)
@@ -484,12 +632,15 @@ class ServingEngine:
     # -- the dispatch -------------------------------------------------------
     @torch.no_grad()
     def _unified(self, grid, greedy_only):
-        """The device side of one dispatch. grid (B, W + 3) int32: the
-        token rows, then chunk_len, is_final and decode_mask per slot.
-        Runs the forward, picks each slot's token and advances the
-        device-resident slot state. Returns the (6, B) int32 host array
-        [lengths, cur_tok, done, remaining, counters, emitted token or
-        -1]: the dispatch's one device-to-host copy."""
+        """The device side of one dispatch. grid (B, W + 4) int32: the
+        token rows (a decode row's drafts follow its current token), then
+        chunk_len, is_final, decode_mask and n_draft per slot. Runs the
+        forward, verifies the drafts, picks each slot's tokens and
+        advances the device-resident slot state. Returns the (7 + S, B)
+        int32 host array [lengths, cur_tok, done, remaining, counters,
+        n_em, n_acc, the S emitted token rows (-1 past n_em)], S =
+        spec_tokens (1 without speculation): the dispatch's one
+        device-to-host copy."""
         B, W = self.num_slots, self._width
         d = self._dstate
         toks_in = grid[:, :W]
@@ -499,12 +650,16 @@ class ServingEngine:
         active = decode_mask & ~d["done"] & (d["remaining"] > 0)
         prefilling = chunk_len > 0
         finishing = prefilling & is_final
-        qn = torch.where(prefilling, chunk_len, active.to(torch.int32))
+        nd = torch.where(active, grid[:, W + 3], 0)
+        qn = torch.where(prefilling, chunk_len,
+                         torch.where(active, 1 + nd, 0))
         cache = PagedKVCache(self._kp, self._vp, d["table"], d["lengths"],
                              page_lock=self._d_lock, spans=qn,
                              k_scale=self._ks, v_scale=self._vs,
                              attn_impl=self.attn_impl)
-        logits, _ = self.model(toks_in, cache)
+        adapters = None if self.adapter_pool is None \
+            else self.adapter_pool.batch(d["aslot"])
+        logits, _ = self.model(toks_in, cache, adapters=adapters)
         # a decode row samples from position 0, a finishing prefill from
         # its last live position: the distribution after the full prompt
         rows = torch.arange(B, device=grid.device)
@@ -515,33 +670,71 @@ class ServingEngine:
             nxt = sample_tokens(sel, d["seeds"], d["counters"],
                                 d["do_sample"], d["temp"], d["top_k"],
                                 d["top_p"])
+        eos = d["eos"]
         emit = active | finishing
-        n_em = emit.to(torch.int32)
-        stop = (nxt == d["eos"]) & (d["eos"] >= 0)
+        if self.speculative:
+            S = self.spec_tokens
+            emitted, n_acc = verify_tokens(
+                logits[:, :S], toks_in[:, 1:S], nd, d["seeds"],
+                d["counters"], d["do_sample"], d["temp"], d["top_k"],
+                d["top_p"], greedy_only=greedy_only)
+            vpos = torch.arange(S, device=grid.device)[None, :]
+            # the accepted drafts + one verifier token, capped by the
+            # budget, cut after the first eos; only the emitted count
+            # advances `lengths` (rejected drafts' KV stays behind it)
+            n_em = torch.minimum(n_acc + 1, d["remaining"])
+            hit = (emitted == eos[:, None]) & (eos >= 0)[:, None] \
+                & (vpos < n_em[:, None])
+            any_hit = hit.any(dim=1)
+            first_hit = hit.to(torch.int32).argmax(dim=1).to(torch.int32)
+            n_em = torch.where(any_hit,
+                               torch.minimum(n_em, first_hit + 1), n_em)
+            n_em = torch.where(active, n_em, 0)
+            # a finishing prefill emits exactly its first token
+            n_em = torch.where(finishing, 1, n_em)
+            toks = torch.where(vpos < n_em[:, None], emitted, -1)
+            toks = torch.where(finishing[:, None],
+                               torch.where(vpos == 0, nxt[:, None], -1),
+                               toks)
+            last = emitted.gather(
+                1, (n_em - 1).clamp_min(0).long()[:, None])[:, 0]
+            last = torch.where(finishing, nxt, last)
+            stop = torch.where(finishing, (nxt == eos) & (eos >= 0),
+                               any_hit)
+            n_acc = torch.minimum(n_acc, n_em)
+        else:
+            n_em = emit.to(torch.int32)
+            toks = torch.where(emit, nxt, -1)[:, None]
+            last = nxt
+            stop = (nxt == eos) & (eos >= 0)
+            n_acc = torch.zeros_like(n_em)
         # a prefill chunk advances by the tokens it fed (the first
-        # sampled token is written by the next decode), a decode row by 1
+        # sampled token is written by the next decode), a decode or
+        # verify row by the tokens it emitted
         d["lengths"] = d["lengths"] + torch.where(prefilling, chunk_len,
                                                   n_em)
         d["remaining"] = d["remaining"] - n_em
         d["done"] = d["done"] | (emit & (stop | (d["remaining"] <= 0)))
-        d["cur_tok"] = torch.where(emit, nxt, d["cur_tok"])
+        d["cur_tok"] = torch.where(emit, last, d["cur_tok"])
         d["counters"] = d["counters"] + n_em
-        toks = torch.where(emit, nxt, torch.full_like(nxt, -1))
-        out = torch.stack([d["lengths"], d["cur_tok"],
-                           d["done"].to(torch.int32), d["remaining"],
-                           d["counters"], toks])
+        out = torch.cat([torch.stack([d["lengths"], d["cur_tok"],
+                                      d["done"].to(torch.int32),
+                                      d["remaining"], d["counters"], n_em,
+                                      n_acc]), toks.T.to(torch.int32)])
         return out.cpu().numpy().copy()
 
     def _dispatch(self):
         """ONE dispatch: assemble each slot's work row on the host (prefill
-        chunk / decode / idle), run the fixed-shape step, then fan the
-        results out — emitted tokens, chunk-cursor advances, the first
-        token of each prompt whose final chunk landed, and finishes."""
+        chunk / decode or verify / idle), run the fixed-shape step, then
+        fan the results out — emitted tokens, chunk-cursor advances, the
+        first token of each prompt whose final chunk landed, and
+        finishes."""
         B, W = self.num_slots, self._width
         toks_in = np.zeros((B, W), np.int32)
         chunk_len = np.zeros(B, np.int32)
         is_final = np.zeros(B, bool)
         decode_mask = np.zeros(B, bool)
+        n_draft = np.zeros(B, np.int32)
         budget = self.prefill_chunk_budget
         active_slots = list(self.scheduler.active_slots)
         # prefill-budget fairness: visit slots round-robin from a rotating
@@ -562,19 +755,25 @@ class ServingEngine:
             elif not self._done[slot] and self._remaining[slot] > 0:
                 decode_mask[slot] = True
                 toks_in[slot, 0] = self._cur_tok[slot]
+                if self.speculative and self._hist[slot] is not None:
+                    drafts = self._proposer.propose(self._hist[slot])
+                    n_draft[slot] = drafts.size
+                    toks_in[slot, 1:1 + drafts.size] = drafts
         self._chunk_rr = (self._chunk_rr + 1) % B
         grid = np.concatenate([toks_in, chunk_len[:, None],
-                               is_final[:, None], decode_mask[:, None]],
-                              axis=1).astype(np.int32)
+                               is_final[:, None], decode_mask[:, None],
+                               n_draft[:, None]], axis=1).astype(np.int32)
         greedy_only = not bool(self._do_sample[active_slots].any())
         out = self._unified(self._upload(grid), greedy_only)
         (self._lengths, self._cur_tok, done, self._remaining,
-         self._counters, toks) = out
+         self._counters, n_em, n_acc) = out[:7]
+        toks = out[7:].T
         self._done = done.astype(bool)
         now = time.perf_counter()
         st = self.stats
         st["decode_dispatches"] += 1
         finished = []
+        accepted = 0
         for slot in active_slots:
             req = self.scheduler.request_at(slot)
             cl = int(chunk_len[slot])
@@ -599,9 +798,21 @@ class ServingEngine:
                     self._d_lock = self._upload(self._page_lock_host())
             elif not decode_mask[slot]:
                 continue                # chunk queued but out of budget
-            if toks[slot] >= 0:
-                req.output_tokens.append(int(toks[slot]))
-                st["tokens_emitted"] += 1
+            emitted = [int(t) for t in toks[slot, :int(n_em[slot])]]
+            req.output_tokens.extend(emitted)
+            st["tokens_emitted"] += len(emitted)
+            accepted += int(n_acc[slot])
+            if self.speculative:
+                if cl:
+                    self._hist[slot] = [int(t) for t in req.prompt] \
+                        + req.output_tokens
+                elif self._hist[slot] is not None:
+                    self._hist[slot].extend(emitted)
             if self._done[slot] or self._remaining[slot] <= 0:
                 finished.append(self._finish(slot))
+        if self.speculative:
+            drafted = int(n_draft.sum())
+            st["spec_draft_tokens"] += drafted
+            st["spec_accepted_tokens"] += accepted
+            st["spec_rollbacks"] += drafted - accepted
         return finished

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["filtered_logits", "sample_tokens", "uniforms"]
+__all__ = ["filtered_logits", "sample_tokens", "uniforms", "gumbel_draw"]
 
 _M32 = 0xFFFFFFFF
 
@@ -39,11 +39,17 @@ def _mix(x):
     return x ^ (x >> 16)
 
 
-def uniforms(seeds, counters, vocab_size):
+def uniforms(seeds, counters, vocab_size, tag=None):
     """(B, V) float32 uniforms in (0, 1), a pure function of each row's
-    (seed, counter) and the column index."""
+    (seed, counter) and the column index. `tag` (a small int) selects a
+    further stream of the same (seed, counter): the speculative verify
+    draws its accept uniform from tag 1 and its residual sample from
+    tag 2, the counterparts of the reference's fold_in(key, 1) and
+    fold_in(key, 2). Without a tag the bits are the sampler's own."""
     dev = seeds.device
     s = _mix(seeds.long()[:, None] & _M32)
+    if tag is not None:
+        s = _mix(s ^ _mul32(torch.full_like(s, int(tag)), 0x9E3779B9))
     c = counters.long()[:, None] & _M32
     v = torch.arange(vocab_size, device=dev, dtype=torch.int64)[None, :]
     bits = _mix(_mix(v ^ s) ^ c)
@@ -85,6 +91,13 @@ def sample_tokens(logits, seeds, counters, do_sample, temperature, top_k,
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
     filtered = filtered_logits(logits, temperature, top_k, top_p)
-    u = uniforms(seeds, counters, logits.shape[-1])
-    sampled = torch.argmax(filtered - torch.log(-torch.log(u)), dim=-1)
+    sampled = gumbel_draw(filtered, seeds, counters)
     return torch.where(do_sample, sampled, greedy).to(torch.int32)
+
+
+def gumbel_draw(filtered, seeds, counters, tag=None):
+    """One draw per row from softmax(filtered) (a (B, V) result of
+    filtered_logits) by Gumbel-max on the `uniforms` stream (seed,
+    counter, tag). Returns (B,) int64."""
+    u = uniforms(seeds, counters, filtered.shape[-1], tag)
+    return torch.argmax(filtered - torch.log(-torch.log(u)), dim=-1)

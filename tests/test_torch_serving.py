@@ -220,8 +220,8 @@ def test_prefill_chunk_budget_round_robins_concurrent_prompts(pair):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option,value", [
-    ("speculative", True), ("weight_dtype", "int8"), ("tp", 2),
-    ("adapter_pool", object()), ("policy", object()),
+    ("tenant_quotas", object()), ("max_retries", 5), ("tp", 2),
+    ("clock", object()), ("policy", object()),
     ("host_kv_bytes", 1 << 20)])
 def test_unported_engine_options_raise(pair, option, value):
     _, net = pair
@@ -238,7 +238,7 @@ def test_engine_rejections(pair):
     eng = ServingEngine(net, max_queue=1, device="cpu", **ENGINE)
     with pytest.raises(MXNetError):
         eng.submit(Request([1] * 65, 2))
-    with pytest.raises(MXNetError, match="not ported"):
+    with pytest.raises(MXNetError, match="no adapter pool"):
         eng.submit(Request([1, 2], 2, adapter_id="a"))
     with pytest.raises(MXNetError, match="not ported"):
         eng.submit(Request([1, 2], 2, deadline_ms=5.0))
