@@ -28,7 +28,11 @@ script then exits non-zero without the final `ok` line):
               kernel, plain version and the F.scaled_dot_product_attention
               yardstick (and their ratio), and the bound; the kernel's
               time with the pools warm in L2 and under the split plan's
-              other targets (SPLIT_TARGETS, each checked too).
+              other targets (SPLIT_TARGETS, each checked too). Float
+              pools also take a poisoned key page (NaN, as
+              serving.FaultPlan writes one) through both span routes and
+              the decode kernel: the NaN elements equal the plain
+              version's, inside their slot.
   3b. span_int8  the same for int8 pools with per-(page, head) float32
               scales, bfloat16 q held to INT8_BF16_REL_TOL (2e-3 of the
               largest plain value; the int8 kernels keep P in float32),
@@ -125,6 +129,45 @@ script then exits non-zero without the final `ok` line):
               without a pool; then the same with an int8 slab against its
               effective_weights; ms per dispatch with and without the
               pool, page-ins and evictions.
+  5g. gpt2_tier  one 774M model (float32 weights, seeded) shared with
+              5h; ServingEngine(num_slots=8, max_length=1024,
+              page_size=64, chunk_tokens=64, prefix_cache=True,
+              prefix_cache_pages=8) with the host KV tier (host_kv_bytes
+              = 16 pages of its dtype): four 256-token system prompts
+              (numpy seed 3) with tails U[16, 128], 32 greedy tokens;
+              round A one request per prefix, round B two per prefix in
+              the order 4, 3, 2, 1. float32, int8 and bfloat16 pages
+              (bfloat16 weights, then the float32 weights restored). Every
+              stream equals the never-evicted engine's
+              (prefix_cache_pages=64, no tier); at least 8 pages spilled
+              and 8 paged in; both audits clean after every step; the
+              dtype's span family 36 times a dispatch, its plain version
+              never. ms per dispatch and per serve against the tier off
+              at 8 cache pages (it recomputes what was evicted); prompt
+              tokens paged in, attached and recomputed; ms and GB/s of
+              the tier's gather and scatter of 16 pages against a pinned
+              copy_ of the same bytes each way, and one pinned
+              allocation's cost.
+  5h. gpt2_robust  the same model, float32 pages: a chaos soak (32
+              sampled requests, prompts U[16, 128] seed 4, 16 tokens,
+              Poisson arrivals at 3 a step, seed 13) under FaultPlan(seed
+              3; dispatch exceptions, NaN pages, pool exhaustion and
+              allocation failures at 0.05 each, poison c5 both phases and
+              c17 decode, 40 faults at most) with max_retries 4: every
+              innocent stream equals the fault-free run's, both poison
+              requests fail and only they, every fault the supervisor
+              caught is one the plan injected and dispatch_errors counts
+              exactly them and the dispatches the finite guard flagged
+              (one at least), audits clean. Preemption under
+              SheddingPolicy(queue_low=1, queue_high=2, preempt=True) on
+              a tick clock: eight priority-2 requests (phase 5's prompts,
+              32 tokens) then two priority-0 ones; with 64 pages of tier
+              the victims resume, with 8 bytes they restart (float32, and
+              int8 pages replaying their write schedule); every stream
+              equals its request served alone; dispatches to the urgent
+              first tokens with and without the policy. Deadlines: one
+              expires queued (shed, no tokens), one running (its partial
+              stream a prefix of its unbounded one).
   6. fused    fused_attention's CUDA forward and backward against its
               plain PyTorch version (forward output, dq, dk, dv) at
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
@@ -189,8 +232,8 @@ script then exits non-zero without the final `ok` line):
               ones, phase 7's float32 steps for the CUDA-core fused
               pair, its bfloat16 steps for the tensor-core pair; each
               fused entry also with its launches in phase 7b; each span
-              entry with its serve_verify cell and its launches in phase
-              5d), errors, times, bound and library times.
+              entry with its serve_verify cell and its launches in phases
+              5d, 5g and 5h), errors, times, bound and library times.
 Then the last line: {"ok": true, "device": {...}}.
 """
 import json
@@ -611,7 +654,55 @@ def phase_span(torch, F, ra, quant=False):
     out["bf16_tol"] = INT8_BF16_REL_TOL if quant else BF16_REL_TOL
     if quant:
         out["rounding_case"] = int8_rounding_case(torch, ra)
+    else:
+        out["nan_pages"] = nan_page_cases(torch, ra)
     emit(out)
+    return out
+
+
+def nan_page_cases(torch, ra):
+    """A poisoned key page (every position and head NaN, as
+    serving.FaultPlan writes one) stays inside its slot: slot 0's first
+    page (the first a split reads) and slot 2's second page (rows 0-2 see
+    page 0 only); span kernels of both routes and the decode kernel
+    against their plain versions: the same NaN elements, the rest within
+    the usual tolerance. Returns the NaN elements of each call."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, table, _, _ = make_pool(torch, 3, 4, 2, 64, 16, 4, 12,
+                                           dtype, 21)
+        kp[int(table[0, 0])] = float("nan")
+        kp[int(table[2, 1])] = float("nan")
+        key = "float32" if dtype == torch.float32 else "bfloat16"
+        for kind in ("span", "decode"):
+            if kind == "span":
+                args = (q, kp, vp, table,
+                        torch.tensor([20, 5, 14], dtype=torch.int32,
+                                     device=DEV))
+                kw = dict(q_counts=torch.tensor([4, 1, 4], dtype=torch.int32,
+                                                device=DEV))
+                fn = ra.ragged_span_attention
+            else:
+                args = (q[:, 0].contiguous(), kp, vp, table,
+                        torch.tensor([20, 5, 17], dtype=torch.int32,
+                                     device=DEV))
+                kw = {}
+                fn = ra.ragged_decode_attention
+            before = sum(ra.LAUNCHES.values())
+            got = fn(*args, impl="auto", **kw)
+            require(sum(ra.LAUNCHES.values()) == before + 1,
+                    f"nan page {kind} {key}: no kernel launch")
+            ref = fn(*args, impl="torch", **kw)
+            nan = torch.isnan(ref)
+            require(torch.equal(torch.isnan(got), nan),
+                    f"nan page {kind} {key}: NaN at {int(torch.isnan(got).sum())}"
+                    f" elements, the plain version at {int(nan.sum())}")
+            require(bool(nan[0].all()) and not bool(nan[1].any()),
+                    f"nan page {kind} {key}: the NaN left its slot")
+            check_close(torch.where(nan, 0, got.float()),
+                        torch.where(nan, 0, ref.float()),
+                        dtype == torch.float32, f"nan page {kind} {key}")
+            out[f"{kind}_{key}"] = int(nan.sum())
     return out
 
 
@@ -1229,7 +1320,7 @@ def phase_gpt2(torch, ra, card):
     model.to(torch.bfloat16)
     eng = ServingEngine(model, device=DEV, **ekw)
     serve(torch, eng, prompts, n_new, Request)          # warm-up
-    eng.stats["decode_dispatches"] = 0
+    eng.reset_stats()
     ra.reset_launches()
     got16, wall = serve(torch, eng, prompts, n_new, Request)
     d16 = eng.stats["decode_dispatches"]
@@ -1465,7 +1556,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     model.to(torch.bfloat16)
     eng = ServingEngine(model, device=DEV, **ekw)
     serve(torch, eng, prompts, n_new, Request)          # warm-up
-    eng.stats["decode_dispatches"] = 0
+    eng.reset_stats()
     ra.reset_launches()
     got16, wall = serve(torch, eng, prompts, n_new, Request)
     d16 = eng.stats["decode_dispatches"]
@@ -1944,6 +2035,470 @@ def phase_gpt2_lora(torch, ra, card, gpt2):
 
 
 # ---------------------------------------------------------------------------
+# phases 5g and 5h: the host KV tier and the robustness layer
+# ---------------------------------------------------------------------------
+
+# phase 5g: 16 pages of host tier (of the engine's page dtype) and 8 of
+# prefix cache beyond the slots' own pages
+TIER = dict(prefix_cache_pages=8, host_pages=16)
+
+
+def page_bytes(model, kw):
+    """The device bytes of one KV page of an engine with options kw."""
+    from mxnet_tpu_torch.serving import ServingEngine
+    eng = ServingEngine(model, device=DEV, **kw)
+    return eng.page_pool.page_bytes
+
+
+def tier_traffic(vocab):
+    """Phase 5g's prompts: four 256-token system prompts (numpy seed 3),
+    each with a tail U[16, 128]; round A one request per prefix, round B
+    two per prefix in the order 4, 3, 2, 1."""
+    rng = np.random.default_rng(3)
+    systems = [rng.integers(0, vocab, 256).tolist() for _ in range(4)]
+
+    def tail():
+        return rng.integers(0, vocab, int(rng.integers(16, 129))).tolist()
+    round_a = [systems[i] + tail() for i in range(4)]
+    round_b = [systems[i] + tail() for i in (3, 3, 2, 2, 1, 1, 0, 0)]
+    return round_a, round_b
+
+
+def serve_rounds(torch, eng, rounds, n_new, Request, audit=False):
+    """Serve each round of greedy requests to its end, one round after
+    the other; the streams, the wall seconds (ending in a device sync)
+    and, with `audit`, every page and host-tier violation seen after a
+    step."""
+    streams, bad = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, prompts in enumerate(rounds):
+        reqs = [Request(p, n_new, request_id=f"{k}.{i}")
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        while eng.has_work:
+            eng.step()
+            if audit:
+                bad += eng.audit_pages()
+                if eng.host_pool is not None:
+                    bad += eng.host_pool.audit()
+        streams += [r.output_tokens for r in reqs]
+    torch.cuda.synchronize()
+    return streams, time.perf_counter() - t0, bad
+
+
+def tier_copy_rates(torch, eng, n):
+    """ms and GB/s of the tier's page gather (device -> pinned staging ->
+    numpy payloads) and page scatter (payloads -> pinned staging ->
+    device pages) of n pages, median of 5, against a plain pinned copy_
+    of the same bytes each way (the yardstick), and the cost of one
+    pinned allocation of that size."""
+    pages = list(range(n))
+    nbytes = n * eng.page_pool.page_bytes
+
+    def timed(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+    eng._tier_gather(pages)                      # grows the staging block
+    payloads = eng._tier_gather(pages)
+    fresh = eng.page_pool.alloc(n)
+    out = {"pages": n, "bytes": nbytes,
+           "gather_ms": timed(lambda: eng._tier_gather(pages)),
+           "scatter_ms": timed(lambda: eng._tier_scatter(
+               list(zip(fresh, payloads))))}
+    eng.page_pool.free(eng.page_pool.decref(fresh))
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    t0 = time.perf_counter()
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out["pinned_alloc_ms"] = (time.perf_counter() - t0) * 1e3
+    out["pinned_d2h_ms"] = timed(lambda: host.copy_(dev, non_blocking=True))
+    out["pinned_h2d_ms"] = timed(lambda: dev.copy_(host, non_blocking=True))
+    for key in ("gather", "scatter", "pinned_d2h", "pinned_h2d"):
+        out[key + "_gb_s"] = nbytes / out[key + "_ms"] / 1e6
+    return out
+
+
+def phase_gpt2_tier(torch, ra, card, model, cfg):
+    """Phase 5g: the host KV tier on the 774M model."""
+    from mxnet_tpu_torch.serving import Request, ServingEngine
+
+    rounds = tier_traffic(cfg.vocab_size)
+    n_new = 32
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64,
+               prefix_cache=True)
+    out = {"phase": "gpt2_tier", "card": card, "config": "gpt2_774m_config",
+           "engine": dict(ekw, prefix_cache_pages=TIER["prefix_cache_pages"],
+                          host_kv_bytes=f"{TIER['host_pages']} pages"),
+           "prompt_lens": [list(map(len, r)) for r in rounds],
+           "new_tokens": n_new}
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    for label, dtype, kv, key in (("float32", torch.float32, None, SPAN),
+                                  ("int8_pages", torch.float32, "int8",
+                                   INT8),
+                                  ("bfloat16", torch.bfloat16, None,
+                                   SPAN_TC)):
+        model.to(dtype)
+        kw = dict(ekw, kv_dtype=kv)
+        pb = page_bytes(model, kw)
+        host = TIER["host_pages"] * pb
+        res = {"card": card, "page_bytes": pb, "host_kv_bytes": host}
+        # never evicted: the streams' oracle
+        eng = ServingEngine(model, device=DEV, prefix_cache_pages=64, **kw)
+        want, wall, _ = serve_rounds(torch, eng, rounds, n_new, Request)
+        res["never_evicted"] = serve_stats(eng, wall, want)
+        del eng
+        # the main path of the tier in this dtype: counts read here
+        eng = ServingEngine(model, device=DEV, host_kv_bytes=host,
+                            prefix_cache_pages=TIER["prefix_cache_pages"],
+                            **kw)
+        with counting(ra, "_ragged_span_reference") as plain_calls:
+            ra.reset_launches()
+            got, wall, bad = serve_rounds(torch, eng, rounds, n_new, Request,
+                                          audit=True)
+            launches = dict(ra.LAUNCHES)
+        st = eng.stats
+        d = st["decode_dispatches"]
+        require(launches[key] == GPT2_LAYERS * d and sum(launches.values())
+                == launches[key], f"tier {label}: launches {launches} for "
+                f"{d} dispatches")
+        require(plain_calls.calls == 0, f"tier {label}: the plain span "
+                f"version ran {plain_calls.calls} times on the kernel path")
+        require(bad == [], f"tier {label}: audits {bad[:3]}")
+        require(got == want, f"tier {label}: streams differ from the "
+                "never-evicted engine's")
+        require(st["kv_spill_pages"] >= 8 and st["kv_pagein_pages"] >= 8,
+                f"tier {label}: spilled {st['kv_spill_pages']}, paged in "
+                f"{st['kv_pagein_pages']} pages")
+        res["tier"] = serve_stats(eng, wall, got)
+        res["launches"] = launches
+        res["counters"] = {k: st[k] for k in (
+            "kv_spill_pages", "kv_spill_bytes", "kv_pagein_pages",
+            "kv_pagein_bytes", "kv_host_evictions", "prefix_hits",
+            "prefix_tokens_saved", "prefill_tokens")}
+        res["prompt_tokens"] = {
+            "paged_in": st["kv_pagein_pages"] * 64,
+            "attached": st["prefix_tokens_saved"],
+            "recomputed": st["prefill_tokens"]}
+        res["copies"] = tier_copy_rates(torch, eng, 16)
+        del eng
+        # the tier off at the same cache size: what was evicted is
+        # recomputed
+        eng = ServingEngine(model, device=DEV,
+                            prefix_cache_pages=TIER["prefix_cache_pages"],
+                            **kw)
+        off, wall, _ = serve_rounds(torch, eng, rounds, n_new, Request)
+        res["tier_off"] = serve_stats(eng, wall, off)
+        res["tier_off"]["recomputed"] = eng.stats["prefill_tokens"]
+        del eng
+        res["streams_equal_tier_off"] = off == want
+        res["tier_over_off_ms_per_serve"] = \
+            res["tier"]["wall_s"] / res["tier_off"]["wall_s"]
+        res["tier_over_off_ms_per_dispatch"] = \
+            res["tier"]["ms_per_dispatch"] / res["tier_off"]["ms_per_dispatch"]
+        torch.cuda.empty_cache()
+        out[label] = res
+    model.to(torch.float32)
+    model.load_state_dict(saved)
+    del saved
+    torch.cuda.empty_cache()
+    out["launches_by_family"] = {
+        "float32": out["float32"]["launches"][SPAN],
+        "bfloat16": out["bfloat16"]["launches"][SPAN_TC],
+        "int8": out["int8_pages"]["launches"][INT8]}
+    emit(out)
+    return out
+
+
+class Tick:
+    """An injected engine clock: deadlines and backoff advance only when
+    the phase says so."""
+
+    def __init__(self, t=0.0):
+        self.t = float(t)
+
+    def __call__(self):
+        return self.t
+
+
+def robust_traffic(vocab, n=32):
+    """Phase 5h's chaos prompts: lengths U[16, 128] (numpy seed 4)."""
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, vocab, int(rng.integers(16, 129))).tolist()
+            for _ in range(n)]
+
+
+def chaos(torch, eng, prompts, n_new, Request, plan=None):
+    """Phase 5h's chaos soak: sampled requests c0.. arriving Poisson at
+    mean 3 a step (numpy seed 13), `plan` installed. Returns the
+    requests by id, the wall seconds and the engine's audits after the
+    run."""
+    reqs = [Request(p, n_new, request_id=f"c{i}", do_sample=True,
+                    temperature=0.8, seed=1000 + i)
+            for i, p in enumerate(prompts)]
+    if plan is not None:
+        plan.install(eng)
+    arrivals = np.random.default_rng(13)
+    pending = reqs[::-1]
+    steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        while (pending or eng.has_work) and steps < 5000:
+            for _ in range(int(arrivals.poisson(3.0))):
+                if pending:
+                    eng.submit(pending.pop())
+            eng.step()
+            steps += 1
+    finally:
+        if plan is not None:
+            plan.uninstall()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(steps < 5000, "chaos: the soak did not converge")
+    return {r.id: r for r in reqs}, wall, eng.audit_pages()
+
+
+class caught:
+    """Record what the engine's supervisor catches: the exception of
+    every admission and dispatch fault, and each dispatch whose finite
+    guard flagged slots."""
+
+    def __init__(self, eng):
+        self.errors, self.nan_dispatches = [], 0
+        for name in ("_on_admit_fault", "_on_decode_fault", "_on_bad_slots"):
+            setattr(eng, name, self._wrap(name, getattr(eng, name)))
+
+    def _wrap(self, name, fn):
+        def wrapped(*args):
+            if name == "_on_bad_slots":
+                self.nan_dispatches += 1
+            else:
+                self.errors.append(args[-1])
+            return fn(*args)
+        return wrapped
+
+
+def preempt_run(torch, model, prompts, n_new, Request, ServingEngine, ekw,
+                policy=None, host_kv_bytes=None):
+    """Phase 5h's preemption traffic: eight priority-2 requests fill the
+    slots (one submitted a step); once each has emitted 2 tokens two
+    priority-0 requests arrive.
+    Returns the streams by id, the dispatches from their arrival to the
+    urgent requests' first tokens, the engine, and the audits seen after
+    each step."""
+    eng = ServingEngine(model, device=DEV, clock=Tick(), policy=policy,
+                        host_kv_bytes=host_kv_bytes, **ekw)
+    low = [Request(p, n_new, request_id=f"low{i}", priority=2)
+           for i, p in enumerate(prompts[:8])]
+    urgent = [Request(p, n_new, request_id=f"urgent{i}", priority=0)
+              for i, p in enumerate(prompts[8:10])]
+    for r in low:                   # one a step: the queue stays short
+        eng.submit(r)
+        eng.step()
+    bad = []
+    while any(len(r.output_tokens) < 2 for r in low):
+        eng.step()
+    for r in urgent:
+        eng.submit(r)
+    d0, wait = eng.stats["decode_dispatches"], None
+    while eng.has_work:
+        eng.step()
+        bad += eng.audit_pages()
+        if eng.host_pool is not None:
+            bad += eng.host_pool.audit()
+        if wait is None and all(r.output_tokens for r in urgent):
+            wait = eng.stats["decode_dispatches"] - d0
+    require(all(r.status == "finished" for r in low + urgent),
+            "preempt: a request did not finish")
+    return ({r.id: r.output_tokens for r in low + urgent}, wait, eng, bad)
+
+
+def phase_gpt2_robust(torch, ra, card, model, cfg):
+    """Phase 5h: the supervisor, the finite guard, deadlines, the
+    shedding policy and preemption on the 774M model."""
+    from mxnet_tpu_torch.serving import (FaultError, FaultPlan,
+                                         PagePoolExhausted, Request,
+                                         ServingEngine, SheddingPolicy)
+
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
+    out = {"phase": "gpt2_robust", "card": card,
+           "config": "gpt2_774m_config", "engine": ekw}
+
+    # chaos: every fault kind, poison in both phases, float32 pages
+    prompts = robust_traffic(cfg.vocab_size)
+    n_new = 16
+    poison = {"c5": "both", "c17": "decode"}
+    eng = ServingEngine(model, device=DEV, **ekw)
+    clean, wall0, _ = chaos(torch, eng, prompts, n_new, Request)
+    d0 = eng.stats["decode_dispatches"]
+    del eng
+    eng = ServingEngine(model, device=DEV, max_retries=4,
+                        retry_backoff_s=0.0, **ekw)
+    seen = caught(eng)
+    plan = FaultPlan(seed=3, dispatch_exception=0.05, nan_logits=0.05,
+                     pool_exhaustion=0.05, exhaust_steps=2,
+                     alloc_failure=0.05, poison=poison, max_faults=40)
+    with counting(ra, "_ragged_span_reference") as plain_calls:
+        ra.reset_launches()
+        got, wall, audit = chaos(torch, eng, prompts, n_new, Request, plan)
+        launches = dict(ra.LAUNCHES)
+    st = eng.stats
+    d = st["decode_dispatches"]
+    counts = dict(plan.counts)
+    require(launches[SPAN] == GPT2_LAYERS * d and sum(launches.values())
+            == launches[SPAN], f"chaos: launches {launches} for {d} "
+            "dispatches")
+    require(plain_calls.calls == 0, "chaos: the plain span version ran")
+    for rid, r in got.items():
+        if rid in poison:
+            require(r.status == "failed", f"chaos: poison {rid} ended "
+                    f"{r.status}")
+        else:
+            require(r.status == "finished" and r.output_tokens
+                    == clean[rid].output_tokens, f"chaos: innocent {rid} "
+                    f"ended {r.status} with a stream other than the "
+                    "fault-free run's")
+    require(st["requests_failed"] == 2, f"chaos: {st['requests_failed']} "
+            "requests failed")
+    # every fault the supervisor caught is one the plan injected: its
+    # raises (FaultError) and the admissions its held pages pushed back
+    # (PagePoolExhausted); plus the dispatches the finite guard flagged
+    injected = [e for e in seen.errors if isinstance(e, FaultError)]
+    pushed = [e for e in seen.errors if isinstance(e, PagePoolExhausted)]
+    other = [repr(e) for e in seen.errors
+             if not isinstance(e, (FaultError, PagePoolExhausted))]
+    raised = sum(counts.get(k, 0) for k in ("dispatch_exception", "poison",
+                                            "alloc_failure"))
+    require(not other, f"chaos: the supervisor caught real errors {other}")
+    require(len(injected) == raised, f"chaos: {len(injected)} injected "
+            f"raises caught, the plan counts {raised}")
+    require(not pushed or counts.get("pool_exhaustion", 0),
+            "chaos: backpressure without an injected exhaustion")
+    require(st["dispatch_errors"] == raised + len(pushed)
+            + seen.nan_dispatches, f"chaos: dispatch_errors "
+            f"{st['dispatch_errors']} != {raised} raised + {len(pushed)} "
+            f"pushed back + {seen.nan_dispatches} non-finite dispatches")
+    require(seen.nan_dispatches >= 1 and counts.get("nan_logits", 0) >= 1,
+            f"chaos: no NaN page was caught by the guard ({counts})")
+    require(audit == [] and eng.host_pool is None, f"chaos: audit {audit}")
+    out["chaos"] = {
+        "requests": len(prompts), "new_tokens": n_new, "poison": poison,
+        "faults": counts, "dispatch_errors": st["dispatch_errors"],
+        "dispatch_retries": st["dispatch_retries"],
+        "requests_failed": st["requests_failed"],
+        "nan_dispatches": seen.nan_dispatches,
+        "backpressured_admissions": len(pushed), "launches": launches,
+        "fault_free": {"dispatches": d0, "wall_s": wall0,
+                       "ms_per_dispatch": wall0 / d0 * 1e3},
+        "faulted": {"dispatches": d, "wall_s": wall,
+                    "ms_per_dispatch": wall / d * 1e3}}
+    del eng
+    torch.cuda.empty_cache()
+
+    # preemption: phase gpt2's prompts for the low requests, two of this
+    # phase's for the urgent ones; a non-binding chunk budget keeps every
+    # request's chunk grid its own (int8 codes depend on it)
+    prompts = gpt2_traffic(cfg.vocab_size) + robust_traffic(
+        cfg.vocab_size)[:2]
+    n_new = 32
+    pkw = dict(ekw, prefix_cache=True, prefill_chunk_budget=8 * 64,
+               retry_backoff_s=0.0)
+    res = {}
+    solo = {}
+    for kv in (None, "int8"):
+        streams = []
+        for p in prompts:
+            eng = ServingEngine(model, device=DEV, kv_dtype=kv, **pkw)
+            r = Request(p, n_new)
+            eng.serve([r])
+            streams.append(r.output_tokens)
+            del eng
+        solo[kv] = dict(zip([f"low{i}" for i in range(8)]
+                            + ["urgent0", "urgent1"], streams))
+    for label, kv, host in (("resume_float32", None, 64),
+                            ("restart_float32", None, None),
+                            ("restart_int8", "int8", None)):
+        pol = SheddingPolicy(queue_low=1, queue_high=2, preempt=True)
+        hb = host * page_bytes(model, dict(pkw, kv_dtype=kv)) if host else 8
+        ra.reset_launches()
+        got, wait, eng, bad = preempt_run(
+            torch, model, prompts, n_new, Request, ServingEngine,
+            dict(pkw, kv_dtype=kv), policy=pol, host_kv_bytes=hb)
+        launches = dict(ra.LAUNCHES)
+        st = eng.stats
+        key = INT8 if kv else SPAN
+        require(launches[key] == GPT2_LAYERS * st["decode_dispatches"]
+                and sum(launches.values()) == launches[key],
+                f"preempt {label}: launches {launches}")
+        require(bad == [], f"preempt {label}: audits {bad[:3]}")
+        require(got == solo[kv], f"preempt {label}: streams differ from "
+                "the requests served alone")
+        require(st["preempts"] >= 1, f"preempt {label}: nothing preempted")
+        if host:
+            require(st["preempt_resumed"] >= 1, f"preempt {label}: no "
+                    "resume")
+        else:
+            require(st["preempt_restarted"] >= 1, f"preempt {label}: no "
+                    "restart")
+        res[label] = {"host_kv_bytes": hb, "launches": launches,
+                      "dispatches_to_urgent_first_tokens": wait,
+                      **{k: st[k] for k in (
+                          "preempts", "preempt_resumed",
+                          "preempt_restarted", "kv_spill_pages",
+                          "kv_pagein_pages", "decode_dispatches")}}
+        del eng
+    got, wait, eng, _ = preempt_run(torch, model, prompts, n_new, Request,
+                                    ServingEngine, pkw)
+    require(got == solo[None], "preempt: streams without the policy differ")
+    res["no_policy"] = {"dispatches_to_urgent_first_tokens": wait,
+                        "decode_dispatches": eng.stats["decode_dispatches"]}
+    del eng
+    out["preempt"] = res
+
+    # deadlines on the tick clock: one expires queued behind eight
+    # running requests, one while it runs
+    clk = Tick()
+    eng = ServingEngine(model, device=DEV, clock=clk, **pkw)
+    for i, p in enumerate(prompts[:8]):
+        eng.submit(Request(p, n_new, request_id=f"low{i}"))
+    late = Request(prompts[8], n_new, request_id="late", deadline_ms=50.0)
+    eng.submit(late)
+    eng.step()
+    clk.t += 0.2
+    eng.step()
+    require(late.status == "shed" and late.output_tokens == [],
+            f"deadline: the queued request ended {late.status}")
+    run = Request(prompts[9], n_new, request_id="run", deadline_ms=100.0)
+    eng2 = ServingEngine(model, device=DEV, clock=clk, **pkw)
+    eng2.submit(run)
+    for _ in range(6):
+        eng2.step()
+    clk.t += 1.0
+    eng2.step()
+    require(run.status == "deadline" and 1 <= len(run.output_tokens) < n_new
+            and run.output_tokens == solo[None]["urgent1"][
+                :len(run.output_tokens)],
+            f"deadline: the running request ended {run.status} with "
+            f"{len(run.output_tokens)} tokens")
+    require(eng2.audit_pages() == [] and not eng2.has_work,
+            "deadline: the cancelled slot was not released")
+    out["deadlines"] = {"queued": late.status, "running": run.status,
+                        "partial_tokens": len(run.output_tokens),
+                        "shed": eng.stats["shed"] + eng2.stats["shed"]}
+    del eng, eng2
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: BERT-base MLM training steps
 # ---------------------------------------------------------------------------
 
@@ -2265,14 +2820,20 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
             "library_ms_bf16": b16.get("library_ms"), "card": card, **extra}
 
 
-def span_entries(span, span8, gpt2, gpt2_int8, spec, card):
+def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, card):
     """The four span kernels' kernels-line entries: the CUDA-core kernel
     at float32 q (launches from the float32 serves, phases 5 and 5b) and
     the tensor-core kernel at bfloat16 q (launches from the bfloat16
     serves), float and int8 pages, each at the kernel cell with the
     serve's decode and verify cells beside, and its launches on the
     speculative serve of phase 5d (none: bfloat16 q on int8 pages is not
-    served with speculation there)."""
+    served with speculation there), on the host-tier serves of phase 5g
+    and on phase 5h's chaos soak (float32) and int8 restart (none:
+    phase 5h serves no bfloat16)."""
+    fam = tier["launches_by_family"]
+    rob = {SPAN: robust["chaos"]["launches"][SPAN],
+           INT8: robust["preempt"]["restart_int8"]["launches"][INT8]}
+
     def entry(name, source, res, dtype, launches, spec_launches):
         cell, dec = res[dtype], res["serve_decode"][dtype]
         ver = res["serve_verify"][dtype]
@@ -2292,14 +2853,18 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, card):
                 "ms_over_library": cell["ms_over_library"],
                 "serve_decode": {k: dec[k] for k in keys},
                 "serve_verify": {k: ver[k] for k in keys},
-                "gpt2_spec_launches": spec_launches, "card": card}
-    fam = spec["launches_by_family"]
+                "gpt2_spec_launches": spec_launches,
+                "gpt2_tier_launches": fam.get(
+                    {SPAN: "float32", SPAN_TC: "bfloat16",
+                     INT8: "int8"}.get(name)),
+                "gpt2_robust_launches": rob.get(name), "card": card}
+    sfam = spec["launches_by_family"]
     return [entry(SPAN, SOURCE, span, "float32", gpt2["launches"][SPAN],
-                  fam["float32"]),
+                  sfam["float32"]),
             entry(SPAN_TC, SPAN_TC_SOURCE, span, "bfloat16",
-                  gpt2["launches_bf16"][SPAN_TC], fam["bfloat16"]),
+                  gpt2["launches_bf16"][SPAN_TC], sfam["bfloat16"]),
             entry(INT8, SOURCE, span8, "float32",
-                  gpt2_int8["launches"][INT8], fam["int8"]),
+                  gpt2_int8["launches"][INT8], sfam["int8"]),
             entry(INT8_TC, SPAN_TC_SOURCE, span8, "bfloat16",
                   gpt2_int8["launches_bf16"][INT8_TC], None)]
 
@@ -2421,11 +2986,17 @@ def main():
     spec = phase_gpt2_spec(torch, ra, card)
     phase_gpt2_w8(torch, ra, card, gpt2)
     phase_gpt2_lora(torch, ra, card, gpt2)
+    model, cfg = gpt2_774m(torch)
+    tier = phase_gpt2_tier(torch, ra, card, model, cfg)
+    robust = phase_gpt2_robust(torch, ra, card, model, cfg)
+    del model
+    torch.cuda.empty_cache()
     fused = phase_fused(torch, F, fa)
     bert = phase_bert(torch, fa, card)
     gpt2_train = phase_gpt2_train(torch, fa, card)
 
-    kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, card)
+    kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust,
+                           card)
     kernels.append(kernel_entry(
         "ragged_decode_attention", SOURCE,
         gpt2["launches"]["ragged_decode_attention"], decode["float32"],

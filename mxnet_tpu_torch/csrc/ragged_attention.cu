@@ -30,7 +30,9 @@
 // softmax runs online over the slot's pages in float32 with the
 // reference's constants: masked scores are -1e30, a row whose running
 // maximum is still masked contributes e = 0 (not exp(0)), and the
-// denominator is clamped at 1e-30.
+// denominator is clamped at 1e-30. The running maximum keeps a NaN
+// (span_split.cuh `nan_max`), so a NaN key reaches the rows that see it,
+// and only them, as in the plain version.
 //
 // What bounds the span kernel on an H100: bytes and latency. Each
 // (slot, head) must read its live K and V pages once and does 2*D
@@ -118,7 +120,7 @@ __device__ __forceinline__ float to_f32(int8_t x) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -407,8 +409,8 @@ __global__ void __launch_bounds__(SPAN_THREADS) ragged_span_kernel(
       float* pr = p_s + r * S;
       const float m_old = m_s[r], l_old = l_s[r];
       float mx = NEG_INF;
-      for (int c = lane; c < S; c += 32) mx = fmaxf(mx, pr[c]);
-      const float m_new = fmaxf(m_old, warp_max(mx));
+      for (int c = lane; c < S; c += 32) mx = nan_max(mx, pr[c]);
+      const float m_new = nan_max(m_old, warp_max(mx));
       const bool masked = m_new <= NEG_INF * 0.5f;
       float sum = 0.f;
       for (int c = lane; c < S; c += 32) {
@@ -692,7 +694,7 @@ __global__ void __launch_bounds__(DEC_THREADS) ragged_decode_kernel(
           dot = fmaf(q_s[d], to_f32(reinterpret_cast<const T*>(kr)[d]), dot);
         sc = dot * scale;
       }
-      const float m_new = fmaxf(m, warp_max(sc));
+      const float m_new = nan_max(m, warp_max(sc));
       const bool masked = m_new <= NEG_INF * 0.5f;
       const float e = masked ? 0.f : expf(sc - m_new);
       const float alpha = masked ? 1.f : expf(m - m_new);

@@ -15,8 +15,8 @@
 //
 // Semantics and layouts are ragged_attention.cu's: row j of slot b sees
 // keys < lengths[b] + j, masked scores are -1e30, a row whose running
-// maximum is still masked takes e = 0 and alpha = 1, the denominator is
-// clamped at 1e-30, dead rows and idle slots are exact zeros, and the
+// maximum is still masked takes e = 0 and alpha = 1 (a NaN maximum is
+// kept, `row_max_nan`), the denominator is clamped at 1e-30, dead rows and idle slots are exact zeros, and the
 // split over pages and its combine are span_split.cuh's. Exponentials
 // are ex2.approx of the log2e-scaled argument. Rounding of P, the A
 // operand of P.V: over bfloat16 pages P is rounded once to bfloat16, as
@@ -76,6 +76,22 @@ constexpr int BN = 64;        // keys of a tile
 constexpr int THREADS = 128;  // one warpgroup
 constexpr int STAGES = 3;     // key tiles in flight
 constexpr float LOG2E = 1.4426950408889634f;
+
+// wgmma.cuh's row_max with a NaN kept (nan_max, span_split.cuh): the
+// max over this thread's 16 elements of row half i, then over the four
+// threads that share the row.
+__device__ __forceinline__ float row_max_nan(const float (&x)[32], int i) {
+  float m[8];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+    m[nb] = nan_max(x[4 * nb + 2 * i], x[4 * nb + 2 * i + 1]);
+#pragma unroll
+  for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+    for (int nb = 0; nb < w; ++nb) m[nb] = nan_max(m[nb], m[nb + w]);
+  const float v = nan_max(m[0], __shfl_xor_sync(0xffffffffu, m[0], 1));
+  return nan_max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
 
 // Dynamic shared memory of one block (1024 bytes of alignment slack).
 __host__ __device__ constexpr size_t tc_smem_bytes(int DP, bool quant) {
@@ -286,7 +302,7 @@ __global__ void __launch_bounds__(THREADS) ragged_span_tc_kernel(
     float alpha[2], ms[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m_i[i], row_max(s, i));
+      const float m_new = nan_max(m_i[i], row_max_nan(s, i));
       const bool masked = m_new <= SPAN_NEG_INF * 0.5f;
       alpha[i] = masked ? 1.f : ex2((m_i[i] - m_new) * LOG2E);
       m_i[i] = m_new;

@@ -35,6 +35,16 @@ constexpr int SPAN_TILE = 64;     // query rows of a block, both kernels
 constexpr int SPAN_MAX_SPLITS = 16;
 constexpr float SPAN_NEG_INF = -1e30f;
 
+// The larger of a and b, NaN if either is: the running max of the online
+// softmax. fmaxf drops a NaN operand, so a row whose live scores in a
+// split's first page were all NaN (a poisoned key page) kept the masked
+// max and took e = 0 for them, a finite result that hid the NaN from the
+// serving engine's finite guard. With the NaN kept, every exponential
+// after it is NaN, and the row's output is NaN, as the plain version's.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
 struct SpanWork {
   int b, h, tile;      // tile = blockIdx.x, the counter's index
   int row0, row_end;   // live rows [row0, row_end) of the slot

@@ -5,10 +5,12 @@ from .convert import init_params, load_jax_params
 from .gpt2 import (AdapterBatch, GPT2Config, GPT2ForCausalLM, GPT2Model,
                    gpt2_774m_config, gpt2_medium_config, gpt2_small_config,
                    gpt2_xl_config)
-from .kv_cache import KVCache, PagedKVCache
+from .kv_cache import (KVCache, PagedKVCache, gather_kv_pages,
+                       scatter_kv_pages)
 
 __all__ = ["AdapterBatch", "BertConfig", "BertForMaskedLM", "BertModel", "GPT2Config",
            "GPT2ForCausalLM", "GPT2Model", "KVCache", "PagedKVCache",
            "bert_base_config", "bert_large_config",
            "gpt2_774m_config", "gpt2_medium_config", "gpt2_small_config",
-           "gpt2_xl_config", "init_params", "load_jax_params"]
+           "gpt2_xl_config", "init_params", "load_jax_params",
+           "gather_kv_pages", "scatter_kv_pages"]

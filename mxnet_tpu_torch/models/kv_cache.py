@@ -27,9 +27,16 @@ Differences from the JAX class, both deliberate:
     itself (JAX returns a new pytree); the serving engine owns the
     pools for its whole life, so nothing needs the old values.
 
+The host tier's whole-page moves are `gather_kv_pages` /
+`scatter_kv_pages`. The reference pads their index to one fixed width
+(page 0 for the gather, the out-of-range id num_pages for the scatter,
+whose rows XLA's mode="drop" discards) so that each stays one compiled
+program. Here the index holds the live page ids only: in the port id
+num_pages is the trash page, a real row, and eager torch has no program
+to keep.
+
 Not ported yet (they raise): the lockstep (scalar length) write and
-write_prompt, the contiguous KVCache, and the host tier's whole-page
-gather/scatter (gather_kv_pages / scatter_kv_pages).
+write_prompt, and the contiguous KVCache.
 """
 from __future__ import annotations
 
@@ -38,13 +45,46 @@ import torch
 
 from ..base import MXNetError, not_ported, resolve_device
 
-__all__ = ["KVCache", "PagedKVCache"]
+__all__ = ["KVCache", "PagedKVCache", "gather_kv_pages",
+           "scatter_kv_pages"]
 
 _ATTN_IMPLS = ("auto", "torch")
 
 
 def _host(x):
     return x.cpu() if torch.is_tensor(x) else x
+
+
+def gather_kv_pages(k_pages, v_pages, idx, k_scale=None, v_scale=None):
+    """Whole pages (rows of the page axis) out of paged pools: the host
+    tier's device-to-host read. idx: the page ids to take, a 1-D int
+    tensor or sequence. Returns (k, v, ks, vs): k/v (L, n, page_size, H,
+    D) copies, ks/vs (L, n, H) float32 scale rows (None on float
+    pools)."""
+    idx = torch.as_tensor(idx, dtype=torch.long, device=k_pages.device)
+    k = k_pages.index_select(1, idx)
+    v = v_pages.index_select(1, idx)
+    ks = None if k_scale is None else k_scale.index_select(1, idx)
+    vs = None if v_scale is None else v_scale.index_select(1, idx)
+    return k, v, ks, vs
+
+
+def scatter_kv_pages(k_pages, v_pages, idx, k_val, v_val, k_scale=None,
+                     v_scale=None, ks_val=None, vs_val=None):
+    """Whole pages back into paged pools, in place: the host tier's
+    page-in write (the inverse of gather_kv_pages). Values land
+    verbatim: int8 codes and their float32 scale rows exactly as
+    gathered, never re-quantized, which is what makes a paged-in page
+    read the bits a never-evicted one does. idx holds live page ids
+    only (no padding rows). Returns (k_pages, v_pages, k_scale,
+    v_scale)."""
+    idx = torch.as_tensor(idx, dtype=torch.long, device=k_pages.device)
+    k_pages.index_copy_(1, idx, k_val.to(k_pages.dtype))
+    v_pages.index_copy_(1, idx, v_val.to(v_pages.dtype))
+    if k_scale is not None and ks_val is not None:
+        k_scale.index_copy_(1, idx, ks_val)
+        v_scale.index_copy_(1, idx, vs_val)
+    return k_pages, v_pages, k_scale, v_scale
 
 
 class KVCache:

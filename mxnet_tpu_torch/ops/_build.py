@@ -9,6 +9,11 @@ builds what it needs, and `build_all()` builds every source at once, one
 a digest of their source, every `csrc/` header it includes (directly or
 through another header) and the flags, so an edited source or header is
 rebuilt and an unchanged one is reused.
+
+Every failure to build, load or launch a kernel raises `KernelError`.
+The serving engine's supervisor re-raises it (with torch's
+AcceleratorError) instead of retrying the dispatch: such a failure is
+the card's or the build's, never a request's.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "library_path"]
+__all__ = ["SOURCES", "BUILD_DIR", "KernelError", "build_all", "load",
+           "library_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -37,10 +43,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded = {}
 
 
+class KernelError(MXNetError):
+    """A kernel that does not build, load or launch."""
+
+
 def _nvcc():
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise MXNetError("nvcc not found: the CUDA toolkit is needed to "
+        raise KernelError("nvcc not found: the CUDA toolkit is needed to "
                          "build the port's kernels")
     return path
 
@@ -96,7 +106,7 @@ def build_all(names=None):
         else:
             os.replace(tmp, out)
     if failed:
-        raise MXNetError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     return logs
 
 
@@ -105,6 +115,10 @@ def load(name):
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        try:
+            lib = ctypes.CDLL(str(library_path(name)))
+        except OSError as e:
+            raise KernelError(f"kernel library {name} does not load: "
+                              f"{e}") from e
         _loaded[name] = lib
     return lib

@@ -339,8 +339,8 @@ class _FusedAttention(torch.autograd.Function):
                 _threshold(p_drop) if p_drop > 0.0 else 0,
                 int(p_drop > 0.0), int(causal), *dtype, _stream(q))
         if err:
-            raise MXNetError(f"fused_attention forward: kernel launch "
-                             f"failed (cudaError {err})")
+            raise _build.KernelError(f"fused_attention forward: kernel "
+                                     f"launch failed (cudaError {err})")
         LAUNCHES["fused_attention_fwd_tc" if tc else "fused_attention_fwd"] \
             += 1
         ctx.save_for_backward(q, k, v, o if o32 is None else o32, bias,
@@ -385,8 +385,8 @@ class _FusedAttention(torch.autograd.Function):
                 _threshold(p_drop) if p_drop > 0.0 else 0,
                 int(p_drop > 0.0), int(causal), *dtype, _stream(q))
         if err:
-            raise MXNetError(f"fused_attention backward: kernel launch "
-                             f"failed (cudaError {err})")
+            raise _build.KernelError(f"fused_attention backward: kernel "
+                                     f"launch failed (cudaError {err})")
         LAUNCHES["fused_attention_bwd_tc" if tc else "fused_attention_bwd"] \
             += 1
         return dq, dk, dv, None, None, None, None, None, None

@@ -515,7 +515,8 @@ def ragged_span_attention(q, k_pages, v_pages, page_table, lengths,
                  torch.cuda.current_stream(q.device).cuda_stream)
     key = span_launch_key(route, quant)
     if err:
-        raise MXNetError(f"{key}: kernel launch failed (cudaError {err})")
+        raise _build.KernelError(
+            f"{key}: kernel launch failed (cudaError {err})")
     LAUNCHES[key] += 1
     return out
 
@@ -559,6 +560,7 @@ def ragged_decode_attention(q, k_pages, v_pages, page_table, lengths,
             _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise MXNetError(f"{name}: kernel launch failed (cudaError {err})")
+        raise _build.KernelError(
+            f"{name}: kernel launch failed (cudaError {err})")
     LAUNCHES[name] += 1
     return out

@@ -1,8 +1,13 @@
-"""Continuous-batching serving (counterpart of mxnet_tpu.serving, core)."""
+"""Continuous-batching serving (counterpart of mxnet_tpu.serving: the
+engine, its pools and caches, the host KV tier and the robustness
+layer)."""
 from .adapters import (AdapterPool, AdapterPoolExhausted, merged_weights,
                        random_lora)
 from .engine import ServingEngine
+from .faults import FaultError, FaultPlan
+from .host_tier import HostPagePool
 from .page_pool import PagePool, PagePoolExhausted
+from .policy import SheddingPolicy
 from .prefix_cache import PrefixCache
 from .sampling import filtered_logits, sample_tokens
 from .scheduler import (TERMINAL_STATUSES, QueueFullError, RejectedError,
@@ -19,4 +24,5 @@ __all__ = ["ServingEngine", "PagePool", "PagePoolExhausted", "PrefixCache",
            "AdapterPool", "AdapterPoolExhausted", "merged_weights",
            "random_lora", "PromptLookupProposer", "verify_tokens",
            "QuantizedWeight", "build_weight_plan", "dequantize",
-           "pick_out_tile", "quantize_weight"]
+           "pick_out_tile", "quantize_weight", "FaultError", "FaultPlan",
+           "HostPagePool", "SheddingPolicy"]

@@ -42,29 +42,61 @@ nobody), and three options that ride the same (B, W) dispatch:
     slot is one more per-slot device scalar, and the forward adds each
     row's low-rank delta (serving/adapters.py).
 
-Not ported yet (constructor options raise, see _NOT_PORTED): tensor
-parallelism, the host KV tier, shedding policy, tenant quotas, the
-dispatch supervisor and its degraded mode (any other exception in an
-admission or a dispatch propagates), restarts and the replay of a
-request's recorded int8 write schedule, request deadlines,
-cancel/migration, streaming and telemetry.
+Robustness (as the reference's): step() is SUPERVISED. An exception
+in an admission or a dispatch rolls the implicated slots back (leases
+released, state parked), audits the page pool, requeues innocents with
+backoff and quarantines a request whose dispatches failed max_retries
+times (terminal "failed"). The one exception: a CUDA error
+(torch.AcceleratorError) or a kernel that does not build, load or
+launch (ops._build.KernelError) propagates, because retrying would hide
+the card's failure behind quarantined requests. A rolled-back request
+restarts by re-prefilling prompt + emitted tokens with its sampling
+counter resumed (on int8 pages by replaying its recorded write
+schedule), so its output is bit-identical to an uninterrupted run. A
+finite-logits guard computed in the dispatch (riding its one
+device-to-host copy) discards a slot whose logits went non-finite,
+scrubs its exclusive pages and re-prefills it. Requests carry deadlines
+(an expired queued request is shed, a running one cancelled with its
+partial output kept); a SheddingPolicy (serving/policy.py) sheds or
+down-prioritizes work at submit, latches degraded mode (speculation
+suspended) under sustained overload and, with the host tier, preempts
+the least urgent running request. tenant_quotas bound each tenant's
+queue and slots. The host KV tier (`host_kv_bytes`, needs the prefix
+cache) spills evicted prefix pages to host RAM through pinned memory
+and pages them back in on a radix hit, and carries the whole-request
+swap of a preempted request; a swap the tier dropped falls back to the
+restart path. Engine metrics are per-engine children of the port's
+telemetry instruments, under the reference's names; `stats` reads them.
+
+Not ported yet: tensor parallelism (tp, tp_devices raise), cancel /
+export / adopt / drain (the router's seams), streaming, and telemetry
+beyond the instruments (request timelines, flight-recorder dumps, SLO
+engines, statusz, the TTFT phase budget).
 """
 from __future__ import annotations
 
+import inspect
+import itertools
 import time
+from collections import deque
 
 import numpy as np
 import torch
 
-from ..analysis import loop_only
+from .. import telemetry
+from ..analysis import loop_only, thread_safe
 from ..base import MXNetError, not_ported, resolve_device
 from ..models.gpt2 import _DTYPES
-from ..models.kv_cache import PagedKVCache
+from ..models.kv_cache import (PagedKVCache, gather_kv_pages,
+                               scatter_kv_pages)
+from ..ops._build import KernelError
 from .adapters import AdapterPoolExhausted
+from .host_tier import HostPagePool
 from .page_pool import PagePool, PagePoolExhausted
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
-from .scheduler import QueueFullError, Request, SlotScheduler
+from .scheduler import (QueueFullError, Request, ShedError, SlotScheduler,
+                        TenantQuotaError)
 from .speculative import PromptLookupProposer, verify_tokens
 from .weight_quant import build_weight_plan
 
@@ -72,15 +104,147 @@ __all__ = ["ServingEngine"]
 
 # JAX-engine options this port does not cover yet, with the default that
 # means "off"; any other value raises
-_NOT_PORTED = {
-    "policy": None, "max_retries": 3, "host_kv_bytes": None, "tp": 1,
-    "tp_devices": None, "clock": None, "tenant_quotas": None,
-}
+_NOT_PORTED = {"tp": 1, "tp_devices": None}
 _KV_DTYPES = (None, "int8", torch.int8)
 
 # per-slot state mirrored on the device, in the order of the host arrays
 _SLOT_STATE = ("lengths", "cur_tok", "done", "remaining", "counters",
                "seeds", "temp", "top_k", "top_p", "do_sample", "eos")
+
+_engine_ids = itertools.count()
+_E = ("engine",)
+
+# the engine's instruments: stats key -> (kind, reference metric name,
+# help). Each engine registers labeled children (engine=<ordinal>) of
+# process-global instruments; `stats` reads this engine's children
+_METRICS = {
+    "prefills": ("c", "serving_prefill_total",
+                 "prompts fully prefilled (final chunk landed, first "
+                 "token sampled)"),
+    "prefill_chunks": ("c", "serving_prefill_chunks_total",
+                       "prompt chunks fed through the dispatch"),
+    "prefill_tokens": ("c", "serving_prefill_tokens_total",
+                       "prompt tokens computed by prefill chunks"),
+    "decode_dispatches": ("c", "serving_decode_dispatch_total",
+                          "dispatches run (one fixed-shape step each)"),
+    "tokens_emitted": ("c", "serving_tokens_emitted_total",
+                       "tokens sampled and handed to requests"),
+    "requests_finished": ("c", "serving_requests_finished_total",
+                          "requests completed (eos or budget)"),
+    "requests_rejected": ("c", "serving_requests_rejected_total",
+                          "submissions refused (queue full, shed, "
+                          "prompt too long)"),
+    "prefix_hits": ("c", "serving_prefix_cache_hits_total",
+                    "admissions whose prompt matched >= 1 cached page"),
+    "prefix_misses": ("c", "serving_prefix_cache_misses_total",
+                      "admissions with no cached prefix"),
+    "prefix_tokens_saved": ("c", "serving_prefix_tokens_saved_total",
+                            "prompt tokens attached from the cache"),
+    "spec_draft_tokens": ("c", "serving_spec_draft_tokens_total",
+                          "draft tokens proposed"),
+    "spec_accepted_tokens": ("c", "serving_spec_accepted_tokens_total",
+                             "draft tokens accepted and emitted"),
+    "spec_rollbacks": ("c", "serving_spec_rollbacks_total",
+                       "draft tokens rejected by verification"),
+    "adapter_page_ins": ("c", "serving_adapter_page_ins_total",
+                         "LoRA adapters paged into the device slab"),
+    "adapter_evictions": ("c", "serving_adapter_evictions_total",
+                          "resident LoRA adapters evicted"),
+    "dispatch_errors": ("c", "serving_dispatch_errors_total",
+                        "admission and dispatch faults the supervisor "
+                        "caught"),
+    "dispatch_retries": ("c", "serving_dispatch_retries_total",
+                         "requests requeued with backoff after a caught "
+                         "fault or a pool that ran dry"),
+    "requests_failed": ("c", "serving_requests_failed_total",
+                        "requests quarantined after max_retries failed "
+                        "dispatches"),
+    "kv_spill_pages": ("c", "serving_kv_spill_pages_total",
+                       "KV pages moved device -> host (prefix spills and "
+                       "preemption swaps)"),
+    "kv_spill_bytes": ("c", "serving_kv_spill_bytes_total",
+                       "bytes admitted to the host tier"),
+    "kv_pagein_pages": ("c", "serving_kv_pagein_pages_total",
+                        "KV pages restored host -> device"),
+    "kv_pagein_bytes": ("c", "serving_kv_pagein_bytes_total",
+                        "bytes read back from the host tier"),
+    "kv_host_evictions": ("c", "serving_kv_host_evictions_total",
+                          "spilled payloads the host tier dropped"),
+    "preempts": ("c", "serving_preempt_total",
+                 "running requests preempted for more urgent work"),
+    "preempt_resumed": ("c", "serving_preempt_resumed_total",
+                        "preempted requests resumed from their swap"),
+    "preempt_restarted": ("c", "serving_preempt_restarted_total",
+                          "preempted requests that fell back to the "
+                          "restart path"),
+    "overload_level": ("g", "serving_overload_level",
+                       "shedding-policy level: 0 ok, 1 elevated, 2 "
+                       "overloaded"),
+    "degraded": ("g", "serving_degraded",
+                 "1 while the engine is degraded (speculation off)"),
+    "retry_after": ("g", "serving_retry_after_seconds",
+                    "drain-rate estimate attached to rejections"),
+    "kv_host_pages": ("g", "serving_kv_host_pages",
+                      "payload entries in the host tier"),
+    "kv_host_bytes": ("g", "serving_kv_host_bytes",
+                      "host-RAM bytes the tier holds"),
+    "prefix_resident_pages": ("g", "serving_prefix_resident_pages",
+                              "radix-tree nodes with a device page"),
+    "prefix_spilled_pages": ("g", "serving_prefix_spilled_pages",
+                             "radix-tree nodes whose payload is on the "
+                             "host"),
+    "ttft": ("h", "serving_ttft_seconds",
+             "submit -> first token (queue wait + prefill)"),
+    "kv_spill_seconds": ("h", "serving_kv_spill_seconds",
+                         "wall time of one spill (page gather + host "
+                         "copy)"),
+    "kv_pagein_seconds": ("h", "serving_kv_pagein_seconds",
+                          "wall time of one page-in (host read + page "
+                          "scatter)"),
+}
+
+
+def _engine_metrics(eid):
+    make = {"c": telemetry.counter, "g": telemetry.gauge,
+            "h": telemetry.histogram}
+    m = {key: make[kind](name, help, _E).labels(eid)
+         for key, (kind, name, help) in _METRICS.items()}
+    _shed_family()
+    _tenant_families()
+    return m
+
+
+def _shed_family():
+    return telemetry.counter(
+        "serving_shed_total",
+        "requests shed by the robustness layer, by reason (queue_full, "
+        "overload, deadline, deadline_queued, deadline_running, "
+        "tenant_quota, tenant_share) and priority class",
+        ("engine", "reason", "priority"))
+
+
+def _tenant_families():
+    return {
+        "admitted": telemetry.counter(
+            "serving_tenant_admitted_total",
+            "requests admitted to a slot, by tenant", ("engine", "tenant")),
+        "shed": telemetry.counter(
+            "serving_tenant_shed_total",
+            "requests shed or rejected, by tenant and reason",
+            ("engine", "tenant", "reason")),
+    }
+
+
+def _fatal(exc):
+    """Errors the supervisor must not retry: the card's (a sticky CUDA
+    error poisons the context) and a kernel that does not build, load
+    or launch."""
+    if isinstance(exc, KernelError):
+        return True
+    acc = getattr(torch, "AcceleratorError", None)
+    if acc is not None and isinstance(exc, acc):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
 
 
 class ServingEngine:
@@ -107,6 +271,14 @@ class ServingEngine:
     dry. device: default the CUDA card (raises without one); it must be
     the model's device.
 
+    Robustness: max_retries failed dispatches quarantine a request;
+    retry_backoff_s is the base of a blamed request's exponential
+    backoff. clock: the engine's time source (default time.perf_counter;
+    tests inject a tick clock so deadlines and backoff are
+    deterministic). policy: a SheddingPolicy. tenant_quotas: {tenant:
+    TenantQuota} for the scheduler. host_kv_bytes: the host RAM the KV
+    spill tier may hold (needs prefix_cache=True).
+
     speculative: prompt-lookup speculative decoding; spec_tokens (>= 2)
     positions a decoding slot feeds per dispatch (the current token and
     up to spec_tokens - 1 drafts; the width becomes W = max(chunk_tokens,
@@ -129,7 +301,8 @@ class ServingEngine:
                  speculative=False, spec_tokens=4, spec_max_ngram=3,
                  spec_min_ngram=1, weight_dtype=None,
                  hbm_budget_includes_weights=False, adapter_pool=None,
-                 **options):
+                 policy=None, max_retries=3, clock=None, tenant_quotas=None,
+                 host_kv_bytes=None, **options):
         for key, value in options.items():
             if key not in _NOT_PORTED:
                 raise TypeError(f"ServingEngine() got an unexpected "
@@ -184,7 +357,24 @@ class ServingEngine:
         self._width = max(self.chunk_tokens,
                           self.spec_tokens if self.speculative else 0, 2)
         self.scheduler = SlotScheduler(B, max_queue=max_queue,
-                                       num_priorities=num_priorities)
+                                       num_priorities=num_priorities,
+                                       tenant_quotas=tenant_quotas)
+        # the robustness layer: retry budget and backoff, the optional
+        # shedding policy, an injectable clock (default perf_counter)
+        self.policy = policy
+        self.max_retries = int(max_retries)
+        if self.max_retries < 1:
+            raise MXNetError("max_retries must be >= 1")
+        self._clock = clock if clock is not None else time.perf_counter
+        self._degraded = False
+        self._finish_times = deque(maxlen=64)   # drain-rate window
+        # extra lease rows audit_pages() accounts for (the fault harness
+        # registers the pages it holds here)
+        self.audit_extra_leases = []
+        # called at the top of every step and before every prefill and
+        # decode dispatch (serving/faults.py installs into it)
+        self.dispatch_hook = None
+        self._hook_kw_cache = None
 
         self._w8_plan = self._quantize_weights(weight_dtype)
         self.weight_bytes = self._served_weight_bytes()
@@ -262,6 +452,27 @@ class ServingEngine:
                                         budget_pages=extra) \
             if prefix_cache else None
         self.retry_backoff_s = float(retry_backoff_s)
+        # the host-RAM KV tier: an evicted prefix page spills its payload
+        # (codes and int8 scale rows) instead of vanishing, a radix hit
+        # on a spilled node pages it back in, and preemption swaps whole
+        # requests out through the same tier
+        self._host_kv_bytes = None if host_kv_bytes is None \
+            else int(host_kv_bytes)
+        self.host_pool = None
+        if self._host_kv_bytes is not None:
+            if self.prefix_cache is None:
+                raise MXNetError("host_kv_bytes needs prefix_cache=True "
+                                 "— the spill tier is keyed by radix "
+                                 "nodes")
+            self.host_pool = HostPagePool(self._host_kv_bytes,
+                                          evict_cb=self._host_evict)
+            self.prefix_cache.evict_hook = self._spill_node
+            self.prefix_cache.pagein_hook = self._pagein_nodes
+        # one staging block for tier copies (pinned on the card, grown
+        # to the largest batch of pages moved, at most one slot's), and
+        # the event of the last host-to-device copy out of it
+        self._stage = None
+        self._stage_event = None
 
         # host copies of the per-slot state. Unmapped slots park at
         # length == max_length: a stray write of theirs falls off the
@@ -287,21 +498,27 @@ class ServingEngine:
         # prompt (None = no prefill work), drained chunk_tokens at a time
         # under prefill_chunk_budget from a rotating slot cursor
         self._pending = [None] * B
+        # tokens a slot's request had emitted when it was (re)admitted
+        self._base = np.zeros(B, np.int32)
+        # int8 restart replay: the exact chunk sizes a re-prefilling
+        # slot must feed (a deque; None = the natural chunk grid). Page
+        # scales make deep-layer codes depend on chunk boundaries, so
+        # only the recorded write schedule continues bit-identically
+        self._replay = [None] * B
         self._chunk_rr = 0
         self._dstate = {name: self._upload(getattr(self, "_" + name))
                         for name in self._slot_state}
         self._dstate["table"] = self._upload(self._table_host)
         self._d_lock = self._upload(self._page_lock_host())
-        self.stats = {"prefills": 0, "prefill_chunks": 0,
-                      "prefill_tokens": 0, "decode_dispatches": 0,
-                      "tokens_emitted": 0, "requests_finished": 0,
-                      "prefix_hits": 0, "prefix_misses": 0,
-                      "prefix_tokens_saved": 0, "dispatch_retries": 0,
-                      "spec_draft_tokens": 0, "spec_accepted_tokens": 0,
-                      "spec_rollbacks": 0, "adapter_page_ins": 0,
-                      "adapter_evictions": 0,
-                      "weight_bytes_int8": self.weight_bytes["int8"],
-                      "weight_bytes_float32": self.weight_bytes["float32"]}
+        self._eid = str(next(_engine_ids))
+        self._metrics = _engine_metrics(self._eid)
+        self._shed = _shed_family()
+        self._shed_children = {}   # (reason, priority) -> labeled child
+        self._shed_counts = {}     # the same keys, host side
+        self._tenant_fams = _tenant_families()
+        self._tenant_children = {}
+        self._tenant_shed_counts = {}   # (tenant, reason) -> n
+        self._host_evictions_seen = 0
 
     def _quantize_weights(self, weight_dtype):
         """w8: quantize the model's megatron column/row dense weights in
@@ -336,32 +553,176 @@ class ServingEngine:
     def _upload(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
 
+    # -- telemetry ----------------------------------------------------------
+    @property
+    def stats(self):
+        """This engine's counters and gauges as a plain dict (a live read
+        of its telemetry children, the reference's keys)."""
+        self._set_pool_gauges()
+        out = {key: int(self._metrics[key].value)
+               for key, (kind, _, _) in _METRICS.items()
+               if kind != "h" and key != "retry_after"}
+        out["shed"] = sum(self._shed_counts.values())
+        out["weight_bytes_int8"] = self.weight_bytes["int8"]
+        out["weight_bytes_float32"] = self.weight_bytes["float32"]
+        return out
+
+    def reset_stats(self):
+        """Zero this engine's telemetry children (other engines and the
+        rest of the registry are untouched)."""
+        for inst in self._metrics.values():
+            inst.reset()
+        for child in (list(self._shed_children.values())
+                      + list(self._tenant_children.values())):
+            child.reset()
+        self._shed_counts = {}
+        self._tenant_shed_counts = {}
+
+    def tenant_stats(self):
+        """Per-tenant occupancy and lifetime accounting: the scheduler's
+        queued/active/admitted/quota view plus this engine's shed counts
+        split by tenant. Keys are stringified tenant ids."""
+        out = self.scheduler.tenants_snapshot()
+        for (tenant, reason), n in sorted(self._tenant_shed_counts.items(),
+                                          key=repr):
+            row = out.setdefault(str(tenant), {})
+            row.setdefault("shed", {})[reason] = n
+        return out
+
+    def _shed_inc(self, reason, priority, tenant=None):
+        key = (reason, int(priority))
+        child = self._shed_children.get(key)
+        if child is None:
+            child = self._shed.labels(self._eid, reason, str(priority))
+            self._shed_children[key] = child
+        child.inc()
+        self._shed_counts[key] = self._shed_counts.get(key, 0) + 1
+        if tenant is not None:
+            self._tenant_child("shed", tenant, reason).inc()
+            tk = (tenant, reason)
+            self._tenant_shed_counts[tk] = \
+                self._tenant_shed_counts.get(tk, 0) + 1
+
+    def _tenant_child(self, family, tenant, reason=None):
+        key = (family, tenant) if reason is None \
+            else (family, tenant, reason)
+        child = self._tenant_children.get(key)
+        if child is None:
+            fam = self._tenant_fams[family]
+            child = fam.labels(self._eid, str(tenant)) if reason is None \
+                else fam.labels(self._eid, str(tenant), reason)
+            self._tenant_children[key] = child
+        return child
+
+    def _set_pool_gauges(self):
+        m = self._metrics
+        pc = self.prefix_cache
+        if pc is not None:
+            m["prefix_resident_pages"].set(pc.num_resident)
+            m["prefix_spilled_pages"].set(pc.num_spilled)
+        hp = self.host_pool
+        if hp is not None:
+            m["kv_host_pages"].set(hp.num_entries)
+            m["kv_host_bytes"].set(hp.bytes_used)
+            delta = hp.evictions - self._host_evictions_seen
+            if delta:
+                m["kv_host_evictions"].inc(delta)
+                self._host_evictions_seen = hp.evictions
+
+    # -- admission control --------------------------------------------------
+    def _drain_rate(self):
+        """Recent finishes per second (None until two finishes land in
+        the window): the denominator of every retry-after estimate."""
+        ft = self._finish_times
+        if len(ft) < 2:
+            return None
+        dt = ft[-1] - ft[0]
+        if dt <= 0:
+            return None
+        return (len(ft) - 1) / dt
+
+    def estimated_queue_wait(self):
+        """Seconds until the current backlog would drain at the recent
+        finish rate (None without a drain history): the retry-after
+        estimate rejections carry and the policy's deadline signal."""
+        rate = self._drain_rate()
+        if rate is None:
+            return None
+        return self.scheduler.num_queued / rate
+
+    def _reject(self, request, reason, cause=None):
+        """Common rejection tail: count, then raise (the scheduler's
+        QueueFullError enriched in place, or a fresh ShedError)."""
+        depth = self.scheduler.num_queued
+        active = self.scheduler.num_active
+        wait = self.estimated_queue_wait()
+        if wait is not None:
+            self._metrics["retry_after"].set(wait)
+        request.status = "shed"
+        self._metrics["requests_rejected"].inc()
+        self._shed_inc(reason, request.priority, request.tenant)
+        suffix = (f" [queue_depth={depth}, active_slots={active}"
+                  + (f", retry_after~{wait:.3f}s" if wait is not None
+                     else "") + "]")
+        if cause is not None:
+            cause.queue_depth = depth
+            cause.active_slots = active
+            cause.retry_after_s = wait
+            cause.args = (str(cause.args[0]) + suffix,)
+            raise cause
+        raise ShedError(
+            f"request {request.id} shed ({reason})" + suffix,
+            reason=reason, queue_depth=depth, active_slots=active,
+            retry_after_s=wait, priority=request.priority)
+
+    def _set_degraded(self, on, reason="overload"):
+        """Latch or clear degraded mode: speculation is suspended (the
+        dispatch feeds no drafts) while the engine is overloaded."""
+        on = bool(on)
+        if on == self._degraded:
+            return
+        self._degraded = on
+        self._metrics["degraded"].set(int(on))
+
     # -- public API --------------------------------------------------------
     @loop_only
     def submit(self, request):
-        """Queue a Request. An over-long prompt raises; a full admission
-        queue raises QueueFullError with request.status == "shed"."""
+        """Queue a Request. An over-long prompt or an unknown adapter
+        raises MXNetError; a full queue raises QueueFullError (a tenant
+        over its quota TenantQuotaError) and a policy shed ShedError,
+        with request.status == "shed" and the rejection counted."""
         if request.prompt_len > self.max_length:
+            self._metrics["requests_rejected"].inc()
             raise MXNetError(
                 f"prompt of {request.prompt_len} tokens exceeds slot "
                 f"capacity {self.max_length}")
         if request.adapter_id not in (None, 0):
             pool = self.adapter_pool
             if pool is None or not pool.has(request.adapter_id):
+                self._metrics["requests_rejected"].inc()
                 raise MXNetError(
                     f"adapter {request.adapter_id!r} is not registered "
                     + ("(engine has no adapter pool)" if pool is None
                        else "with this engine's adapter pool"))
-        if request.deadline_ms is not None:
-            raise not_ported("request deadlines (Request.deadline_ms)")
-        request.t_submit = time.perf_counter()
+        now = self._clock()
+        request.t_submit = now
+        request.t_deadline = None if request.deadline_ms is None \
+            else now + request.deadline_ms / 1e3
         request.output_tokens = []
+        request.dispatch_failures = 0
+        request.t_not_before = 0.0
+        if self.policy is not None:
+            action, reason = self.policy.on_submit(self, request, now)
+            if action == "shed":
+                self._reject(request, reason)
         try:
             out = self.scheduler.submit(request)
-        except QueueFullError:
-            request.status = "shed"
-            raise
+        except QueueFullError as e:
+            self._reject(request,
+                         "tenant_quota" if isinstance(e, TenantQuotaError)
+                         else "queue_full", cause=e)
         request.status = "queued"
+        request.t_enqueue = now
         return out
 
     @property
@@ -370,28 +731,63 @@ class ServingEngine:
 
     @loop_only
     def step(self):
-        """One scheduling round: admit free slots (queue their prompt
-        chunks), run ONE dispatch, free finished slots. An admission the
-        page pool cannot serve is rolled back and requeued (backpressure:
-        pages drain as slots finish); any other exception propagates.
-        Returns the requests that finished this round."""
-        for slot, req in self.scheduler.admit(time.perf_counter()):
+        """One SUPERVISED scheduling round: shed queued requests past
+        their deadline, cancel running ones past theirs, admit free slots
+        (queue their prompt chunks), let the policy assess (and preempt),
+        run ONE dispatch, free finished slots. An admission or dispatch
+        exception is caught and rolled back (see the module docstring);
+        CUDA and kernel errors propagate. Returns the requests that
+        reached a terminal state this round."""
+        now = self._clock()
+        self._fire_hook("step")
+        finished = []
+        for req in self.scheduler.pop_expired(now):
+            finished.append(self._shed_expired(req))
+        for slot in list(self.scheduler.active_slots):
+            req = self.scheduler.request_at(slot)
+            if req.t_deadline is not None and now >= req.t_deadline:
+                finished.append(self._deadline_cancel(slot))
+        for slot, req in self.scheduler.admit(now):
             try:
                 self._admit(slot, req)
-            except (PagePoolExhausted, AdapterPoolExhausted):
-                self._requeue_admission(slot, req)
-        if not self.scheduler.num_active:
-            return []
-        return self._dispatch()
+            except Exception as e:          # noqa: BLE001 — supervisor
+                if _fatal(e):
+                    raise
+                q = self._on_admit_fault(slot, req, e)
+                if q is not None:
+                    finished.append(q)
+        if self.policy is not None:
+            # assess after admission: the level reflects the backlog this
+            # dispatch leaves queued
+            self.policy.on_step(self, now)
+            if self.host_pool is not None \
+                    and hasattr(self.policy, "preempt_victim"):
+                victim = self.policy.preempt_victim(self)
+                if victim is not None:
+                    self._preempt_slot(victim)
+        if self.scheduler.num_active:
+            try:
+                finished.extend(self._dispatch())
+            except Exception as e:          # noqa: BLE001 — supervisor
+                if _fatal(e):
+                    raise
+                finished.extend(self._on_decode_fault(e))
+        return finished
 
+    @thread_safe
     def audit_pages(self, raise_on_error=False):
         """Page-pool invariant audit with this engine's lease map: every
-        mapped slot's table row, the prefix cache's member pages, and
-        (int8 pools) each page's largest scale, which must be finite and
-        >= 0; with an adapter pool also its audit against the slots'
-        pinned adapters. Returns the violation list ([] = clean)."""
+        mapped slot's table row, the fault harness's held rows, the
+        prefix cache's member pages, (int8 pools) each page's largest
+        scale, which must be finite and >= 0, and with the host tier the
+        cross-tier check: the tier's node keys equal the tree's spilled
+        keypaths, every swap payload belongs to a queued preempted
+        request, and the tier's byte accounting balances. With an
+        adapter pool also its audit. Returns the violation list ([] =
+        clean)."""
         leases = [self._table_host[s] for s in range(self.num_slots)
                   if self._mapped[s]]
+        leases.extend(self.audit_extra_leases)
         members = ()
         if self.prefix_cache is not None:
             members = np.nonzero(self.prefix_cache.member_mask())[0]
@@ -403,14 +799,45 @@ class ServingEngine:
             scales = torch.maximum(
                 self._ks[:, :N].abs().amax(dim=(0, 2)),
                 self._vs[:, :N].abs().amax(dim=(0, 2))).cpu().numpy()
+        host_keys = spilled_keys = None
+        extra = []
+        if self.host_pool is not None:
+            spilled_keys = set(self.prefix_cache.spilled_keypaths())
+            swaps = {("req", r.id)
+                     for r in self.scheduler.queued_requests()
+                     if getattr(r, "swap", None) is not None
+                     and r.swap.get("key") is not None}
+            host_keys = set()
+            for key in self.host_pool.keys():
+                kind = key[0] if isinstance(key, tuple) and key else None
+                if kind == "node":
+                    host_keys.add(key[1])
+                elif kind == "req":
+                    if key not in swaps:
+                        extra.append(
+                            f"host tier holds swap payload {key!r} "
+                            "with no queued preempted request (leaked)")
+                else:
+                    extra.append(f"host tier holds unknown key {key!r}")
+            extra.extend(self.host_pool.audit())
         out = self.page_pool.audit(leases=leases, members=members,
-                                   scales=scales)
-        if self.adapter_pool is not None:
-            out += self.adapter_pool.audit(
-                assignments=[a for a in self._adapter_of if a is not None])
+                                   scales=scales, host_keys=host_keys,
+                                   spilled_keys=spilled_keys)
+        out.extend(extra)
+        out += self.audit_adapters()
         if out and raise_on_error:
             raise MXNetError("page pool audit failed: " + "; ".join(out))
         return out
+
+    @thread_safe
+    def audit_adapters(self, raise_on_error=False):
+        """Adapter-pool audit against the slots' pinned adapters ([]
+        without a pool)."""
+        if self.adapter_pool is None:
+            return []
+        return self.adapter_pool.audit(
+            assignments=[a for a in self._adapter_of if a is not None],
+            raise_on_error=raise_on_error)
 
     def admission_capacity_estimate(self):
         """Concurrent requests the page pool supports now: the slots in
@@ -427,13 +854,14 @@ class ServingEngine:
     @loop_only
     def serve(self, requests=()):
         """Submit `requests`, run until the queue and every slot drain,
-        and return every terminal request in submission order (finished,
-        or shed by a full queue)."""
+        and return every terminal request in submission order: finished,
+        shed (at submit or by a deadline), deadline-cancelled or
+        quarantined (check `.status`)."""
         done = []
         for r in requests:
             try:
                 self.submit(r)
-            except QueueFullError:
+            except (QueueFullError, ShedError):
                 done.append(r)
         while self.has_work:
             done.extend(self.step())
@@ -446,6 +874,181 @@ class ServingEngine:
         reqs = [Request(p, max_new_tokens, **request_kw) for p in prompts]
         self.serve(reqs)
         return [r.output_tokens for r in reqs]
+
+    # -- dispatch hook -------------------------------------------------------
+    def _hook_takes_phase(self, hook):
+        """A hook that takes phase=/requests= keywords (or **kw) fires at
+        every prefill and decode boundary too; one taking (engine) only
+        at the top of each step. Read once per hook from its
+        signature."""
+        cached = self._hook_kw_cache
+        if cached is not None and cached[0] is hook:
+            return cached[1]
+        try:
+            params = inspect.signature(hook).parameters
+            takes = any(p.kind is inspect.Parameter.VAR_KEYWORD
+                        or name in ("phase", "requests")
+                        for name, p in params.items())
+        except (TypeError, ValueError):
+            takes = False
+        self._hook_kw_cache = (hook, takes)
+        return takes
+
+    def _fire_hook(self, phase, requests=()):
+        hook = self.dispatch_hook
+        if hook is None:
+            return
+        if self._hook_takes_phase(hook):
+            hook(self, phase=phase, requests=tuple(requests))
+        elif phase == "step":
+            hook(self)
+
+    # -- deadlines ----------------------------------------------------------
+    def _shed_expired(self, req):
+        """A queued request whose deadline passed before admission:
+        terminal "shed" (reason deadline), no tokens produced."""
+        self._drop_swap(req)
+        req.status = "shed"
+        req.t_finish = self._clock()
+        self._shed_inc("deadline_queued", req.priority, req.tenant)
+        return req
+
+    def _deadline_cancel(self, slot):
+        """A running request past its deadline, cancelled at the dispatch
+        boundary: slot and leases released, the tokens it emitted kept;
+        terminal "deadline"."""
+        req = self._release_slot(slot)
+        req.status = "deadline"
+        self._shed_inc("deadline_running", req.priority, req.tenant)
+        return req
+
+    # -- fault supervision ----------------------------------------------------
+    def _audit_and_latch(self, phase, exc):
+        """Post-fault integrity check while the implicated slots still
+        hold their leases: the page and adapter audits. Returns the
+        violations (normally none). The reference also latches a
+        flight-recorder dump here; the recorder is not ported yet."""
+        return self.audit_pages()
+
+    def _quarantine(self, req, error):
+        """Terminal failure after max_retries blamed faults: "failed";
+        the engine keeps serving everyone else."""
+        self._drop_swap(req)
+        req.status = "failed"
+        req.t_finish = self._clock()
+        self._metrics["requests_failed"].inc()
+        return req
+
+    def _requeue(self, req, now, blamed, error=""):
+        """Roll one request back to the queue after a caught fault. A
+        blamed request carries the failure: exponential backoff,
+        probation (the scheduler retries it alone), quarantine at
+        max_retries. Innocents requeue after one flat backoff; their
+        emitted tokens ride along and the restart keeps their output
+        bit-identical. Returns the quarantined Request, else None."""
+        if blamed:
+            req.dispatch_failures += 1
+            if req.dispatch_failures >= self.max_retries:
+                return self._quarantine(req, error)
+            backoff = self.retry_backoff_s * (
+                2 ** (req.dispatch_failures - 1))
+        else:
+            backoff = self.retry_backoff_s
+        req.t_not_before = now + backoff
+        req.t_enqueue = now
+        self._metrics["dispatch_retries"].inc()
+        self.scheduler.requeue(req)
+        req.status = "queued"
+        return None
+
+    def _on_admit_fault(self, slot, req, exc):
+        """A failed admission: roll the slot back (scheduler slot, page
+        leases, adapter pin, parked state) and requeue the request. A
+        pool that ran dry is backpressure (pages drain as slots finish):
+        nobody is blamed; anything else counts against the request's
+        retry budget. Returns the quarantined Request, or None."""
+        now = self._clock()
+        self._metrics["dispatch_errors"].inc()
+        backpressure = isinstance(exc, (PagePoolExhausted,
+                                        AdapterPoolExhausted))
+        self.scheduler.release(slot)
+        self._free_slot_pages(slot)
+        self._release_adapter(slot)
+        self._pending[slot] = None
+        self._replay[slot] = None
+        self._done[slot] = True
+        self._remaining[slot] = 0
+        self._lengths[slot] = self.max_length
+        self._sync_slot(slot)
+        if not backpressure:
+            self._audit_and_latch("prefill", exc)
+        return self._requeue(req, now, blamed=not backpressure,
+                             error=str(exc))
+
+    def _on_decode_fault(self, exc):
+        """A failed dispatch: audit while the batch's leases are mapped,
+        then roll every active slot back. With probationers (requests
+        with earlier failures) in the batch only they are blamed, so
+        repeat faults converge on the poison request; a first fault
+        blames the whole batch. Returns the requests quarantined."""
+        now = self._clock()
+        self._metrics["dispatch_errors"].inc()
+        self._audit_and_latch("decode", exc)
+        active = [(slot, self.scheduler.request_at(slot))
+                  for slot in self.scheduler.active_slots]
+        probationers = {id(r) for _, r in active if r.dispatch_failures > 0}
+        blame_all = not probationers
+        quarantined = []
+        # reversed + the requeue's appendleft restores admission order
+        for slot, req in reversed(active):
+            self._release_slot(slot)
+            q = self._requeue(req, now,
+                              blamed=blame_all or id(req) in probationers,
+                              error=str(exc))
+            if q is not None:
+                quarantined.append(q)
+        return quarantined
+
+    def _scrub_slot_pages(self, slot):
+        """Zero the KV of the slot's exclusive, non-tree pages (the only
+        pages a poisoned write can live in), and on int8 pools their
+        scales, before the leases are released: a recycled page must not
+        carry NaN into its next owner's reads."""
+        if not self._mapped[slot]:
+            return
+        ref = self.page_pool.refcounts()
+        member = self.prefix_cache.member_mask() \
+            if self.prefix_cache is not None else None
+        pages = [int(p) for p in self._table_host[slot]
+                 if ref[int(p)] == 1
+                 and (member is None or not member[int(p)])]
+        if not pages:
+            return
+        idx = torch.as_tensor(pages, device=self.device)
+        self._kp[:, idx] = 0
+        self._vp[:, idx] = 0
+        if self._quant:
+            self._ks[:, idx] = 0.0
+            self._vs[:, idx] = 0.0
+
+    def _on_bad_slots(self, bad, exc_msg):
+        """Slots whose dispatch gave non-finite logits (the finite
+        guard): their tokens of this dispatch are already discarded;
+        scrub their exclusive pages and roll them back blamed. Finite
+        co-batched slots keep their tokens. Returns the requests
+        quarantined."""
+        now = self._clock()
+        self._metrics["dispatch_errors"].inc()
+        self._audit_and_latch("decode_nonfinite", MXNetError(exc_msg))
+        quarantined = []
+        for slot in reversed(bad):
+            req = self.scheduler.request_at(slot)
+            self._scrub_slot_pages(slot)
+            self._release_slot(slot)
+            q = self._requeue(req, now, blamed=True, error=exc_msg)
+            if q is not None:
+                quarantined.append(q)
+        return quarantined
 
     # -- slots and pages ---------------------------------------------------
     def _sync_slot(self, slot):
@@ -466,41 +1069,50 @@ class ServingEngine:
             lock |= self.prefix_cache.member_mask()
         return lock
 
-    def _map_slot_pages(self, slot, tokens):
-        """Page-table surgery for an admission: longest-prefix match
-        against the prefix cache, the copy-on-write split when the whole
-        prompt is cached, fresh exclusive pages for the rest. Returns
-        the prefix offset (tokens not recomputed; prefill starts there).
-        An allocation failure releases every lease the match took before
-        it propagates."""
+    def _zero_scales(self, pages):
+        """int8 pools: recycled pages start from scale 0, or the
+        monotone update would inherit an old owner's scale."""
+        if self._quant and pages:
+            idx = torch.as_tensor(pages, device=self.device)
+            self._ks[:, idx] = 0.0
+            self._vs[:, idx] = 0.0
+
+    def _map_slot_pages(self, slot, tokens, match=True):
+        """Page-table surgery for an admission (`tokens`: the prompt,
+        plus the emitted tokens of a restart): longest-prefix match
+        against the prefix cache (paging spilled nodes back in), the
+        copy-on-write split when the whole sequence is cached, fresh
+        exclusive pages for the rest. Returns the prefix offset (tokens
+        not recomputed; prefill starts there). An allocation failure
+        releases every lease the match took before it propagates.
+        match=False skips the lookup (an int8 restart recomputes every
+        position to replay its write schedule)."""
         S, P = self.page_size, self._pages_per_slot
         Tp = int(tokens.size)
         pc = self.prefix_cache
-        matched = pc.match(tokens) if pc is not None else []
+        matched = pc.match(tokens) if (pc is not None and match) else []
         leased = list(matched)
         cow_src = None
         if matched and len(matched) * S >= Tp:
-            # fully cached (page-aligned) prompt: its last token must run
-            # through the model for its logits, which rewrites position
-            # Tp - 1 inside the last cached page. Re-home that page to an
-            # exclusive copy; the other matched pages stay shared
+            # fully cached (page-aligned) sequence: its last token must
+            # run through the model for its logits, which rewrites
+            # position Tp - 1 inside the last cached page. Re-home that
+            # page to an exclusive copy; the other matched pages stay
+            # shared
             cow_src = matched.pop()
         need = P - len(matched)
         try:
             if pc is not None and self.page_pool.num_free < need:
-                pc.reclaim(need)       # LRU-evict idle cached prefixes
+                pc.reclaim(need)       # LRU-evict (or spill) idle prefixes
             fresh = self.page_pool.alloc(need)
         except Exception:
             if pc is not None and leased:
                 pc.release(leased)
             raise
-        if self._quant and fresh:
-            # recycled pages start from scale 0, or the monotone update
-            # would inherit an old owner's scale; before any CoW copy,
-            # which then stamps the source page's scales over the zeros
-            idx = torch.as_tensor(fresh, device=self.device)
-            self._ks[:, idx] = 0.0
-            self._vs[:, idx] = 0.0
+        # before any CoW copy, which then stamps the source page's scales
+        # over the zeros. Pages the match paged in are in `matched`,
+        # never in `fresh`: their restored scales are not reset
+        self._zero_scales(fresh)
         if cow_src is not None:
             dst = fresh[0]             # lands at row index len(matched)
             for pool in (self._kp, self._vp) + (
@@ -524,67 +1136,324 @@ class ServingEngine:
             self.page_pool.free(self.page_pool.decref(row))
         self._mapped[slot] = False
 
-    def _requeue_admission(self, slot, req):
-        """Backpressure: the pool could not map this admission. Roll the
-        slot back (scheduler slot, any leases, parked state) and put the
-        request back at the front of its class after retry_backoff_s."""
-        now = time.perf_counter()
-        self.scheduler.release(slot)
-        self._free_slot_pages(slot)
-        self._release_adapter(slot)
-        self._pending[slot] = None
-        self._done[slot] = True
-        self._remaining[slot] = 0
-        self._lengths[slot] = self.max_length
-        self._sync_slot(slot)
-        req.t_not_before = now + self.retry_backoff_s
-        req.t_enqueue = now
-        self.stats["dispatch_retries"] += 1
+    # -- the host KV tier -----------------------------------------------------
+    def _staging(self, n):
+        """The tier's host staging block, viewed as (k, v, ks, vs) of n
+        pages each: page slabs (L, n, S, H, D) in the pools' dtype,
+        scale rows (L, n, H) float32 (None on float pools). One block
+        per engine, pinned on the card (a pinned allocation costs far
+        more than the copy it serves), grown to the largest n asked."""
+        L, _, S, H, D = self._kp.shape
+        if self._stage is None or self._stage[0] < n:
+            pin = self.device.type == "cuda"
+            if self._stage_event is not None:
+                self._stage_event.synchronize()
+            page = L * S * H * D
+            kv = torch.empty(2 * n * page, dtype=self._kp.dtype,
+                             pin_memory=pin)
+            sc = torch.empty(2 * n * L * H, dtype=torch.float32,
+                             pin_memory=pin) if self._quant else None
+            self._stage = (n, kv, sc)
+        _, kv, sc = self._stage
+        page = L * S * H * D
+        k = kv[:n * page].view(L, n, S, H, D)
+        v = kv[n * page:2 * n * page].view(L, n, S, H, D)
+        ks = vs = None
+        if sc is not None:
+            ks = sc[:n * L * H].view(L, n, H)
+            vs = sc[n * L * H:2 * n * L * H].view(L, n, H)
+        return k, v, ks, vs
+
+    @staticmethod
+    def _host_array(t):
+        """A staging view as numpy; bfloat16 (no numpy dtype) as its
+        2-byte bit patterns."""
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy()
+
+    def _tier_gather(self, pages):
+        """Device -> host payload read: the pages' slabs (and int8 scale
+        rows) gathered on the card and copied into the pinned staging
+        block, the stream synchronised, then each page copied out into
+        its own numpy arrays (a view would pin the whole block). Returns
+        one payload dict per page."""
+        P = self._pages_per_slot
+        out = []
+        for i in range(0, len(pages), P):
+            blk = [int(p) for p in pages[i:i + P]]
+            n = len(blk)
+            k, v, ks, vs = gather_kv_pages(self._kp, self._vp, blk,
+                                           self._ks, self._vs)
+            hk, hv, hks, hvs = self._staging(n)
+            # the stream orders these copies after any page-in still
+            # reading the block
+            hk.copy_(k, non_blocking=True)
+            hv.copy_(v, non_blocking=True)
+            if ks is not None:
+                hks.copy_(ks, non_blocking=True)
+                hvs.copy_(vs, non_blocking=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            hk, hv = self._host_array(hk), self._host_array(hv)
+            if ks is not None:
+                hks, hvs = hks.numpy(), hvs.numpy()
+            for j in range(n):
+                pl = {"k": hk[:, j].copy(), "v": hv[:, j].copy()}
+                if ks is not None:
+                    pl["ks"] = hks[:, j].copy()
+                    pl["vs"] = hvs[:, j].copy()
+                out.append(pl)
+        return out
+
+    def _tier_scatter(self, items):
+        """Host -> device page-in of `items` = [(page_id, payload)]: the
+        payloads assembled in the pinned staging block, copied to the
+        card on the current stream (the one every dispatch runs on) and
+        written into the live pages only. Scale rows land with the
+        codes, so a paged-in int8 page needs no re-quantization and no
+        scale reset to read back exactly. The block is not refilled
+        before its copy has completed (an event)."""
+        P = self._pages_per_slot
+        for i in range(0, len(items), P):
+            blk = items[i:i + P]
+            n = len(blk)
+            hk, hv, hks, hvs = self._staging(n)
+            if self._stage_event is not None:
+                self._stage_event.synchronize()
+            nk, nv = self._host_array(hk), self._host_array(hv)
+            for j, (_, pl) in enumerate(blk):
+                nk[:, j] = pl["k"]
+                nv[:, j] = pl["v"]
+                if self._quant:
+                    hks[:, j] = torch.from_numpy(pl["ks"])
+                    hvs[:, j] = torch.from_numpy(pl["vs"])
+            dk = hk.to(self.device, non_blocking=True)
+            dv = hv.to(self.device, non_blocking=True)
+            dks = dvs = None
+            if self._quant:
+                dks = hks.to(self.device, non_blocking=True)
+                dvs = hvs.to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+                self._stage_event = ev
+            scatter_kv_pages(self._kp, self._vp, [int(p) for p, _ in blk],
+                             dk, dv, self._ks, self._vs, dks, dvs)
+
+    def _spill_node(self, keypath, page):
+        """PrefixCache evict_hook: offer one evicted node's payload to
+        the host tier (the gather runs before the cache frees the page).
+        False (payload not taken) makes the cache discard instead."""
+        t0 = self._clock()
+        key = ("node", keypath)
+        payload = self._tier_gather([int(page)])[0]
+        if not self.host_pool.put(key, payload):
+            return False
+        m = self._metrics
+        m["kv_spill_pages"].inc()
+        m["kv_spill_bytes"].inc(self.host_pool.entry_bytes(key))
+        m["kv_spill_seconds"].observe(self._clock() - t0)
+        return True
+
+    def _pagein_nodes(self, items):
+        """PrefixCache pagein_hook: restore `items` = [(keypath,
+        fresh_page)] from the host tier in one batched scatter. Each
+        payload is checked out (pinned) meanwhile and dropped only once
+        the scatter landed; on a failure the entries survive."""
+        t0 = self._clock()
+        taken, ok, nbytes = [], False, 0
+        try:
+            payloads = []
+            for kp, _ in items:
+                key = ("node", kp)
+                payloads.append(self.host_pool.checkout(key))
+                taken.append(key)
+                nbytes += self.host_pool.entry_bytes(key)
+            self._tier_scatter(
+                [(pg, pl) for (_, pg), pl in zip(items, payloads)])
+            ok = True
+        finally:
+            for key in taken:
+                self.host_pool.release(key, drop=ok)
+        m = self._metrics
+        m["kv_pagein_pages"].inc(len(items))
+        m["kv_pagein_bytes"].inc(nbytes)
+        m["kv_pagein_seconds"].observe(self._clock() - t0)
+
+    def _host_evict(self, key):
+        """HostPagePool evict_cb: node payloads go through the prefix
+        cache's drop_spilled (vetoed while the node anchors a spilled
+        subtree); swap payloads are always droppable (the preempted
+        request then restarts, bit-identically)."""
+        kind, val = key
+        if kind == "node":
+            return self.prefix_cache.drop_spilled(val)
+        return True
+
+    def _drop_swap(self, req):
+        """Discard a preempted request's swap record and host payload
+        (it went terminal or its record went stale)."""
+        swap = getattr(req, "swap", None)
+        if swap is None:
+            return
+        req.swap = None
+        key = swap.get("key")
+        if key is not None and self.host_pool is not None \
+                and key in self.host_pool:
+            self.host_pool.discard(key)
+
+    def _preempt_slot(self, slot):
+        """Whole-request swap under overload: gather the victim's
+        exclusive pages (its shared prefix stays in the radix tree) into
+        one host-tier payload, release the slot and its leases, and
+        requeue the request unblamed at the front of its class with a
+        swap record (prefix nodes, slot scalars). If the tier cannot take
+        the payload the request still yields its slot and restarts
+        later instead of resuming; either way its output is
+        bit-identical."""
+        req = self.scheduler.request_at(slot)
+        S, P = self.page_size, self._pages_per_slot
+        pc = self.prefix_cache
+        length = int(self._lengths[slot])
+        n_used = min(P, -(-length // S))
+        row = [int(p) for p in self._table_host[slot][:n_used]]
+        member = pc.member_mask()
+        n_shared = 0
+        for p in row:
+            if not member[p]:
+                break
+            n_shared += 1
+        excl = row[n_shared:]
+        m = self._metrics
+        m["preempts"].inc()
+        key = ("req", req.id) if excl else None
+        swapped = True
+        if excl:
+            t0 = self._clock()
+            pls = self._tier_gather(excl)
+            payload = {name: np.stack([pl[name] for pl in pls])
+                       for name in pls[0]}
+            swapped = self.host_pool.put(key, payload)
+            if swapped:
+                m["kv_spill_pages"].inc(len(excl))
+                m["kv_spill_bytes"].inc(self.host_pool.entry_bytes(key))
+                m["kv_spill_seconds"].observe(self._clock() - t0)
+        nodes = [pc._by_page.get(p) for p in row[:n_shared]]
+        if swapped and all(n is not None for n in nodes):
+            req.swap = {"key": key, "nodes": nodes, "n_excl": len(excl),
+                        "length": length,
+                        "cur_tok": int(self._cur_tok[slot]),
+                        "remaining": int(self._remaining[slot]),
+                        "counters": int(self._counters[slot])}
+        else:
+            if swapped and key is not None:
+                self.host_pool.discard(key)
+            m["preempt_restarted"].inc()
+        self._release_slot(slot)
+        req.t_enqueue = self._clock()
         self.scheduler.requeue(req)
         req.status = "queued"
 
-    def _admit(self, slot, req):
-        """Map pages and park the prompt's uncached tail as this slot's
-        chunk queue; no forward runs here. The dispatch streams the queue
-        chunk_tokens at a time beside everyone else's decode rows and
-        samples the first token when the final chunk lands. A prefix
-        cache hit starts the slot at the cached offset. The adapter is
-        pinned before the pages are mapped: either can raise its pool's
-        exhaustion (backpressure), and _requeue_admission rolls back
-        what was taken."""
-        pool = self.adapter_pool
-        if pool is not None:
-            seen = pool.page_ins, pool.evictions
-            self._aslot[slot] = pool.acquire(req.adapter_id)
-            self._adapter_of[slot] = req.adapter_id \
-                if req.adapter_id not in (None, 0) else None
-            self.stats["adapter_page_ins"] += pool.page_ins - seen[0]
-            self.stats["adapter_evictions"] += pool.evictions - seen[1]
-        tokens = np.asarray(req.prompt, np.int32)
-        offset = self._map_slot_pages(slot, tokens)
-        req.status = "prefilling"
-        if self.prefix_cache is not None:
-            if offset:
-                self.stats["prefix_hits"] += 1
-                self.stats["prefix_tokens_saved"] += offset
-            else:
-                self.stats["prefix_misses"] += 1
-        if self._quant:
-            # the write schedule of this request's int8 pages: the cached
-            # tokens it attached, then each prefill chunk as it is fed.
-            # Replaying it on a restart is not ported (no restart path)
-            req.kv_history = []
-            req.kv_attach = int(offset)
-        Tp = req.prompt_len
-        # every decode step writes one KV and the last sampled token is
-        # never written, so a sequence of Tp supports up to
-        # max_length - Tp + 1 generated tokens
-        self._pending[slot] = tokens[offset:]
-        self._lengths[slot] = offset
-        self._cur_tok[slot] = 0
-        self._remaining[slot] = min(req.max_new_tokens,
-                                    self.max_length - Tp + 1)
-        self._counters[slot] = 0
+    def _restore_slot(self, slot, req, length, cur_tok, remaining,
+                      counters):
+        """Rebuild a slot's scalars for a request that goes straight back
+        to decode (no prefill)."""
+        self._pending[slot] = None
+        self._replay[slot] = None
+        self._base[slot] = len(req.output_tokens)
+        self._lengths[slot] = length
+        self._cur_tok[slot] = cur_tok
+        self._remaining[slot] = remaining
+        self._counters[slot] = counters
+        self._set_sampling(slot, req)
+        if self.speculative:
+            self._hist[slot] = [int(t) for t in req.prompt] \
+                + [int(t) for t in req.output_tokens]
+        req.status = "running"
+        self._sync_slot(slot)
+
+    def _try_resume(self, slot, req):
+        """Splice a swapped request straight back into decode: re-lease
+        its shared prefix nodes (paging spilled ones back in), restore
+        its exclusive pages from the swap payload into fresh pages, and
+        rebuild the slot scalars from the swap record. False when the
+        record went stale (payload dropped, a prefix node discarded):
+        the caller restarts instead. A pool that runs dry mid-resume
+        rolls every lease taken here back and propagates (backpressure,
+        the swap kept)."""
+        swap = req.swap
+        pc = self.prefix_cache
+        key = swap["key"]
+        nodes = swap["nodes"]
+        if (key is not None and key not in self.host_pool) \
+                or any(n.dead for n in nodes):
+            return False
+        P = self._pages_per_slot
+        n_shared = len(nodes)
+        n_excl = int(swap["n_excl"])
+        t0 = self._clock()
+        m = self._metrics
+        taken, ok, payload, nbytes = [], False, None, 0
+        try:
+            if key is not None:
+                # pin the payload first: the reclaim below may spill into
+                # the tier and push it out otherwise
+                payload = self.host_pool.checkout(key)
+                nbytes = self.host_pool.entry_bytes(key)
+            resident = [n for n in nodes if not n.spilled]
+            spilled = [n for n in nodes if n.spilled]
+            self.page_pool.adopt([n.page for n in resident])
+            taken.extend(n.page for n in resident)
+            if spilled:
+                pin = pc._pagein([(pc._keypath(n), n) for n in spilled],
+                                 next(pc._clock))
+                taken.extend(pin)
+                if len(pin) < len(spilled):
+                    raise PagePoolExhausted(
+                        f"page-in of {len(spilled)} spilled prefix pages "
+                        f"restored {len(pin)}: resume of request "
+                        f"{req.id} waits for pages to drain")
+            need = P - n_shared
+            if self.page_pool.num_free < need:
+                pc.reclaim(need)
+            fresh = self.page_pool.alloc(need)
+            taken.extend(fresh)
+            # every fresh page from scale 0, then the payload rows' own
+            # scales land with their codes
+            self._zero_scales(fresh)
+            if n_excl:
+                items = []
+                for j in range(n_excl):
+                    pl = {"k": payload["k"][j], "v": payload["v"][j]}
+                    if self._quant:
+                        pl["ks"] = payload["ks"][j]
+                        pl["vs"] = payload["vs"][j]
+                    items.append((fresh[j], pl))
+                self._tier_scatter(items)
+            ok = True
+        except BaseException:
+            if taken:
+                pc.release(taken)
+            raise
+        finally:
+            if payload is not None:
+                self.host_pool.release(key, drop=ok)
+        if n_excl:
+            m["kv_pagein_pages"].inc(n_excl)
+            m["kv_pagein_bytes"].inc(nbytes)
+            m["kv_pagein_seconds"].observe(self._clock() - t0)
+        self._table_host[slot] = np.asarray(
+            [n.page for n in nodes] + fresh, np.int32)
+        self._mapped[slot] = True
+        req.swap = None
+        self._restore_slot(slot, req, swap["length"], swap["cur_tok"],
+                           swap["remaining"], swap["counters"])
+        m["preempt_resumed"].inc()
+        return True
+
+    # -- admission -----------------------------------------------------------
+    def _set_sampling(self, slot, req):
         self._seeds[slot] = req.seed
         self._temp[slot] = req.temperature
         self._top_k[slot] = req.top_k
@@ -593,6 +1462,99 @@ class ServingEngine:
         self._eos[slot] = -1 if req.eos_token_id is None \
             else req.eos_token_id
         self._done[slot] = False
+
+    def _admit(self, slot, req):
+        """Map pages and park the sequence's uncached tail as this slot's
+        chunk queue; no forward runs here. The dispatch streams the queue
+        chunk_tokens at a time beside everyone else's decode rows and
+        samples the first token when the final chunk lands. A prefix
+        cache hit starts the slot at the cached offset. The adapter is
+        pinned before the pages are mapped: either can raise its pool's
+        exhaustion (backpressure), and _on_admit_fault rolls back what
+        was taken.
+
+        A preempted request resumes from its swap when it can. A request
+        rolled back after a fault (or a preempted one whose swap went
+        stale) restarts: it re-feeds its prompt PLUS the `base` tokens it
+        emitted, with its sampling counter resumed at `base` (streams are
+        keyed (seed, token index)), and on int8 pages replays its
+        recorded write schedule, so its output is bit-identical to an
+        uninterrupted run."""
+        base = len(req.output_tokens)
+        tokens = np.asarray(req.prompt, np.int32) if not base \
+            else np.concatenate([req.prompt,
+                                 np.asarray(req.output_tokens, np.int32)])
+        Tp = int(tokens.size)
+        self._fire_hook("prefill", (req,))
+        pool = self.adapter_pool
+        if pool is not None:
+            seen = pool.page_ins, pool.evictions
+            self._aslot[slot] = pool.acquire(req.adapter_id)
+            self._adapter_of[slot] = req.adapter_id \
+                if req.adapter_id not in (None, 0) else None
+            self._metrics["adapter_page_ins"].inc(pool.page_ins - seen[0])
+            self._metrics["adapter_evictions"].inc(
+                pool.evictions - seen[1])
+        if req.swap is not None:
+            if self._try_resume(slot, req):
+                return
+            self._drop_swap(req)
+            self._metrics["preempt_restarted"].inc()
+        offset = self._map_slot_pages(slot, tokens,
+                                      match=not (self._quant and base))
+        req.status = "prefilling"
+        if req.tenant is not None:
+            self._tenant_child("admitted", req.tenant).inc()
+        m = self._metrics
+        if self.prefix_cache is not None:
+            if offset:
+                m["prefix_hits"].inc()
+                m["prefix_tokens_saved"].inc(offset)
+            else:
+                m["prefix_misses"].inc()
+        # every decode step writes one KV and the last sampled token is
+        # never written, so a sequence of Tp supports up to
+        # max_length - Tp + 1 further tokens; `base` already spent that
+        # much of max_new_tokens
+        cap = min(req.max_new_tokens - base, self.max_length - Tp + 1)
+        self._pending[slot] = tokens[offset:]
+        if self._quant:
+            if base:
+                # replay the recorded write schedule: the prefix tokens
+                # the first admission attached (re-chunked on the
+                # natural grid: they were never computed here), the
+                # recorded prefill chunks, then every emitted token as a
+                # one-token chunk, as decode wrote it
+                plan, head = [], int(req.kv_attach)
+                while head > 0:
+                    plan.append(min(head, self.chunk_tokens))
+                    head -= plan[-1]
+                plan += [int(c) for c in req.kv_history]
+                tot, trimmed = 0, []
+                for c in plan:
+                    c = min(c, Tp - tot)
+                    if c <= 0:
+                        break
+                    trimmed.append(c)
+                    tot += c
+                trimmed += [1] * (Tp - tot)
+                req.kv_attach = 0
+                req.kv_history = list(trimmed)
+                self._replay[slot] = deque(trimmed)
+            else:
+                # a fresh admission records its schedule anew (a rollback
+                # before the first token may have recorded chunks it then
+                # discarded): the cached tokens it attached, then each
+                # prefill chunk as it is fed
+                req.kv_history = []
+                req.kv_attach = int(offset)
+                self._replay[slot] = None
+        self._base[slot] = base
+        self._lengths[slot] = offset
+        self._cur_tok[slot] = 0
+        self._remaining[slot] = cap
+        self._counters[slot] = base
+        self._set_sampling(slot, req)
         self._hist[slot] = None         # drafting starts after prefill
         self._sync_slot(slot)
 
@@ -601,8 +1563,9 @@ class ServingEngine:
         released, its writes parked past the table (length = max_length)
         so the recycled pages cannot be touched."""
         req = self.scheduler.release(slot)
-        req.t_finish = time.perf_counter()
+        req.t_finish = self._clock()
         self._pending[slot] = None
+        self._replay[slot] = None
         self._done[slot] = True
         self._remaining[slot] = 0
         self._lengths[slot] = self.max_length
@@ -626,7 +1589,8 @@ class ServingEngine:
     def _finish(self, slot):
         req = self._release_slot(slot)
         req.status = "finished"
-        self.stats["requests_finished"] += 1
+        self._finish_times.append(self._clock())   # drain-rate window
+        self._metrics["requests_finished"].inc()
         return req
 
     # -- the dispatch -------------------------------------------------------
@@ -635,12 +1599,12 @@ class ServingEngine:
         """The device side of one dispatch. grid (B, W + 4) int32: the
         token rows (a decode row's drafts follow its current token), then
         chunk_len, is_final, decode_mask and n_draft per slot. Runs the
-        forward, verifies the drafts, picks each slot's tokens and
-        advances the device-resident slot state. Returns the (7 + S, B)
-        int32 host array [lengths, cur_tok, done, remaining, counters,
-        n_em, n_acc, the S emitted token rows (-1 past n_em)], S =
-        spec_tokens (1 without speculation): the dispatch's one
-        device-to-host copy."""
+        forward, checks each slot's live logits are finite, verifies the
+        drafts, picks each slot's tokens and advances the
+        device-resident slot state. Returns the (8 + S, B) int32 host
+        array [lengths, cur_tok, done, remaining, counters, n_em, n_acc,
+        ok, the S emitted token rows (-1 past n_em)], S = spec_tokens (1
+        without speculation): the dispatch's one device-to-host copy."""
         B, W = self.num_slots, self._width
         d = self._dstate
         toks_in = grid[:, :W]
@@ -660,6 +1624,12 @@ class ServingEngine:
         adapters = None if self.adapter_pool is None \
             else self.adapter_pool.batch(d["aslot"])
         logits, _ = self.model(toks_in, cache, adapters=adapters)
+        # the finite guard over LIVE positions only: a slot whose logits
+        # went non-finite (corrupted KV, numeric blowup) is flagged; the
+        # host discards its tokens of this dispatch and re-prefills it
+        live = torch.arange(W, device=grid.device)[None, :] < qn[:, None]
+        ok = (torch.isfinite(logits).all(dim=-1) | ~live).all(dim=1) \
+            | ~(active | prefilling)
         # a decode row samples from position 0, a finishing prefill from
         # its last live position: the distribution after the full prompt
         rows = torch.arange(B, device=grid.device)
@@ -720,16 +1690,44 @@ class ServingEngine:
         out = torch.cat([torch.stack([d["lengths"], d["cur_tok"],
                                       d["done"].to(torch.int32),
                                       d["remaining"], d["counters"], n_em,
-                                      n_acc]), toks.T.to(torch.int32)])
+                                      n_acc, ok.to(torch.int32)]),
+                         toks.T.to(torch.int32)])
         return out.cpu().numpy().copy()
+
+    def _next_chunk(self, slot, pend, budget):
+        """How many pending tokens the slot feeds in this dispatch (0:
+        it waits). An int8 restart feeds its recorded chunk sizes
+        exactly (splitting one would re-quantize deep layers under other
+        scale views); a recorded chunk the remaining budget cannot cover
+        waits for a fresh budget, and only one that can never fit is
+        split. Any other chunk is recorded in the request's write
+        schedule on int8 pages."""
+        rq = self._replay[slot]
+        if rq:
+            want = min(int(rq[0]), self.chunk_tokens)
+            if want > budget and want <= self.prefill_chunk_budget:
+                return 0
+            n = min(want, budget)
+            if n <= 0:
+                return 0
+            if n >= int(rq[0]):
+                rq.popleft()
+            else:
+                rq[0] = int(rq[0]) - n
+            return n
+        n = min(int(pend.size), self.chunk_tokens, budget)
+        if n > 0 and self._quant:
+            self.scheduler.request_at(slot).kv_history.append(n)
+        return max(n, 0)
 
     def _dispatch(self):
         """ONE dispatch: assemble each slot's work row on the host (prefill
         chunk / decode or verify / idle), run the fixed-shape step, then
-        fan the results out — emitted tokens, chunk-cursor advances, the
-        first token of each prompt whose final chunk landed, and
-        finishes."""
+        fan the results out: emitted tokens, chunk-cursor advances, the
+        first token of each prompt whose final chunk landed, finishes,
+        and the rollback of slots whose logits were not finite."""
         B, W = self.num_slots, self._width
+        spec_on = self.speculative and not self._degraded
         toks_in = np.zeros((B, W), np.int32)
         chunk_len = np.zeros(B, np.int32)
         is_final = np.zeros(B, bool)
@@ -737,25 +1735,25 @@ class ServingEngine:
         n_draft = np.zeros(B, np.int32)
         budget = self.prefill_chunk_budget
         active_slots = list(self.scheduler.active_slots)
+        self._fire_hook("decode", [self.scheduler.request_at(s)
+                                   for s in active_slots])
         # prefill-budget fairness: visit slots round-robin from a rotating
         # cursor, so concurrent long prompts take turns
         for slot in sorted(active_slots,
                            key=lambda s: (s - self._chunk_rr) % B):
             pend = self._pending[slot]
             if pend is not None and pend.size:
-                n = min(int(pend.size), self.chunk_tokens, budget)
+                n = self._next_chunk(slot, pend, budget)
                 if n <= 0:
                     continue            # budget spent: the chunk waits
                 budget -= n
-                if self._quant:
-                    self.scheduler.request_at(slot).kv_history.append(n)
                 toks_in[slot, :n] = pend[:n]
                 chunk_len[slot] = n
                 is_final[slot] = n == pend.size
             elif not self._done[slot] and self._remaining[slot] > 0:
                 decode_mask[slot] = True
                 toks_in[slot, 0] = self._cur_tok[slot]
-                if self.speculative and self._hist[slot] is not None:
+                if spec_on and self._hist[slot] is not None:
                     drafts = self._proposer.propose(self._hist[slot])
                     n_draft[slot] = drafts.size
                     toks_in[slot, 1:1 + drafts.size] = drafts
@@ -766,28 +1764,40 @@ class ServingEngine:
         greedy_only = not bool(self._do_sample[active_slots].any())
         out = self._unified(self._upload(grid), greedy_only)
         (self._lengths, self._cur_tok, done, self._remaining,
-         self._counters, n_em, n_acc) = out[:7]
-        toks = out[7:].T
+         self._counters, n_em, n_acc, ok) = out[:8]
+        toks = out[8:].T
         self._done = done.astype(bool)
-        now = time.perf_counter()
-        st = self.stats
-        st["decode_dispatches"] += 1
-        finished = []
-        accepted = 0
+        now = self._clock()
+        m = self._metrics
+        m["decode_dispatches"].inc()
+        n_chunks = int((chunk_len > 0).sum())
+        if n_chunks:
+            m["prefill_chunks"].inc(n_chunks)
+            m["prefill_tokens"].inc(int(chunk_len.sum()))
+        finished, bad = [], []
+        emitted_total = accepted = 0
         for slot in active_slots:
             req = self.scheduler.request_at(slot)
+            if not ok[slot]:
+                # non-finite logits: every token this dispatch gave the
+                # slot is garbage; it is rolled back below
+                bad.append(slot)
+                continue
             cl = int(chunk_len[slot])
             if cl:
                 self._pending[slot] = self._pending[slot][cl:]
-                st["prefill_chunks"] += 1
-                st["prefill_tokens"] += cl
                 if not is_final[slot]:
+                    req.dispatch_failures = 0
+                    req.t_not_before = 0.0
                     continue
                 # final chunk: the first token landed in this dispatch
                 self._pending[slot] = None
+                self._replay[slot] = None
                 req.status = "running"
-                req.t_admit = now
-                st["prefills"] += 1
+                m["prefills"].inc()
+                if not self._base[slot]:
+                    req.t_admit = now
+                    m["ttft"].observe(now - req.t_submit)
                 pc = self.prefix_cache
                 n_full = req.prompt_len // self.page_size
                 if pc is not None and n_full:
@@ -798,9 +1808,13 @@ class ServingEngine:
                     self._d_lock = self._upload(self._page_lock_host())
             elif not decode_mask[slot]:
                 continue                # chunk queued but out of budget
+            # a clean dispatch clears the request's failure history:
+            # probation is for consecutive faults
+            req.dispatch_failures = 0
+            req.t_not_before = 0.0
             emitted = [int(t) for t in toks[slot, :int(n_em[slot])]]
             req.output_tokens.extend(emitted)
-            st["tokens_emitted"] += len(emitted)
+            emitted_total += len(emitted)
             accepted += int(n_acc[slot])
             if self.speculative:
                 if cl:
@@ -810,9 +1824,13 @@ class ServingEngine:
                     self._hist[slot].extend(emitted)
             if self._done[slot] or self._remaining[slot] <= 0:
                 finished.append(self._finish(slot))
+        m["tokens_emitted"].inc(emitted_total)
         if self.speculative:
             drafted = int(n_draft.sum())
-            st["spec_draft_tokens"] += drafted
-            st["spec_accepted_tokens"] += accepted
-            st["spec_rollbacks"] += drafted - accepted
+            m["spec_draft_tokens"].inc(drafted)
+            m["spec_accepted_tokens"].inc(accepted)
+            m["spec_rollbacks"].inc(drafted - accepted)
+        if bad:
+            finished.extend(self._on_bad_slots(
+                bad, "non-finite logits in unified dispatch"))
         return finished

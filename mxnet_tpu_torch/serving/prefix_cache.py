@@ -2,8 +2,9 @@
 
 A copy of mxnet_tpu/serving/prefix_cache.py (pure Python and numpy; the
 port keeps its own so that it never imports the JAX package). The
-host-tier seams `evict_hook` and `pagein_hook` stay None in the port:
-the tier that sets them is not ported yet.
+serving engine installs the host-tier seams `evict_hook` and
+`pagein_hook` when it is built with `host_kv_bytes` (engine._spill_node,
+engine._pagein_nodes).
 
 Production traffic is dominated by shared prompt prefixes — system
 prompts, few-shot templates, multi-turn history (the Gemma-on-TPU

@@ -10,6 +10,14 @@ measures, through the public entry points, on chip_smoke.py's inputs
 (its helpers `make_pool`, `time_ms`: CUDA events, a 64 MB L2 flush
 before each of 25 launches, the median):
 
+  * span: the span kernels over float pages (float32 q on the CUDA
+    cores, bfloat16 q on the tensor cores) at chip_smoke's kernel cell
+    and the serve's decode cell: ms and the error against the plain
+    version (float32 absolute, bfloat16 over the largest plain value);
+  * nan_page: the smallest input of a poisoned key page (one slot, one
+    head, D = 64, page 16, one key, NaN, one query row; float32 and
+    bfloat16, span and decode kernels): how many output elements are
+    NaN through the kernel and through the plain version;
   * int8_tc: the int8 span kernel on the tensor cores (bfloat16 q) at
     chip_smoke's kernel cell and the serve's decode cell: ms, and its
     largest error against the plain version over the largest plain
@@ -31,8 +39,8 @@ before each of 25 launches, the median):
     largest error against the plain version (float32 absolute, bfloat16
     over the largest plain value).
 
-PARTs (default: all) pick which of int8_tc, int8_search, decode,
-fused_bwd and fused_fwd run. The runs take turns, other, this, this,
+PARTs (default: all) pick which of span, nan_page, int8_tc,
+int8_search, decode, fused_bwd and fused_fwd run. The runs take turns, other, this, this,
 other. Prints one JSON line per
 run, then the medians of each side and the card's name and power limit.
 """
@@ -53,7 +61,8 @@ SPAN_CELLS = {"kernel_cell": ([1, 1000, 3, 960, 500, 1, 1023, 64],
               "serve_decode": ([128, 103, 89, 62, 66, 36, 40, 33],
                                [1] * 8, 2)}
 DECODE_CELL = ([1, 1000, 3, 960, 0, 2, 1024, 64], 1)
-PARTS = ("int8_tc", "int8_search", "decode", "fused_bwd", "fused_fwd")
+PARTS = ("span", "nan_page", "int8_tc", "int8_search", "decode",
+         "fused_bwd", "fused_fwd")
 # the fused forward's cells: (B, H, T, D, layout, causal, dtype, row pad,
 # numpy seed, key padding)
 FWD_CELLS = {"bert_bthd": (32, 12, 512, 64, "BTHD", False, "float32", 0,
@@ -172,7 +181,44 @@ def child(root, parts):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
-    out = {"root": root, "int8_tc": {}, "decode": {}}
+    out = {"root": root, "span": {}, "int8_tc": {}, "decode": {}}
+    if "span" in parts:
+        for cell, (lengths, qcs, seed) in SPAN_CELLS.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                q, kp, vp, table, _, _ = cs.make_pool(
+                    torch, 8, 64, 20, 64, 64, 16, 128, dtype, seed)
+                args = (q, kp, vp, table,
+                        torch.tensor(lengths, dtype=torch.int32,
+                                     device="cuda"))
+                kw = dict(q_counts=torch.tensor(qcs, dtype=torch.int32,
+                                                device="cuda"))
+                got = ra.ragged_span_attention(*args, impl="auto", **kw)
+                ref = ra.ragged_span_attention(*args, impl="torch", **kw)
+                out["span"][f"{cell} {str(dtype).split('.')[-1]}"] = {
+                    "max_abs_err": (got.float() - ref.float()).abs().max()
+                    .item(),
+                    "rel_err": rel_err(got, ref),
+                    "ms": cs.time_ms(torch, lambda: ra.ragged_span_attention(
+                        *args, impl="auto", **kw))}
+    if "nan_page" in parts:
+        out["nan_page"] = {}
+        one = torch.ones(1, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, table, _, _ = cs.make_pool(
+                torch, 1, 1, 1, 64, 16, 1, 1, dtype, 0)
+            kp.fill_(float("nan"))
+            name = str(dtype).split(".")[-1]
+            for kind, fn, args, kw in (
+                    ("span", ra.ragged_span_attention,
+                     (q, kp, vp, table, one), dict(q_counts=one)),
+                    ("decode", ra.ragged_decode_attention,
+                     (q[:, 0].contiguous(), kp, vp, table, one), {})):
+                got = fn(*args, impl="auto", **kw)
+                ref = fn(*args, impl="torch", **kw)
+                out["nan_page"][f"{kind} {name}"] = {
+                    "kernel_nan": int(torch.isnan(got).sum()),
+                    "plain_nan": int(torch.isnan(ref).sum()),
+                    "elements": got.numel()}
     if "int8_tc" in parts:
         for cell, (lengths, qcs, seed) in SPAN_CELLS.items():
             q, kp, vp, table, ks, vs = cs.make_pool(
@@ -240,7 +286,7 @@ def main(argv):
             search[side] = run["int8_search"]["first_over_tol"]
             errs[side] = run["int8_search"].pop("errs")
         print(json.dumps({"side": side, **run}), flush=True)
-        for part in ("int8_tc", "decode", "fused_fwd"):
+        for part in ("span", "int8_tc", "decode", "fused_fwd"):
             for cell, res in run.get(part, {}).items():
                 samples.setdefault(f"{side} {part} {cell}", []).append(
                     res["ms"])

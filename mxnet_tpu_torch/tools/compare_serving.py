@@ -54,7 +54,7 @@ def child(root):
         for i in range(TIMED + 1):
             reqs = [Request(p, 32, request_id=j)
                     for j, p in enumerate(prompts)]
-            eng.stats["decode_dispatches"] = 0
+            eng.reset_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             eng.serve(reqs)

@@ -219,10 +219,8 @@ def test_prefill_chunk_budget_round_robins_concurrent_prompts(pair):
 # engine contract: options, rejections, devices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("option,value", [
-    ("tenant_quotas", object()), ("max_retries", 5), ("tp", 2),
-    ("clock", object()), ("policy", object()),
-    ("host_kv_bytes", 1 << 20)])
+@pytest.mark.parametrize("option,value", [("tp", 2),
+                                          ("tp_devices", ["cuda:1"])])
 def test_unported_engine_options_raise(pair, option, value):
     _, net = pair
     with pytest.raises(MXNetError, match="not ported"):
@@ -240,8 +238,10 @@ def test_engine_rejections(pair):
         eng.submit(Request([1] * 65, 2))
     with pytest.raises(MXNetError, match="no adapter pool"):
         eng.submit(Request([1, 2], 2, adapter_id="a"))
-    with pytest.raises(MXNetError, match="not ported"):
-        eng.submit(Request([1, 2], 2, deadline_ms=5.0))
+    timed = ServingEngine(net, clock=lambda: 1.0, device="cpu", **ENGINE)
+    late = Request([1, 2], 2, deadline_ms=5.0)
+    timed.submit(late)
+    assert late.t_deadline == 1.005 and late.status == "queued"
     first, second = Request([1, 2], 2), Request([3], 2)
     eng.submit(first)
     with pytest.raises(QueueFullError):
