@@ -168,6 +168,33 @@ script then exits non-zero without the final `ok` line):
               first tokens with and without the policy. Deadlines: one
               expires queued (shed, no tokens), one running (its partial
               stream a prefix of its unbounded one).
+  5i. gpt2_http  the same model behind ServingFrontend (127.0.0.1, port
+              0) with an IntrospectionServer beside it;
+              ServingEngine(num_slots=8, max_length=1024, page_size=64,
+              chunk_tokens=64), float32 then bfloat16. The engine first
+              serves phase 5's traffic by engine.serve (the oracle, and
+              the warmup), then mark_warm(). Over HTTP, all at once: the
+              same 8 requests from 8 SSE clients (each stream must equal
+              the oracle's, token for token, and echo its traceparent's
+              trace id), a client that hangs up after 4 tokens (cancelled,
+              pages returned), a reader with a 1-token stream buffer whose
+              take() lags 0.3 s (an overflow error event, then
+              cancelled(stream_overflow)); once every request is in and
+              first tokens are out, begin_drain(): a new POST gets 503
+              with Retry-After and the frontend's /readyz flips to 503,
+              in-flight streams finish. The dtype's span family runs 36
+              times a dispatch, its plain version never. Then /metrics
+              and /statusz (8 finished), /requests (every phase sum <=
+              its TTFT), /trace, /compilez (the kernel libraries loaded,
+              no build or load after mark_warm(), cost_mfu of the
+              dispatch in (0, 1]), /memz (accounted <= allocated; the
+              remainder printed) and /sloz. One FaultPlan dispatch
+              exception latches exactly one flight dump (events.jsonl,
+              metrics.json, state.json). Last, the telemetry's host cost:
+              phase 5's traffic served with the request log and the cost
+              accounting on and off, switched every dispatch over four
+              serves (a warmup serve first): the medians and quartiles
+              of ms per dispatch on each side, and their ratio.
   6. fused    fused_attention's CUDA forward and backward against its
               plain PyTorch version (forward output, dq, dk, dv) at
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
@@ -233,7 +260,8 @@ script then exits non-zero without the final `ok` line):
               pair, its bfloat16 steps for the tensor-core pair; each
               fused entry also with its launches in phase 7b; each span
               entry with its serve_verify cell and its launches in phases
-              5d, 5g and 5h), errors, times, bound and library times.
+              5d, 5g, 5h and 5i), errors, times, bound and library times.
+  9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
 """
 import json
@@ -2499,6 +2527,452 @@ def phase_gpt2_robust(torch, ra, card, model, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 5i: the HTTP frontend and the telemetry plane
+# ---------------------------------------------------------------------------
+
+# phase 5i: the client that hangs up after DISCONNECT_AFTER tokens, the
+# lagging reader's take() delay (it stands for a blocked socket write)
+DISCONNECT_AFTER = 4
+LAG_S = 0.3
+HTTP_TIMEOUT = 300
+# the device bytes /memz may leave unaccounted: the engine's scratch
+# between dispatches (one dispatch's float32 logits, 8 x 64 x 50257 x 4
+# = 103 MB, and smaller buffers) and the allocator's rounding. A third
+# of the smallest ledger row at 774M (1.52 GB of bfloat16 pages), so a
+# row left out or counted twice fails the gate.
+MEMZ_SLACK = 512 << 20
+
+
+def http_post(host, port, body, headers=None):
+    """POST /v1/generate; (status, headers, body text)."""
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=HTTP_TIMEOUT)
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(body),
+                     dict({"Content-Type": "application/json"},
+                          **(headers or {})))
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read().decode()
+    finally:
+        conn.close()
+
+
+def http_get(url):
+    """GET `url`; (status, body text) (an HTTP error status is read)."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def sse_events(text):
+    """[(event, payload)] of a close-delimited SSE body."""
+    out = []
+    for block in text.split("\n\n"):
+        block = block.strip()
+        if not block or block.startswith(":"):
+            continue
+        ev = payload = None
+        for line in block.splitlines():
+            if line.startswith("event: "):
+                ev = line[len("event: "):]
+            elif line.startswith("data: "):
+                payload = json.loads(line[len("data: "):])
+        if ev is not None:
+            out.append((ev, payload))
+    return out
+
+
+def sse_tokens(events):
+    toks = []
+    for ev, p in events:
+        if ev == "tokens":
+            require(p["index"] == len(toks), "http: a tokens event out of "
+                    "order")
+            toks.extend(p["tokens"])
+    return toks
+
+
+def hang_up_after(host, port, body, n_tokens):
+    """POST over a raw socket and close it once `n_tokens` tokens came
+    back; returns the tokens read."""
+    import socket
+    data = json.dumps(body).encode()
+    sock = socket.create_connection((host, port), timeout=HTTP_TIMEOUT)
+    try:
+        sock.sendall(b"POST /v1/generate HTTP/1.0\r\nContent-Type: "
+                     b"application/json\r\nContent-Length: "
+                     + str(len(data)).encode() + b"\r\n\r\n" + data)
+        buf = b""
+        while True:
+            chunk = sock.recv(65536)
+            require(chunk, "http: the server closed before the hang-up")
+            buf += chunk
+            text = buf.decode(errors="replace").split("\r\n\r\n", 1)
+            if len(text) == 2:
+                toks = [t for ev, p in sse_events(text[1].rsplit(
+                    "\n\n", 1)[0] + "\n\n") if ev == "tokens"
+                    for t in p["tokens"]]
+                if len(toks) >= n_tokens:
+                    return toks
+    finally:
+        sock.close()
+
+
+def run_threads(fns):
+    """Run each fn on its own thread; their results in order."""
+    import threading
+    out, errors = [None] * len(fns), []
+
+    def call(i, fn):
+        try:
+            out[i] = fn()
+        except Exception as e:            # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=call, args=(i, fn), daemon=True)
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT)
+    require(not any(t.is_alive() for t in threads), "http: a client hung")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def telemetry_ab(torch, eng, prompts, n_new, Request, telemetry):
+    """ms per dispatch with the request log and the cost accounting on
+    and with both off, switched every dispatch (host time drifts by tens
+    of percent between serves; neighbouring dispatches share the drift):
+    one warmup serve, then four serves of `prompts` stepped by hand, the
+    first dispatch of serve k on when k is even. Every request is
+    submitted with the log on, so an `on` dispatch records its events.
+    Medians and quartiles of each side."""
+    from mxnet_tpu_torch.telemetry import cost
+    times = {"on": [], "off": []}
+    serve(torch, eng, prompts, n_new, Request)
+    try:
+        for k in range(4):
+            telemetry.request_log.enabled = True
+            for i, p in enumerate(prompts):
+                eng.submit(Request(p, n_new, request_id=f"ab{k}-{i}"))
+            j = k
+            while eng.has_work:
+                mode = "on" if j % 2 == 0 else "off"
+                telemetry.request_log.enabled = mode == "on"
+                cost.set_enabled(mode == "on")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                j += 1
+    finally:
+        telemetry.request_log.enabled = True
+        cost.set_enabled(True)
+    out = {"dispatches": {m: len(v) for m, v in times.items()}}
+    for m, v in times.items():
+        q1, med, q3 = np.percentile(v, [25, 50, 75])
+        out[f"median_{m}_ms"] = float(med)
+        out[f"quartiles_{m}_ms"] = [float(q1), float(q3)]
+    out["on_over_off"] = out["median_on_ms"] / out["median_off_ms"]
+    return out
+
+
+def http_serve(torch, fe, srv, eng, prompts, n_new, fr, extra, telemetry):
+    """Phase 5i's traffic over HTTP: 8 SSE clients at once, a client that
+    hangs up after DISCONNECT_AFTER tokens, a lagging reader with a
+    1-token stream buffer, and begin_drain() once the first tokens are
+    out (a POST then must get 503, /readyz flip, in-flight streams
+    finish). Returns what each client saw."""
+    host, port = fe.host, fe.port
+    orig_take = fr.TokenStream.take
+
+    def laggy_take(self, timeout=None):
+        if self.capacity == 1:
+            time.sleep(LAG_S)
+        return orig_take(self, timeout)
+
+    def client(i, p):
+        tp = f"00-{i + 1:032x}-{'b' * 16}-01"
+        status, hdrs, text = http_post(
+            host, port, {"prompt": p, "max_new_tokens": n_new,
+                         "request_id": f"h{i}"}, {"traceparent": tp})
+        return status, hdrs.get("traceparent"), sse_events(text), tp
+
+    gone_prompt, lag_prompt = extra
+    fr.TokenStream.take = laggy_take
+    try:
+        probe = fe._probe_name
+        ready_before = http_get(f"{srv.url}/readyz?component={probe}")[0]
+        fns = [lambda i=i, p=p: client(i, p) for i, p in enumerate(prompts)]
+        fns.append(lambda: hang_up_after(
+            host, port, {"prompt": gone_prompt, "max_new_tokens": 256,
+                         "request_id": "gone"}, DISCONNECT_AFTER))
+        fns.append(lambda: http_post(
+            host, port, {"prompt": lag_prompt, "max_new_tokens": 64,
+                         "stream_buffer": 1, "request_id": "laggard"}))
+
+        ids = {f"h{i}" for i in range(len(prompts))} | {"gone", "laggard"}
+
+        def drain():
+            # mid-serve: every client's request is in, first tokens out
+            deadline = time.time() + HTTP_TIMEOUT / 2
+            while not ids <= {t["request_id"] for t in
+                              telemetry.request_log.recent(64)
+                              if t["engine"] == eng._eid} \
+                    or eng.stats["tokens_emitted"] < len(prompts):
+                require(time.time() < deadline, "http: the requests never "
+                        "all arrived")
+                time.sleep(0.005)
+            fe.begin_drain()
+            status, hdrs, text = http_post(
+                host, port, {"prompt": prompts[0], "max_new_tokens": 4,
+                             "request_id": "late"})
+            return (status, hdrs.get("Retry-After"),
+                    json.loads(text)["error"],
+                    http_get(f"{srv.url}/readyz?component={probe}")[0])
+        fns.append(drain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_threads(fns)
+        deadline = time.time() + HTTP_TIMEOUT
+
+        def busy():
+            # a cancel is counted after its slot is released: wait until
+            # every disconnect's cancel has returned on the serving thread
+            st = fe.stats
+            return (eng.has_work or st["active_streams"]
+                    or not fe._cmd_q.empty() or st["cancels_issued"]
+                    + st["cancels_noop"] < st["disconnects"])
+        while busy() and time.time() < deadline:
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        fr.TokenStream.take = orig_take
+    return res[:len(prompts)], res[-3], res[-2], res[-1], ready_before, wall
+
+
+def http_checks(torch, label, res, eng, fe, srv, want, n_new, telemetry):
+    """Phase 5i's gates on one engine's HTTP run; returns the readings."""
+    streams, gone, lag, drain, ready_before, wall = res
+    got = {}
+    for i, (status, tp_back, evs, tp_sent) in enumerate(streams):
+        done = [p for ev, p in evs if ev == "done"]
+        require(status == 200 and len(done) == 1
+                and done[0]["status"] == "finished",
+                f"http {label}: stream h{i} ended {status} {done}")
+        require(tp_back is not None
+                and tp_back.split("-")[1] == tp_sent.split("-")[1],
+                f"http {label}: traceparent {tp_sent} came back as "
+                f"{tp_back}")
+        got[i] = sse_tokens(evs)
+    require([got[i] for i in range(len(want))] == want,
+            f"http {label}: SSE streams differ from engine.serve's")
+    lag_status, _, lag_text = lag
+    lag_evs = sse_events(lag_text)
+    lag_err = [p["error"] for ev, p in lag_evs if ev == "error"]
+    lag_done = [p for ev, p in lag_evs if ev == "done"]
+    require(lag_status == 200 and lag_err == ["overflow"]
+            and lag_done[0]["status"] == "cancelled",
+            f"http {label}: the lagging reader saw {lag_err} {lag_done}")
+    d_status, retry, d_err, ready_after = drain
+    require(d_status == 503 and retry is not None
+            and d_err["reason"] == "draining"
+            and (ready_before, ready_after) == (200, 503),
+            f"http {label}: drain gave {d_status} retry {retry} "
+            f"{d_err.get('reason')}, readyz {ready_before} -> {ready_after}")
+    st = eng.stats
+    traces = {t["request_id"]: t for t in json.loads(http_get(
+        f"{srv.url}/requests?n=64")[1])["requests"]
+        if t["engine"] == eng._eid}
+    require(st["requests_finished"] == len(want)
+            and st["requests_cancelled"] == 2 and st["shed"] == 0,
+            f"http {label}: finished {st['requests_finished']}, cancelled "
+            f"{st['requests_cancelled']}, frontend {fe.stats}, gone "
+            f"{traces.get('gone', {}).get('events', [])[-3:]}, laggard "
+            f"{traces.get('laggard', {}).get('events', [])[-3:]}")
+    require(eng.audit_pages() == [] and not eng.has_work,
+            f"http {label}: pages not returned: {eng.audit_pages()[:3]}")
+    require(traces["gone"]["status"] == "cancelled"
+            and traces["laggard"]["status"] == "cancelled"
+            and traces["laggard"]["events"][-1].get("reason")
+            == "stream_overflow", f"http {label}: terminal events "
+            f"{traces['gone']['status']} {traces['laggard']['events'][-1]}")
+    phase_over = []
+    for rid, t in traces.items():
+        first = [e for e in t["events"] if e["event"] == "first_token"]
+        if first:
+            slack = first[0]["ttft"] - sum(t["phases"].values())
+            require(slack >= -1e-9, f"http {label}: request {rid}'s phases "
+                    f"exceed its TTFT by {-slack} s")
+            phase_over.append(slack)
+    metrics = http_get(f"{srv.url}/metrics")[1]
+    fin = [ln for ln in metrics.splitlines() if ln.startswith(
+        f'serving_requests_finished_total{{engine="{eng._eid}"}}')]
+    require(fin and float(fin[0].split()[-1]) == len(want),
+            f"http {label}: /metrics says {fin}")
+    statusz = json.loads(http_get(f"{srv.url}/statusz")[1])
+    comp = statusz["components"][f"engine/{eng._eid}"]
+    require(comp["stats"]["requests_finished"] == len(want)
+            and comp["config"]["steady_state"] is True,
+            f"http {label}: /statusz engine {comp['stats']}")
+    trace = json.loads(http_get(f"{srv.url}/trace")[1])
+    tracks = {e["tid"] for e in trace["traceEvents"]
+              if e.get("name") == "request"
+              and e.get("pid") == int(eng._eid) + 1}
+    compilez = json.loads(http_get(f"{srv.url}/compilez")[1])
+    libs = {k: v["compiles"] for k, v in compilez["programs"].items()
+            if k.startswith("kernels/")}
+    prog = compilez["programs"][eng._cost_program]
+    require(not compilez["unknown_device"], f"http {label}: no peaks for "
+            f"{compilez['device_kind']}")
+    require(libs and compilez["steady_compiles"] == 0,
+            f"http {label}: /compilez kernel libraries {libs}, steady "
+            f"builds {compilez['steady_compiles']}")
+    require(0.0 < prog["mfu"] <= 1.0, f"http {label}: cost_mfu "
+            f"{prog['mfu']}")
+    memz = json.loads(http_get(f"{srv.url}/memz")[1])
+    allocated = torch.cuda.memory_allocated()
+    remainder = allocated - memz["accounted_bytes"]
+    require(0 <= remainder <= MEMZ_SLACK,
+            f"http {label}: /memz accounts {memz['accounted_bytes']} B "
+            f"against {allocated} B allocated (remainder {remainder} B, "
+            f"bound 0..{MEMZ_SLACK})")
+    sloz = json.loads(http_get(f"{srv.url}/sloz")[1])
+    return {
+        "wall_s": wall, "dispatches": st["decode_dispatches"],
+        "ms_per_dispatch": wall / st["decode_dispatches"] * 1e3,
+        "requests_finished": st["requests_finished"],
+        "requests_cancelled": st["requests_cancelled"],
+        "disconnect_tokens": len(gone), "frontend": fe.stats,
+        "drain_retry_after": retry, "tracks": len(tracks),
+        "phase_slack_min_s": min(phase_over),
+        "kernel_libraries": libs, "steady_builds":
+            compilez["steady_compiles"],
+        "cost_mfu": prog["mfu"], "cost_dispatch_ms":
+            prog["dispatch_seconds"] / prog["dispatches"] * 1e3,
+        "cost_flops_last": prog["flops"], "cost_bound": prog.get("bound"),
+        "device_kind": compilez["device_kind"],
+        "peak_flops": compilez["peak_flops"],
+        "memz_accounted_bytes": memz["accounted_bytes"],
+        "memory_allocated_bytes": allocated,
+        "memz_remainder_bytes": remainder,
+        "memz_components": {k: v["bytes"] for k, v in memz["components"][
+            f"engine/{eng._eid}"].items()},
+        "memz_by_provider": {c: sum(v["bytes"] for v in cats.values()
+                                    if isinstance(v, dict)
+                                    and not v.get("detail"))
+                             for c, cats in memz["components"].items()},
+        "sloz_objectives": [o["name"] for o in sloz["objectives"]],
+        "sloz_fast_burning": sloz["fast_burning"]}
+
+
+def one_fault_dump(torch, eng, prompts, Request, FaultPlan, telemetry,
+                   out_dir):
+    """A FaultPlan dispatch exception on `eng`: exactly one flight dump,
+    with the reference's file set."""
+    rec = telemetry.flight.install(out_dir=out_dir, stall_timeout=120.0)
+    try:
+        plan = FaultPlan(seed=0, dispatch_exception=1.0, max_faults=1)
+        plan.install(eng)
+        try:
+            serve(torch, eng, prompts[:2], 4, Request)
+        finally:
+            plan.uninstall()
+        dumps = rec.dumps
+    finally:
+        telemetry.flight.uninstall()
+    require(len(dumps) == 1 and os.path.basename(dumps[0]).startswith(
+        f"dispatch_error-engine{eng._eid}-"), f"fault: dumps {dumps}")
+    files = sorted(os.listdir(dumps[0]))
+    require(files == ["events.jsonl", "metrics.json", "state.json"],
+            f"fault: dump files {files}")
+    return {"dumps": len(dumps), "files": files,
+            "dispatch_errors": eng.stats["dispatch_errors"]}
+
+
+def phase_gpt2_http(torch, ra, card, model, cfg):
+    """Phase 5i: the 774M engine behind ServingFrontend, with the
+    telemetry plane read over HTTP."""
+    import gc
+    import shutil
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serving import (FaultPlan, Request, ServingEngine,
+                                         ServingFrontend)
+    from mxnet_tpu_torch.serving import frontend as fr
+
+    prompts = gpt2_traffic(cfg.vocab_size)
+    rng = np.random.default_rng(5)
+    extra = [rng.integers(0, cfg.vocab_size, 64).tolist() for _ in range(2)]
+    n_new = 32
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
+    out = {"phase": "gpt2_http", "card": card, "config": "gpt2_774m_config",
+           "engine": ekw, "prompt_lens": list(map(len, prompts)),
+           "new_tokens": n_new}
+    dump_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "flight_dumps")
+    shutil.rmtree(dump_root, ignore_errors=True)
+    telemetry.slo.configure([telemetry.SLO("ttft_p99_10s",
+                                           ttft_p99_ms=10000.0)])
+    try:
+        for label, dtype, key in (("float32", torch.float32, SPAN),
+                                  ("bfloat16", torch.bfloat16, SPAN_TC)):
+            model.to(dtype)
+            eng = ServingEngine(model, device=DEV, **ekw)
+            # the oracle (and the warmup: every kernel library the engine
+            # runs is loaded once it has served)
+            want, _ = serve(torch, eng, prompts, n_new, Request)
+            eng.mark_warm()
+            eng.reset_stats()
+            fe = ServingFrontend(eng, keepalive_s=0.05, step_idle_s=0.001)
+            srv = telemetry.IntrospectionServer(0)
+            try:
+                with counting(ra, "_ragged_span_reference") as plain_calls:
+                    ra.reset_launches()
+                    res = http_serve(torch, fe, srv, eng, prompts, n_new, fr,
+                                     extra, telemetry)
+                    launches = dict(ra.LAUNCHES)
+                d = eng.stats["decode_dispatches"]
+                require(launches[key] == GPT2_LAYERS * d
+                        and sum(launches.values()) == launches[key],
+                        f"http {label}: launches {launches} for {d} "
+                        "dispatches")
+                require(plain_calls.calls == 0, f"http {label}: the plain "
+                        f"span version ran {plain_calls.calls} times")
+                r = http_checks(torch, label, res, eng, fe, srv, want, n_new,
+                                telemetry)
+            finally:
+                fe.close()
+                srv.close()
+            r["launches"] = launches
+            r["fault"] = one_fault_dump(torch, eng, prompts, Request,
+                                        FaultPlan, telemetry,
+                                        os.path.join(dump_root, label))
+            r["telemetry_cost"] = telemetry_ab(torch, eng, prompts, n_new,
+                                               Request, telemetry)
+            out[label] = r
+            del eng, fe, srv
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        telemetry.slo.configure([])
+    from mxnet_tpu_torch.telemetry import cost
+    require(not cost.steady_state(), "http: a warm engine outlived the "
+            "phase (later kernel loads would count as steady)")
+    out["launches_by_family"] = {
+        "float32": out["float32"]["launches"][SPAN],
+        "bfloat16": out["bfloat16"]["launches"][SPAN_TC]}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: BERT-base MLM training steps
 # ---------------------------------------------------------------------------
 
@@ -2820,16 +3294,17 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
             "library_ms_bf16": b16.get("library_ms"), "card": card, **extra}
 
 
-def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, card):
+def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
+                 card):
     """The four span kernels' kernels-line entries: the CUDA-core kernel
     at float32 q (launches from the float32 serves, phases 5 and 5b) and
     the tensor-core kernel at bfloat16 q (launches from the bfloat16
     serves), float and int8 pages, each at the kernel cell with the
     serve's decode and verify cells beside, and its launches on the
     speculative serve of phase 5d (none: bfloat16 q on int8 pages is not
-    served with speculation there), on the host-tier serves of phase 5g
-    and on phase 5h's chaos soak (float32) and int8 restart (none:
-    phase 5h serves no bfloat16)."""
+    served with speculation there), on the host-tier serves of phase 5g,
+    on phase 5h's chaos soak (float32) and int8 restart (none: phase 5h
+    serves no bfloat16) and on phase 5i's HTTP serves (float pages)."""
     fam = tier["launches_by_family"]
     rob = {SPAN: robust["chaos"]["launches"][SPAN],
            INT8: robust["preempt"]["restart_int8"]["launches"][INT8]}
@@ -2857,7 +3332,10 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, card):
                 "gpt2_tier_launches": fam.get(
                     {SPAN: "float32", SPAN_TC: "bfloat16",
                      INT8: "int8"}.get(name)),
-                "gpt2_robust_launches": rob.get(name), "card": card}
+                "gpt2_robust_launches": rob.get(name),
+                "gpt2_http_launches": http["launches_by_family"].get(
+                    {SPAN: "float32", SPAN_TC: "bfloat16"}.get(name)),
+                "card": card}
     sfam = spec["launches_by_family"]
     return [entry(SPAN, SOURCE, span, "float32", gpt2["launches"][SPAN],
                   sfam["float32"]),
@@ -2950,6 +3428,7 @@ def fused_entries(fused, launches, launches16, gpt2_train, card):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2977,26 +3456,35 @@ def main():
                     for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 
-    span = phase_span(torch, F, ra)
-    span8 = phase_span(torch, F, ra, quant=True)
-    decode = phase_decode(torch, F, ra)
-    gpt2 = phase_gpt2(torch, ra, card)
-    gpt2_int8 = phase_gpt2_int8(torch, ra, card, gpt2)
-    phase_prefix(torch, ra, card)
-    spec = phase_gpt2_spec(torch, ra, card)
-    phase_gpt2_w8(torch, ra, card, gpt2)
-    phase_gpt2_lora(torch, ra, card, gpt2)
+    seconds = {}                  # each phase's wall seconds
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t
+        return out
+    span = timed("span", phase_span, torch, F, ra)
+    span8 = timed("span_int8", phase_span, torch, F, ra, quant=True)
+    decode = timed("decode", phase_decode, torch, F, ra)
+    gpt2 = timed("gpt2", phase_gpt2, torch, ra, card)
+    gpt2_int8 = timed("gpt2_int8", phase_gpt2_int8, torch, ra, card, gpt2)
+    timed("prefix", phase_prefix, torch, ra, card)
+    spec = timed("gpt2_spec", phase_gpt2_spec, torch, ra, card)
+    timed("gpt2_w8", phase_gpt2_w8, torch, ra, card, gpt2)
+    timed("gpt2_lora", phase_gpt2_lora, torch, ra, card, gpt2)
     model, cfg = gpt2_774m(torch)
-    tier = phase_gpt2_tier(torch, ra, card, model, cfg)
-    robust = phase_gpt2_robust(torch, ra, card, model, cfg)
+    tier = timed("gpt2_tier", phase_gpt2_tier, torch, ra, card, model, cfg)
+    robust = timed("gpt2_robust", phase_gpt2_robust, torch, ra, card, model,
+                   cfg)
+    http = timed("gpt2_http", phase_gpt2_http, torch, ra, card, model, cfg)
     del model
     torch.cuda.empty_cache()
-    fused = phase_fused(torch, F, fa)
-    bert = phase_bert(torch, fa, card)
-    gpt2_train = phase_gpt2_train(torch, fa, card)
+    fused = timed("fused", phase_fused, torch, F, fa)
+    bert = timed("bert", phase_bert, torch, fa, card)
+    gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
 
     kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust,
-                           card)
+                           http, card)
     kernels.append(kernel_entry(
         "ragged_decode_attention", SOURCE,
         gpt2["launches"]["ragged_decode_attention"], decode["float32"],
@@ -3005,6 +3493,8 @@ def main():
         span_sq1_ms_bf16=decode["bfloat16"]["span_sq1_ms"]))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
                              gpt2_train, card)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds, "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,12 @@ a digest of their source, every `csrc/` header it includes (directly or
 through another header) and the flags, so an edited source or header is
 rebuilt and an unchanged one is reused.
 
+Each build and each load that succeeds counts as one compile of
+program `kernels/<library>` in telemetry.cost (`compiles_total`,
+`compile_seconds_total`, /compilez); telemetry.cost flags one that
+happens after a serving engine's `mark_warm()` as steady, and an armed
+flight recorder latches a dump for it.
+
 Every failure to build, load or launch a kernel raises `KernelError`.
 The serving engine's supervisor re-raises it (with torch's
 AcceleratorError) instead of retrying the dispatch: such a failure is
@@ -23,9 +29,11 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 from ..base import MXNetError
+from ..telemetry import cost as _cost
 
 __all__ = ["SOURCES", "BUILD_DIR", "KernelError", "build_all", "load",
            "library_path"]
@@ -92,19 +100,22 @@ def build_all(names=None):
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log = out.with_suffix(".log")
+        t0 = time.perf_counter()
         with open(log, "w") as fh:
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
                 stdout=fh, stderr=subprocess.STDOUT)
-        jobs[name] = (proc, tmp, out, log)
+        jobs[name] = (proc, tmp, out, log, t0)
     logs, failed = {}, []
-    for name, (proc, tmp, out, log) in jobs.items():
+    for name, (proc, tmp, out, log, t0) in jobs.items():
         proc.wait()
         logs[name] = log.read_text()
         if proc.returncode:
             failed.append(f"{name}:\n{logs[name]}")
         else:
             os.replace(tmp, out)
+            _cost.record_compile(f"kernels/{name}",
+                                 time.perf_counter() - t0)
     if failed:
         raise KernelError("nvcc failed for " + "\n".join(failed))
     return logs
@@ -115,10 +126,12 @@ def load(name):
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
+        t0 = time.perf_counter()
         try:
             lib = ctypes.CDLL(str(library_path(name)))
         except OSError as e:
             raise KernelError(f"kernel library {name} does not load: "
                               f"{e}") from e
+        _cost.record_compile(f"kernels/{name}", time.perf_counter() - t0)
         _loaded[name] = lib
     return lib

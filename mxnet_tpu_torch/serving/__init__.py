@@ -1,10 +1,11 @@
 """Continuous-batching serving (counterpart of mxnet_tpu.serving: the
-engine, its pools and caches, the host KV tier and the robustness
-layer)."""
+engine, its pools and caches, the host KV tier, the robustness layer
+and the single-engine HTTP frontend)."""
 from .adapters import (AdapterPool, AdapterPoolExhausted, merged_weights,
                        random_lora)
 from .engine import ServingEngine
 from .faults import FaultError, FaultPlan
+from .frontend import ServingFrontend, TokenStream
 from .host_tier import HostPagePool
 from .page_pool import PagePool, PagePoolExhausted
 from .policy import SheddingPolicy
@@ -25,4 +26,5 @@ __all__ = ["ServingEngine", "PagePool", "PagePoolExhausted", "PrefixCache",
            "random_lora", "PromptLookupProposer", "verify_tokens",
            "QuantizedWeight", "build_weight_plan", "dequantize",
            "pick_out_tile", "quantize_weight", "FaultError", "FaultPlan",
-           "HostPagePool", "SheddingPolicy"]
+           "HostPagePool", "SheddingPolicy", "ServingFrontend",
+           "TokenStream"]

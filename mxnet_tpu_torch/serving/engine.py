@@ -49,7 +49,9 @@ backoff and quarantines a request whose dispatches failed max_retries
 times (terminal "failed"). The one exception: a CUDA error
 (torch.AcceleratorError) or a kernel that does not build, load or
 launch (ops._build.KernelError) propagates, because retrying would hide
-the card's failure behind quarantined requests. A rolled-back request
+the card's failure behind quarantined requests; the engine latches it
+first (not ready from then on, /healthz degraded, a flight dump). A
+rolled-back request
 restarts by re-prefilling prompt + emitted tokens with its sampling
 counter resumed (on int8 pages by replaying its recorded write
 schedule), so its output is bit-identical to an uninterrupted run. A
@@ -65,19 +67,36 @@ queue and slots. The host KV tier (`host_kv_bytes`, needs the prefix
 cache) spills evicted prefix pages to host RAM through pinned memory
 and pages them back in on a radix hit, and carries the whole-request
 swap of a preempted request; a swap the tier dropped falls back to the
-restart path. Engine metrics are per-engine children of the port's
-telemetry instruments, under the reference's names; `stats` reads them.
+restart path.
 
-Not ported yet: tensor parallelism (tp, tp_devices raise), cancel /
-export / adopt / drain (the router's seams), streaming, and telemetry
-beyond the instruments (request timelines, flight-recorder dumps, SLO
-engines, statusz, the TTFT phase budget).
+Telemetry (as the reference's): engine metrics are per-engine children
+of the port's telemetry instruments, under the reference's names;
+`stats` reads them. Every request records a lifecycle timeline into
+`telemetry.request_log` (submit, reject and shed, admission, prefix
+match, page-in, preemption and resume, requeue, quarantine, each
+prefill chunk and decode or verify dispatch, finish, cancel) with its
+TTFT phase budget (queue_wait, prefix_match, host_pagein,
+prefill_chunks, first_decode, which sum to at most its TTFT), and feeds
+the SLO engine at first token and at finish. The engine publishes
+/statusz, a flight-recorder watch probe, a /readyz probe (warmed and
+not degraded and not draining) and an HBM ledger provider, and latches
+a flight dump on every caught fault. Each dispatch's FLOPs and bytes
+come from the model formula (telemetry.cost.gpt2_dispatch_cost) and its
+time from two CUDA events read after the dispatch's one device-to-host
+copy, never through an extra synchronize. The frontend's seams:
+`cancel`, `drain`/`undrain` with `estimated_drain_wait`, and per-request
+token streams (`Request.stream`, fed every dispatch; a stream that
+cannot take a dispatch's tokens cancels its request).
+
+Not ported yet: tensor parallelism (tp, tp_devices raise) and the
+router's migration seams (adopt, export_requests, export_handoff).
 """
 from __future__ import annotations
 
 import inspect
 import itertools
 import time
+import weakref
 from collections import deque
 
 import numpy as np
@@ -85,6 +104,10 @@ import torch
 
 from .. import telemetry
 from ..analysis import loop_only, thread_safe
+from ..telemetry import cost as _cost
+from ..telemetry import ledger as _ledger
+from ..telemetry import server as _tserver
+from ..telemetry import span
 from ..base import MXNetError, not_ported, resolve_device
 from ..models.gpt2 import _DTYPES
 from ..models.kv_cache import (PagedKVCache, gather_kv_pages,
@@ -121,12 +144,17 @@ _METRICS = {
     "prefills": ("c", "serving_prefill_total",
                  "prompts fully prefilled (final chunk landed, first "
                  "token sampled)"),
-    "prefill_chunks": ("c", "serving_prefill_chunks_total",
-                       "prompt chunks fed through the dispatch"),
     "prefill_tokens": ("c", "serving_prefill_tokens_total",
                        "prompt tokens computed by prefill chunks"),
+    "prefill_chunks": ("c", "serving_prefill_chunks_total",
+                       "prompt chunks fed through the dispatch"),
+    "prefill_pending": ("g", "serving_prefill_pending_tokens",
+                        "admitted prompt tokens not yet fed to a "
+                        "dispatch, summed over slots"),
     "decode_dispatches": ("c", "serving_decode_dispatch_total",
                           "dispatches run (one fixed-shape step each)"),
+    "decode_steps": ("c", "serving_decode_steps_total",
+                     "decode steps run (== dispatches: one forward each)"),
     "tokens_emitted": ("c", "serving_tokens_emitted_total",
                        "tokens sampled and handed to requests"),
     "requests_finished": ("c", "serving_requests_finished_total",
@@ -134,22 +162,61 @@ _METRICS = {
     "requests_rejected": ("c", "serving_requests_rejected_total",
                           "submissions refused (queue full, shed, "
                           "prompt too long)"),
+    "requests_cancelled": ("c", "serving_requests_cancelled_total",
+                           "requests aborted by cancel() or a stream "
+                           "overflow (queued or running)"),
     "prefix_hits": ("c", "serving_prefix_cache_hits_total",
                     "admissions whose prompt matched >= 1 cached page"),
     "prefix_misses": ("c", "serving_prefix_cache_misses_total",
                       "admissions with no cached prefix"),
     "prefix_tokens_saved": ("c", "serving_prefix_tokens_saved_total",
                             "prompt tokens attached from the cache"),
+    "prefix_evicted_pages": ("c", "serving_prefix_cache_evicted_pages_total",
+                             "cached pages reclaimed by the LRU-by-leaf "
+                             "policy"),
     "spec_draft_tokens": ("c", "serving_spec_draft_tokens_total",
                           "draft tokens proposed"),
     "spec_accepted_tokens": ("c", "serving_spec_accepted_tokens_total",
                              "draft tokens accepted and emitted"),
     "spec_rollbacks": ("c", "serving_spec_rollbacks_total",
                        "draft tokens rejected by verification"),
-    "adapter_page_ins": ("c", "serving_adapter_page_ins_total",
-                         "LoRA adapters paged into the device slab"),
-    "adapter_evictions": ("c", "serving_adapter_evictions_total",
-                          "resident LoRA adapters evicted"),
+    "model_flops": ("c", "serving_model_flops_total",
+                    "model-formula FLOPs of the live rows of every "
+                    "dispatch (goodput numerator)"),
+    "wasted_flops": ("c", "serving_wasted_flops_total",
+                     "FLOPs the card spent on dead grid rows and on "
+                     "rejected speculative drafts"),
+    "flops_per_token": ("g", "serving_flops_per_token",
+                        "model FLOPs per emitted token"),
+    "admission_capacity": ("g", "serving_admission_capacity",
+                           "estimated max concurrent requests at the "
+                           "current page budget"),
+    "queue_depth": ("g", "serving_queue_depth",
+                    "requests waiting for a slot"),
+    "slot_occupancy": ("g", "serving_slot_occupancy",
+                       "slots decoding right now"),
+    "num_slots": ("g", "serving_slots", "configured decode slots"),
+    "prefix_cache_pages": ("g", "serving_prefix_cache_pages",
+                           "KV pages held by the prefix-cache radix tree"),
+    "prefix_pages_shared": ("g", "serving_prefix_pages_shared",
+                            "pool pages mapped by more than one lease"),
+    "pool_free_pages": ("g", "serving_page_pool_free",
+                        "unallocated pages in the KV page pool"),
+    "admission_wait": ("h", "serving_admission_wait_seconds",
+                       "submit -> slot admission wait"),
+    "ttft": ("h", "serving_ttft_seconds",
+             "submit -> first token (queue wait + prefill)"),
+    "token_latency": ("h", "serving_token_latency_seconds",
+                      "per-token decode latency at dispatch resolution "
+                      "(dispatch wall / tokens the slot emitted, "
+                      "weighted)"),
+    "prefill_seconds": ("h", "serving_prefill_seconds",
+                        "wall time of dispatches that carried at least "
+                        "one prefill chunk"),
+    "decode_seconds": ("h", "serving_decode_dispatch_seconds",
+                       "dispatch wall time"),
+    "drain_seconds": ("h", "serving_drain_seconds",
+                      "serve(): last submit -> queue and slots empty"),
     "dispatch_errors": ("c", "serving_dispatch_errors_total",
                         "admission and dispatch faults the supervisor "
                         "caught"),
@@ -159,6 +226,38 @@ _METRICS = {
     "requests_failed": ("c", "serving_requests_failed_total",
                         "requests quarantined after max_retries failed "
                         "dispatches"),
+    "overload_level": ("g", "serving_overload_level",
+                       "shedding-policy level: 0 ok, 1 elevated, 2 "
+                       "overloaded"),
+    "degraded": ("g", "serving_degraded",
+                 "1 while the engine is degraded (speculation off, "
+                 "/healthz flagged)"),
+    "retry_after": ("g", "serving_retry_after_seconds",
+                    "drain-rate estimate attached to rejections"),
+    "adapter_page_ins": ("c", "serving_adapter_page_ins_total",
+                         "LoRA adapters paged into the device slab"),
+    "adapter_evictions": ("c", "serving_adapter_evictions_total",
+                          "resident LoRA adapters evicted"),
+    "adapter_resident": ("g", "serving_adapter_resident",
+                         "LoRA adapters resident in the device slab"),
+    "adapter_pinned": ("g", "serving_adapter_pinned",
+                       "slab slots pinned by active requests"),
+    "adapter_slab_bytes": ("g", "serving_adapter_slab_bytes",
+                           "device bytes of the LoRA adapter slab"),
+    "kv_quant_enabled": ("g", "serving_kv_quant_enabled",
+                         "1 when the KV pools store int8 codes with "
+                         "per-page scales"),
+    "kv_page_bytes": ("g", "serving_kv_page_bytes",
+                      "device bytes one KV page costs (k and v slabs of "
+                      "every layer, plus int8 scales)"),
+    "kv_bytes_per_token": ("g", "serving_kv_bytes_per_token",
+                           "KV bytes per token position (kv_page_bytes "
+                           "/ page_size)"),
+    "tp_shards": ("g", "serving_tp_shards",
+                  "tensor-parallel shards of the dispatch (1: the port "
+                  "has no tensor parallelism yet)"),
+    "weight_quant_enabled": ("g", "serving_weight_quant_enabled",
+                             "1 when the engine serves w8 weights"),
     "kv_spill_pages": ("c", "serving_kv_spill_pages_total",
                        "KV pages moved device -> host (prefix spills and "
                        "preemption swaps)"),
@@ -177,13 +276,12 @@ _METRICS = {
     "preempt_restarted": ("c", "serving_preempt_restarted_total",
                           "preempted requests that fell back to the "
                           "restart path"),
-    "overload_level": ("g", "serving_overload_level",
-                       "shedding-policy level: 0 ok, 1 elevated, 2 "
-                       "overloaded"),
-    "degraded": ("g", "serving_degraded",
-                 "1 while the engine is degraded (speculation off)"),
-    "retry_after": ("g", "serving_retry_after_seconds",
-                    "drain-rate estimate attached to rejections"),
+    "kv_spill_seconds": ("h", "serving_kv_spill_seconds",
+                         "wall time of one spill (page gather + host "
+                         "copy)"),
+    "kv_pagein_seconds": ("h", "serving_kv_pagein_seconds",
+                          "wall time of one page-in (host read + page "
+                          "scatter)"),
     "kv_host_pages": ("g", "serving_kv_host_pages",
                       "payload entries in the host tier"),
     "kv_host_bytes": ("g", "serving_kv_host_bytes",
@@ -193,15 +291,27 @@ _METRICS = {
     "prefix_spilled_pages": ("g", "serving_prefix_spilled_pages",
                              "radix-tree nodes whose payload is on the "
                              "host"),
-    "ttft": ("h", "serving_ttft_seconds",
-             "submit -> first token (queue wait + prefill)"),
-    "kv_spill_seconds": ("h", "serving_kv_spill_seconds",
-                         "wall time of one spill (page gather + host "
-                         "copy)"),
-    "kv_pagein_seconds": ("h", "serving_kv_pagein_seconds",
-                          "wall time of one page-in (host read + page "
-                          "scatter)"),
 }
+
+# the `stats` keys read straight off a metric child, in the reference's
+# order (the rest of `stats` is computed)
+_STATS_KEYS = (
+    "prefills", "prefill_tokens", "prefill_chunks", "prefill_pending",
+    "decode_dispatches", "decode_steps", "tokens_emitted",
+    "requests_finished", "requests_rejected", "requests_cancelled",
+    "prefix_hits", "prefix_misses", "prefix_tokens_saved",
+    "prefix_evicted_pages", "spec_draft_tokens", "spec_accepted_tokens",
+    "spec_rollbacks", "model_flops", "wasted_flops", "admission_capacity",
+    "prefix_cache_pages", "prefix_pages_shared", "pool_free_pages",
+    "queue_depth", "slot_occupancy", "dispatch_errors", "dispatch_retries",
+    "requests_failed", "overload_level", "degraded", "adapter_page_ins",
+    "adapter_evictions", "adapter_resident", "adapter_pinned",
+    "kv_quant_enabled", "kv_page_bytes", "tp_shards",
+    "weight_quant_enabled", "kv_spill_pages", "kv_spill_bytes",
+    "kv_pagein_pages", "kv_pagein_bytes", "kv_host_evictions",
+    "kv_host_pages", "kv_host_bytes", "prefix_resident_pages",
+    "prefix_spilled_pages", "preempts", "preempt_resumed",
+    "preempt_restarted")
 
 
 def _engine_metrics(eid):
@@ -211,7 +321,43 @@ def _engine_metrics(eid):
          for key, (kind, name, help) in _METRICS.items()}
     _shed_family()
     _tenant_families()
+    _ttft_family()
+    _ttft_phase_family()
+    _weight_bytes_family()
     return m
+
+
+def _ttft_family():
+    """TTFT split by power-of-two prompt-length bucket and the KV tier
+    the admission landed on (resident radix hit, spilled = paged in from
+    the host tier, cold)."""
+    return telemetry.histogram(
+        "serving_ttft_by_prompt_seconds",
+        "submit -> first token, split by power-of-two prompt-length "
+        "bucket (label prompt_bucket=le<N>) and KV tier "
+        "(kv_tier=resident|spilled|cold)",
+        ("engine", "prompt_bucket", "kv_tier"))
+
+
+def _ttft_phase_family():
+    """The TTFT phase budget, aggregated: every first token observes one
+    sample per recorded phase (telemetry.PHASES), labeled with the
+    admission's KV tier."""
+    return telemetry.histogram(
+        "serving_ttft_phase_seconds",
+        "per-request TTFT phase durations (label phase=one of "
+        "telemetry.PHASES, kv_tier=resident|spilled|cold)",
+        ("engine", "phase", "kv_tier"))
+
+
+def _weight_bytes_family():
+    """Served weight bytes split by storage dtype (int8 w8 code slabs
+    vs every other tensor)."""
+    return telemetry.gauge(
+        "serving_weight_bytes",
+        "device bytes of the served weight operands, by storage dtype "
+        "(int8 code slabs vs float32 params + dequant scales)",
+        ("engine", "dtype"))
 
 
 def _shed_family():
@@ -219,7 +365,7 @@ def _shed_family():
         "serving_shed_total",
         "requests shed by the robustness layer, by reason (queue_full, "
         "overload, deadline, deadline_queued, deadline_running, "
-        "tenant_quota, tenant_share) and priority class",
+        "tenant_quota, tenant_share, draining) and priority class",
         ("engine", "reason", "priority"))
 
 
@@ -232,6 +378,14 @@ def _tenant_families():
             "serving_tenant_shed_total",
             "requests shed or rejected, by tenant and reason",
             ("engine", "tenant", "reason")),
+        "active": telemetry.gauge(
+            "serving_tenant_active_slots",
+            "decode slots currently held by each tenant",
+            ("engine", "tenant")),
+        "queued": telemetry.gauge(
+            "serving_tenant_queued",
+            "queued (admitted-but-waiting) requests per tenant",
+            ("engine", "tenant")),
     }
 
 
@@ -367,7 +521,15 @@ class ServingEngine:
             raise MXNetError("max_retries must be >= 1")
         self._clock = clock if clock is not None else time.perf_counter
         self._degraded = False
+        self._draining = False
+        # a CUDA or kernel error seen by step(): sticky, never cleared
+        self._fatal_error = None
+        # warmup declared over (mark_warm): a kernel build or load after
+        # it is a rebuild storm the flight recorder latches
+        self._steady = False
         self._finish_times = deque(maxlen=64)   # drain-rate window
+        self._hbm_budget = hbm_budget_bytes
+        self._hbm_includes_weights = bool(hbm_budget_includes_weights)
         # extra lease rows audit_pages() accounts for (the fault harness
         # registers the pages it holds here)
         self.audit_extra_leases = []
@@ -518,7 +680,44 @@ class ServingEngine:
         self._tenant_fams = _tenant_families()
         self._tenant_children = {}
         self._tenant_shed_counts = {}   # (tenant, reason) -> n
+        self._tenants_seen = set()
+        self._ttft_fam = _ttft_family()
+        self._ttft_children = {}   # (prompt bucket, tier) -> child
+        self._phase_fam = _ttft_phase_family()
+        self._phase_children = {}  # (phase, tier) -> labeled child
+        self._wbytes_fam = _weight_bytes_family()
+        # TTFT phase-budget bookkeeping: the page-in seconds of the
+        # admission being mapped (the prefix cache's page-in hook runs
+        # inside _map_slot_pages), the KV tier each slot's admission
+        # landed on, and the prefill chunks fed per slot
+        self._pagein_acc = 0.0
+        self._kv_tier = ["cold"] * B
+        self._chunks_fed = np.zeros(B, np.int32)
+        self._evictions_seen = 0
         self._host_evictions_seen = 0
+        self._metrics["num_slots"].set(B)
+        self._set_static_gauges()
+        self._set_pool_gauges()
+        # device-cost accounting: each dispatch's model-formula cost
+        # under one program key, timed by a reused pair of CUDA events
+        self._cost_program = f"engine{self._eid}/dispatch"
+        self._cost_dtype = str(model.dtype).replace("torch.", "")
+        self._cost_logits_bytes = model.dtype.itemsize   # logits' dtype
+        self._events = None
+        _cost.register_program(self._cost_program, dtype=self._cost_dtype)
+        _cost.add_steady_probe(self._steady_probe)
+        # live introspection: /statusz shows this engine's config and
+        # occupancy, the flight recorder's watchdog probes its progress,
+        # /readyz asks its readiness and /memz its device bytes (all
+        # weakly held: a collected engine drops out)
+        name = f"engine{self._eid}"
+        weakref.finalize(self, _tserver.clear_degraded, name)
+        telemetry.register_status_provider(f"engine/{self._eid}",
+                                           self._statusz)
+        telemetry.flight.watch(name, self._flight_probe)
+        _tserver.register_ready_probe(name, self._ready_probe)
+        weakref.finalize(self, _tserver.unregister_ready_probe, name)
+        _ledger.register(f"engine/{self._eid}", self._hbm_ledger)
 
     def _quantize_weights(self, weight_dtype):
         """w8: quantize the model's megatron column/row dense weights in
@@ -559,13 +758,30 @@ class ServingEngine:
         """This engine's counters and gauges as a plain dict (a live read
         of its telemetry children, the reference's keys)."""
         self._set_pool_gauges()
-        out = {key: int(self._metrics[key].value)
-               for key, (kind, _, _) in _METRICS.items()
-               if kind != "h" and key != "retry_after"}
+        m = self._metrics
+        out = {key: int(m[key].value) for key in _STATS_KEYS}
+        out["kv_bytes_per_token"] = float(m["kv_bytes_per_token"].value)
+        out["draining"] = self._draining
         out["shed"] = sum(self._shed_counts.values())
         out["weight_bytes_int8"] = self.weight_bytes["int8"]
         out["weight_bytes_float32"] = self.weight_bytes["float32"]
+        out["weight_bytes_total"] = sum(self.weight_bytes.values())
+        out["weight_bytes_per_chip"] = out["weight_bytes_total"]
         return out
+
+    def _set_static_gauges(self):
+        """Configuration gauges: set at construction and again after
+        reset_stats (they describe the engine, not traffic)."""
+        m = self._metrics
+        pb = self.page_pool.page_bytes
+        m["num_slots"].set(self.num_slots)
+        m["kv_quant_enabled"].set(int(self._quant))
+        m["kv_page_bytes"].set(pb)
+        m["kv_bytes_per_token"].set(pb / self.page_size)
+        m["tp_shards"].set(1)
+        m["weight_quant_enabled"].set(int(bool(self.weight_bytes["int8"])))
+        for wd, nb in self.weight_bytes.items():
+            self._wbytes_fam.labels(self._eid, wd).set(nb)
 
     def reset_stats(self):
         """Zero this engine's telemetry children (other engines and the
@@ -573,10 +789,14 @@ class ServingEngine:
         for inst in self._metrics.values():
             inst.reset()
         for child in (list(self._shed_children.values())
-                      + list(self._tenant_children.values())):
+                      + list(self._tenant_children.values())
+                      + list(self._ttft_children.values())
+                      + list(self._phase_children.values())):
             child.reset()
         self._shed_counts = {}
         self._tenant_shed_counts = {}
+        self._set_static_gauges()
+        self._set_pool_gauges()
 
     def tenant_stats(self):
         """Per-tenant occupancy and lifetime accounting: the scheduler's
@@ -612,14 +832,91 @@ class ServingEngine:
             child = fam.labels(self._eid, str(tenant)) if reason is None \
                 else fam.labels(self._eid, str(tenant), reason)
             self._tenant_children[key] = child
+        self._tenants_seen.add(tenant)
         return child
+
+    def _observe_ttft(self, prompt_len, dt, kv_tier="cold"):
+        """The labeled TTFT-by-prompt-length child (power-of-two buckets
+        x KV tier; children made as combinations appear)."""
+        b = 1
+        while b < prompt_len:
+            b <<= 1
+        key = (f"le{b}", kv_tier)
+        child = self._ttft_children.get(key)
+        if child is None:
+            child = self._ttft_fam.labels(self._eid, key[0], kv_tier)
+            self._ttft_children[key] = child
+        child.observe(dt)
+
+    def _phase(self, req, name, dur, **attrs):
+        """Record one TTFT phase span: a timeline event plus the
+        request's own accumulation (`req.phases`). Off with the request
+        log, for honest A/B runs."""
+        if not telemetry.request_log.enabled:
+            return
+        dur = max(float(dur), 0.0)
+        ph = getattr(req, "phases", None)
+        if not isinstance(ph, dict):
+            ph = req.phases = {}
+        ph[name] = ph.get(name, 0.0) + dur
+        telemetry.request_log.phase(req.id, self._eid, name, dur, **attrs)
+
+    def _observe_phase_budget(self, req, kv_tier):
+        """Publish the request's accumulated phase budget into the phase
+        histogram at its first token (one sample per phase)."""
+        ph = getattr(req, "phases", None)
+        if not isinstance(ph, dict):
+            return
+        for name, dur in ph.items():
+            key = (name, kv_tier)
+            child = self._phase_children.get(key)
+            if child is None:
+                child = self._phase_fam.labels(self._eid, name, kv_tier)
+                self._phase_children[key] = child
+            child.observe(dur)
+
+    def _set_load_gauges(self):
+        m = self._metrics
+        m["queue_depth"].set(self.scheduler.num_queued)
+        m["slot_occupancy"].set(self.scheduler.num_active)
+        m["admission_capacity"].set(self.admission_capacity_estimate())
+        self._set_tenant_gauges()
+
+    def _set_tenant_gauges(self):
+        # one pass over the queues and slots; tenants seen earlier but
+        # absent now are zeroed so their gauges do not stick
+        sched = self.scheduler
+        if not sched.tenant_quotas and not self._tenants_seen:
+            return
+        queued, active = {}, {}
+        for req in sched.queued_requests():
+            if req.tenant is not None:
+                queued[req.tenant] = queued.get(req.tenant, 0) + 1
+        for slot in sched.active_slots:
+            t = sched.request_at(slot).tenant
+            if t is not None:
+                active[t] = active.get(t, 0) + 1
+        for t in (set(queued) | set(active) | set(sched.tenant_quotas)
+                  | self._tenants_seen):
+            if t is None:
+                continue
+            self._tenant_child("queued", t).set(queued.get(t, 0))
+            self._tenant_child("active", t).set(active.get(t, 0))
 
     def _set_pool_gauges(self):
         m = self._metrics
+        m["pool_free_pages"].set(self.page_pool.num_free)
+        m["prefix_pages_shared"].set(
+            int(self.page_pool.shared_mask().sum()))
         pc = self.prefix_cache
         if pc is not None:
+            m["prefix_cache_pages"].set(pc.num_pages)
             m["prefix_resident_pages"].set(pc.num_resident)
             m["prefix_spilled_pages"].set(pc.num_spilled)
+            delta = pc.evicted_pages - self._evictions_seen
+            if delta:
+                m["prefix_evicted_pages"].inc(delta)
+                self._evictions_seen = pc.evicted_pages
         hp = self.host_pool
         if hp is not None:
             m["kv_host_pages"].set(hp.num_entries)
@@ -628,6 +925,175 @@ class ServingEngine:
             if delta:
                 m["kv_host_evictions"].inc(delta)
                 self._host_evictions_seen = hp.evictions
+        pool = self.adapter_pool
+        if pool is not None:
+            m["adapter_resident"].set(pool.num_resident)
+            m["adapter_pinned"].set(pool.num_pinned)
+            m["adapter_slab_bytes"].set(pool.slab_bytes())
+
+    def _statusz(self):
+        """The /statusz and flight-dump view of this engine: static
+        config, the scheduler's slot and queue snapshot, and the headline
+        rates derived from this engine's counters."""
+        s = self.stats
+        lookups = s["prefix_hits"] + s["prefix_misses"]
+        drafted = s["spec_draft_tokens"]
+        pool = self.adapter_pool
+        return {
+            "config": {
+                "num_slots": self.num_slots,
+                "max_length": self.max_length,
+                "page_size": self.page_size,
+                "chunk_tokens": self.chunk_tokens,
+                "prefill_chunk_budget": self.prefill_chunk_budget,
+                "dispatch_width": self._width,
+                "attn_impl": self.attn_impl,
+                "prefix_cache": self.prefix_cache is not None,
+                "speculative": self.speculative,
+                "spec_tokens": self.spec_tokens
+                if self.speculative else None,
+                "max_queue": self.scheduler.max_queue,
+                "num_priorities": self.scheduler.num_priorities,
+                "max_retries": self.max_retries,
+                "retry_backoff_s": self.retry_backoff_s,
+                "total_pages": self.page_pool.num_pages,
+                "kv_dtype": self.kv_dtype,
+                "kv_page_bytes": self.page_pool.page_bytes,
+                "weight_dtype": self.weight_dtype,
+                "weight_bytes": dict(self.weight_bytes),
+                "weight_bytes_per_chip": sum(self.weight_bytes.values()),
+                "quantized_weights": len(self._w8_plan),
+                "hbm_budget_bytes": self._hbm_budget,
+                "hbm_budget_includes_weights": self._hbm_includes_weights,
+                "host_kv_bytes": self._host_kv_bytes,
+                "steady_state": self._steady,
+                "adapter_pool": pool is not None,
+                "adapter_slots": pool.slots if pool is not None else None,
+                "adapter_max_rank": pool.max_rank
+                if pool is not None else None,
+                "tp_shards": 1,
+            },
+            "sharding": None,
+            "admission_capacity": self.admission_capacity_estimate(),
+            "kv_tier": None if self.host_pool is None else {
+                "host_budget_bytes": self.host_pool.budget_bytes,
+                "host_bytes_used": self.host_pool.bytes_used,
+                "host_entries": self.host_pool.num_entries,
+                "host_evictions": self.host_pool.evictions,
+                "resident_pages": self.prefix_cache.num_resident,
+                "spilled_pages": self.prefix_cache.num_spilled,
+                "spilled_total": self.prefix_cache.spilled_pages,
+                "paged_in_total": self.prefix_cache.paged_in_pages,
+            },
+            "robustness": {
+                "degraded": "fatal" if self._fatal_error else self._degraded,
+                "draining": self._draining,
+                "warmed": self._steady,
+                "overload_level": int(s["overload_level"]),
+                "policy": None if self.policy is None
+                else self.policy.snapshot(),
+                "shed": {f"{r}/p{p}": n
+                         for (r, p), n in sorted(self._shed_counts.items())},
+                "quarantined": int(s["requests_failed"]),
+                "dispatch_errors": int(s["dispatch_errors"]),
+                "retry_after_s": self.estimated_queue_wait(),
+            },
+            "scheduler": self.scheduler.snapshot(),
+            "tenants": self.tenant_stats(),
+            "adapters": pool.snapshot() if pool is not None else None,
+            "prefix_hit_rate": s["prefix_hits"] / lookups
+            if lookups else None,
+            "spec_acceptance": s["spec_accepted_tokens"] / drafted
+            if drafted else None,
+            "stats": s,
+        }
+
+    def _flight_probe(self):
+        """Watchdog probe (telemetry.flight): progress is the count of
+        host-visible scheduling events; busy while work is pending. A
+        busy engine whose progress freezes is a stalled dispatch loop."""
+        m = self._metrics
+        progress = int(m["prefills"].value
+                       + m["decode_dispatches"].value
+                       + m["requests_finished"].value
+                       + m["requests_cancelled"].value
+                       + m["requests_failed"].value
+                       + m["dispatch_retries"].value
+                       + sum(self._shed_counts.values()))
+        return progress, self.scheduler.has_work
+
+    # -- device-cost accounting --------------------------------------------
+    def mark_warm(self):
+        """Declare warmup over: every kernel library this engine needs is
+        built and loaded. A build or load after this point still
+        succeeds, but it is flagged steady, and an armed flight recorder
+        latches a `retrace_storm:kernels/<library>` dump naming it."""
+        self._steady = True
+
+    def _steady_probe(self):
+        return self._steady
+
+    def _account_flops(self, seconds, cost, wasted_rows=0):
+        """Per-dispatch device-cost bookkeeping: attribute the dispatch's
+        time and model-formula cost to this engine's program (live MFU
+        and bandwidth gauges) and advance the goodput counters: the live
+        rows' FLOPs are model FLOPs; the dead grid rows', and the
+        rejected drafts' (`wasted_rows` live rows whose work was
+        discarded), are wasted."""
+        rec = _cost.note_dispatch(self._cost_program, seconds,
+                                  flops=cost["flops"],
+                                  bytes_accessed=cost["bytes"])
+        if rec is None or not cost["flops"]:
+            return
+        m = self._metrics
+        m["model_flops"].inc(cost["flops"])
+        per_row = (cost["grid_flops"] - cost["flops"]) \
+            / max(cost["grid_rows"] - cost["rows"], 1)
+        waste = cost["grid_flops"] - cost["flops"] + per_row * wasted_rows
+        if waste > 0:
+            m["wasted_flops"].inc(waste)
+        tokens = m["tokens_emitted"].value
+        if tokens:
+            m["flops_per_token"].set(m["model_flops"].value / tokens)
+
+    def _hbm_ledger(self):
+        """telemetry.ledger provider: where this engine's device memory
+        goes, under the reference's component names. Weights are the
+        model's parameters and buffers (w8 codes and scales included;
+        the ledger dedupes them across engines over one model); the
+        prefix-cache figure is a Detail (those pages live inside the
+        kv_pages slab), and so is the host tier (host RAM)."""
+        kv = [self._kp, self._vp]
+        if self._quant:
+            kv += [self._ks, self._vs]   # dequant scales live with KV
+        out = {
+            "weights": list(self.model.parameters())
+            + list(self.model.buffers()),
+            "kv_pages": kv,
+            "slot_state": list(self._dstate.values()) + [self._d_lock],
+        }
+        if self.weight_dtype == "int8":
+            # the reference keeps the float weights its codes replaced
+            # as this Detail; w8 here quantizes in place and drops them
+            out["weights_fp32_shadow"] = _ledger.Detail(0)
+        pool = self.adapter_pool
+        if pool is not None:
+            slab = [pool.A, pool.B, pool.scale]
+            if pool.quantized:
+                slab += [pool.a_scale, pool.b_scale]
+            out["adapter_slab"] = slab
+        # the reference's gluon parameters carry gradient buffers from
+        # initialize on; torch allocates .grad only at a backward, so
+        # this row is empty (0 bytes) on a model that never trained
+        out["weight_grads"] = [p.grad for p in self.model.parameters()
+                               if p.grad is not None]
+        pc = self.prefix_cache
+        if pc is not None:
+            out["prefix_cache_pages"] = _ledger.Detail(
+                pc.num_pages * self.page_pool.page_bytes)
+        if self.host_pool is not None:
+            out["host_kv"] = _ledger.Detail(self.host_pool.bytes_used)
+        return out
 
     # -- admission control --------------------------------------------------
     def _drain_rate(self):
@@ -650,26 +1116,45 @@ class ServingEngine:
             return None
         return self.scheduler.num_queued / rate
 
+    def estimated_drain_wait(self):
+        """Seconds until everything in flight (queued + active) would
+        complete at the recent finish rate (None without a drain
+        history): the retry-after a draining engine attaches."""
+        rate = self._drain_rate()
+        if rate is None:
+            return None
+        return (self.scheduler.num_queued
+                + self.scheduler.num_active) / rate
+
     def _reject(self, request, reason, cause=None):
-        """Common rejection tail: count, then raise (the scheduler's
+        """Common rejection tail: count, record the terminal `rejected`
+        timeline with its context, then raise (the scheduler's
         QueueFullError enriched in place, or a fresh ShedError)."""
         depth = self.scheduler.num_queued
         active = self.scheduler.num_active
-        wait = self.estimated_queue_wait()
+        wait = self.estimated_drain_wait() if self._draining \
+            else self.estimated_queue_wait()
         if wait is not None:
             self._metrics["retry_after"].set(wait)
         request.status = "shed"
         self._metrics["requests_rejected"].inc()
         self._shed_inc(reason, request.priority, request.tenant)
+        telemetry.request_log.terminal(
+            request.id, self._eid, "rejected", reason=reason,
+            priority=request.priority, prompt_len=request.prompt_len,
+            queue_depth=depth, active_slots=active,
+            retry_after_s=None if wait is None else round(wait, 4))
         suffix = (f" [queue_depth={depth}, active_slots={active}"
                   + (f", retry_after~{wait:.3f}s" if wait is not None
                      else "") + "]")
         if cause is not None:
+            telemetry.flight.note_queue_full(f"engine{self._eid}")
             cause.queue_depth = depth
             cause.active_slots = active
             cause.retry_after_s = wait
             cause.args = (str(cause.args[0]) + suffix,)
             raise cause
+        telemetry.flight.note_shed(f"engine{self._eid}")
         raise ShedError(
             f"request {request.id} shed ({reason})" + suffix,
             reason=reason, queue_depth=depth, active_slots=active,
@@ -677,22 +1162,104 @@ class ServingEngine:
 
     def _set_degraded(self, on, reason="overload"):
         """Latch or clear degraded mode: speculation is suspended (the
-        dispatch feeds no drafts) while the engine is overloaded."""
+        dispatch feeds no drafts) while the engine is overloaded,
+        serving_degraded flips and /healthz reports the engine
+        degraded."""
         on = bool(on)
         if on == self._degraded:
             return
         self._degraded = on
         self._metrics["degraded"].set(int(on))
+        name = f"engine{self._eid}"
+        if on:
+            if self._fatal_error is None:
+                _tserver.set_degraded(name, reason)
+            telemetry.flight.record("degraded", engine=self._eid,
+                                    reason=reason)
+        else:
+            if self._fatal_error is None:    # "fatal" stays on /healthz
+                _tserver.clear_degraded(name)
+            telemetry.flight.record("recovered", engine=self._eid)
+
+    def _latch_fatal(self, phase, exc):
+        """A CUDA or kernel error is about to propagate out of step():
+        the engine stays not ready for good (a sticky CUDA error poisons
+        the process's context), /healthz names it, and an armed flight
+        recorder dumps once. Nothing here may mask `exc`."""
+        if self._fatal_error is not None:
+            return
+        self._fatal_error = f"{type(exc).__name__}: {exc}"[:200]
+        name = f"engine{self._eid}"
+        _tserver.set_degraded(name, "fatal")
+        telemetry.flight.record("fatal", engine=self._eid, phase=phase,
+                                error=self._fatal_error)
+        try:
+            telemetry.flight.trigger(
+                f"fatal:{name}", {"phase": phase, "error": self._fatal_error})
+        except Exception:               # noqa: BLE001 — keep `exc`
+            pass
+
+    # -- drain and readiness (the frontend's seams) -------------------------
+    @property
+    def draining(self):
+        return self._draining
+
+    @property
+    def drained(self):
+        """True once a drain() completed: admission closed and no queued
+        or running work left (every slot and page released)."""
+        return self._draining and not self.scheduler.has_work
+
+    @property
+    def warmed(self):
+        """True after mark_warm()."""
+        return self._steady
+
+    def is_ready(self):
+        """Readiness for new traffic: warmed AND not degraded AND not
+        draining (the /readyz conjunction). A not-ready engine still
+        serves its in-flight work. An engine that saw a CUDA or kernel
+        error is never ready again."""
+        return self._steady and not self._degraded and not self._draining \
+            and self._fatal_error is None
+
+    def _ready_probe(self):
+        return {"warmed": self._steady,
+                "degraded": "fatal" if self._fatal_error else self._degraded,
+                "draining": self._draining}
+
+    @thread_safe
+    def drain(self):
+        """Begin a drain: a new submit() rejects with
+        ShedError(reason="draining", retry_after_s=<drain estimate>),
+        while queued and running requests are served by step() until the
+        engine is empty (`drained`). undrain() reopens. Idempotent."""
+        if self._draining:
+            return
+        self._draining = True
+        telemetry.flight.record("draining", engine=self._eid)
+
+    @thread_safe
+    def undrain(self):
+        """Reopen admission after a drain (no-op when not draining)."""
+        if not self._draining:
+            return
+        self._draining = False
+        telemetry.flight.record("undrained", engine=self._eid)
 
     # -- public API --------------------------------------------------------
     @loop_only
     def submit(self, request):
         """Queue a Request. An over-long prompt or an unknown adapter
         raises MXNetError; a full queue raises QueueFullError (a tenant
-        over its quota TenantQuotaError) and a policy shed ShedError,
-        with request.status == "shed" and the rejection counted."""
+        over its quota TenantQuotaError), a policy shed or a draining
+        engine ShedError, with request.status == "shed", the rejection
+        counted and a terminal `rejected` timeline recorded."""
         if request.prompt_len > self.max_length:
             self._metrics["requests_rejected"].inc()
+            telemetry.request_log.terminal(
+                request.id, self._eid, "rejected",
+                reason="prompt_too_long", prompt_len=request.prompt_len)
             raise MXNetError(
                 f"prompt of {request.prompt_len} tokens exceeds slot "
                 f"capacity {self.max_length}")
@@ -700,15 +1267,22 @@ class ServingEngine:
             pool = self.adapter_pool
             if pool is None or not pool.has(request.adapter_id):
                 self._metrics["requests_rejected"].inc()
+                telemetry.request_log.terminal(
+                    request.id, self._eid, "rejected",
+                    reason="unknown_adapter",
+                    adapter_id=str(request.adapter_id))
                 raise MXNetError(
                     f"adapter {request.adapter_id!r} is not registered "
                     + ("(engine has no adapter pool)" if pool is None
                        else "with this engine's adapter pool"))
+        if self._draining:
+            self._reject(request, "draining")
         now = self._clock()
         request.t_submit = now
         request.t_deadline = None if request.deadline_ms is None \
             else now + request.deadline_ms / 1e3
         request.output_tokens = []
+        request.token_times = []
         request.dispatch_failures = 0
         request.t_not_before = 0.0
         if self.policy is not None:
@@ -722,8 +1296,46 @@ class ServingEngine:
                          "tenant_quota" if isinstance(e, TenantQuotaError)
                          else "queue_full", cause=e)
         request.status = "queued"
+        request.phases = {}
         request.t_enqueue = now
+        t = getattr(request, "trace", None) or {}
+        tr = telemetry.request_log.begin(
+            request.id, self._eid, trace_id=t.get("trace_id"),
+            prompt_len=request.prompt_len,
+            max_new_tokens=request.max_new_tokens,
+            priority=request.priority, deadline_ms=request.deadline_ms,
+            parent_span=t.get("parent_span"))
+        if tr is not None and not t:
+            # no upstream trace context: the id minted here rides the
+            # Request
+            request.trace = {"trace_id": tr.trace_id}
+        self._metrics["queue_depth"].set(self.scheduler.num_queued)
         return out
+
+    @loop_only
+    def cancel(self, request_id):
+        """Abort a request by id, queued or running: a queued one is
+        dequeued, a running one releases its slot and page leases at
+        once (tokens already emitted stay on the Request). Returns the
+        cancelled Request, or False when the id is unknown or already
+        terminal (so a cancel racing a natural finish is a no-op).
+        Call from the serving thread."""
+        req = self.scheduler.cancel_queued(request_id)
+        if req is None:
+            slot = self.scheduler.slot_of(request_id)
+            if slot is None:
+                return False
+            req = self._release_slot(slot)
+        self._drop_swap(req)
+        req.t_finish = self._clock()
+        req.status = "cancelled"
+        self._metrics["requests_cancelled"].inc()
+        telemetry.request_log.end(request_id, self._eid, "cancelled",
+                                  tokens=len(req.output_tokens))
+        self._stream_close(req)
+        self._set_load_gauges()
+        self._set_pool_gauges()
+        return req
 
     @property
     def has_work(self):
@@ -752,6 +1364,7 @@ class ServingEngine:
                 self._admit(slot, req)
             except Exception as e:          # noqa: BLE001 — supervisor
                 if _fatal(e):
+                    self._latch_fatal("prefill", e)
                     raise
                 q = self._on_admit_fault(slot, req, e)
                 if q is not None:
@@ -765,13 +1378,16 @@ class ServingEngine:
                 victim = self.policy.preempt_victim(self)
                 if victim is not None:
                     self._preempt_slot(victim)
+        self._set_load_gauges()
         if self.scheduler.num_active:
             try:
                 finished.extend(self._dispatch())
             except Exception as e:          # noqa: BLE001 — supervisor
                 if _fatal(e):
+                    self._latch_fatal("decode", e)
                     raise
                 finished.extend(self._on_decode_fault(e))
+            self._set_load_gauges()
         return finished
 
     @thread_safe
@@ -863,8 +1479,11 @@ class ServingEngine:
                 self.submit(r)
             except (QueueFullError, ShedError):
                 done.append(r)
-        while self.has_work:
-            done.extend(self.step())
+        t_drain0 = self._clock()
+        with span("serving.drain", engine=self._eid):
+            while self.has_work:
+                done.extend(self.step())
+        self._metrics["drain_seconds"].observe(self._clock() - t_drain0)
         done.sort(key=lambda r: r.t_submit)
         return done
 
@@ -911,6 +1530,9 @@ class ServingEngine:
         req.status = "shed"
         req.t_finish = self._clock()
         self._shed_inc("deadline_queued", req.priority, req.tenant)
+        telemetry.request_log.end(req.id, self._eid, "rejected",
+                                  reason="deadline", queued=True, tokens=0)
+        self._stream_close(req)
         return req
 
     def _deadline_cancel(self, slot):
@@ -920,15 +1542,29 @@ class ServingEngine:
         req = self._release_slot(slot)
         req.status = "deadline"
         self._shed_inc("deadline_running", req.priority, req.tenant)
+        telemetry.request_log.end(req.id, self._eid, "finished",
+                                  reason="deadline",
+                                  tokens=len(req.output_tokens))
+        self._stream_close(req)
+        self._set_pool_gauges()
         return req
 
     # -- fault supervision ----------------------------------------------------
     def _audit_and_latch(self, phase, exc):
         """Post-fault integrity check while the implicated slots still
-        hold their leases: the page and adapter audits. Returns the
-        violations (normally none). The reference also latches a
-        flight-recorder dump here; the recorder is not ported yet."""
-        return self.audit_pages()
+        hold their leases: the page and adapter audits, then a latched
+        flight-recorder dump naming the fault. Returns the violations
+        (normally none)."""
+        violations = self.audit_pages()
+        detail = f"{phase}: {type(exc).__name__}: {exc}"
+        if violations:
+            detail += " | audit: " + "; ".join(violations)
+        telemetry.flight.record("dispatch_error", engine=self._eid,
+                                phase=phase, error=str(exc)[:200],
+                                audit_violations=len(violations))
+        telemetry.flight.trigger(f"dispatch_error:engine{self._eid}",
+                                 detail)
+        return violations
 
     def _quarantine(self, req, error):
         """Terminal failure after max_retries blamed faults: "failed";
@@ -937,6 +1573,14 @@ class ServingEngine:
         req.status = "failed"
         req.t_finish = self._clock()
         self._metrics["requests_failed"].inc()
+        telemetry.request_log.end(
+            req.id, self._eid, "failed", reason="error",
+            failures=req.dispatch_failures, error=str(error)[:200],
+            tokens=len(req.output_tokens))
+        telemetry.flight.record("quarantined", engine=self._eid,
+                                request=req.id,
+                                failures=req.dispatch_failures)
+        self._stream_close(req)
         return req
 
     def _requeue(self, req, now, blamed, error=""):
@@ -955,10 +1599,13 @@ class ServingEngine:
         else:
             backoff = self.retry_backoff_s
         req.t_not_before = now + backoff
-        req.t_enqueue = now
+        req.t_enqueue = now     # queue_wait counts again from here
         self._metrics["dispatch_retries"].inc()
         self.scheduler.requeue(req)
         req.status = "queued"
+        telemetry.request_log.event(
+            req.id, self._eid, "requeued", blamed=blamed,
+            failures=req.dispatch_failures, backoff_s=round(backoff, 4))
         return None
 
     def _on_admit_fault(self, slot, req, exc):
@@ -982,6 +1629,7 @@ class ServingEngine:
         self._sync_slot(slot)
         if not backpressure:
             self._audit_and_latch("prefill", exc)
+        self._set_pool_gauges()
         return self._requeue(req, now, blamed=not backpressure,
                              error=str(exc))
 
@@ -1007,6 +1655,7 @@ class ServingEngine:
                               error=str(exc))
             if q is not None:
                 quarantined.append(q)
+        self._set_pool_gauges()
         return quarantined
 
     def _scrub_slot_pages(self, slot):
@@ -1043,11 +1692,15 @@ class ServingEngine:
         quarantined = []
         for slot in reversed(bad):
             req = self.scheduler.request_at(slot)
+            telemetry.request_log.event(
+                req.id, self._eid, "decode_discarded", slot=slot,
+                reason="nonfinite_logits")
             self._scrub_slot_pages(slot)
             self._release_slot(slot)
             q = self._requeue(req, now, blamed=True, error=exc_msg)
             if q is not None:
                 quarantined.append(q)
+        self._set_pool_gauges()
         return quarantined
 
     # -- slots and pages ---------------------------------------------------
@@ -1276,10 +1929,15 @@ class ServingEngine:
         finally:
             for key in taken:
                 self.host_pool.release(key, drop=ok)
+        dt = self._clock() - t0
         m = self._metrics
         m["kv_pagein_pages"].inc(len(items))
         m["kv_pagein_bytes"].inc(nbytes)
-        m["kv_pagein_seconds"].observe(self._clock() - t0)
+        m["kv_pagein_seconds"].observe(dt)
+        # per-request attribution: _admit zeroes this before the page
+        # map, so what the match paged in lands in the admitting
+        # request's host_pagein phase
+        self._pagein_acc += dt
 
     def _host_evict(self, key):
         """HostPagePool evict_cb: node payloads go through the prefix
@@ -1354,6 +2012,10 @@ class ServingEngine:
         req.t_enqueue = self._clock()
         self.scheduler.requeue(req)
         req.status = "queued"
+        telemetry.request_log.event(
+            req.id, self._eid, "preempted", slot=slot,
+            swapped=req.swap is not None, tokens=len(req.output_tokens))
+        self._set_pool_gauges()
 
     def _restore_slot(self, slot, req, length, cur_tok, remaining,
                       counters):
@@ -1450,6 +2112,9 @@ class ServingEngine:
         self._restore_slot(slot, req, swap["length"], swap["cur_tok"],
                            swap["remaining"], swap["counters"])
         m["preempt_resumed"].inc()
+        telemetry.request_log.event(req.id, self._eid, "resumed_swap",
+                                    slot=slot, tokens=len(req.output_tokens))
+        self._set_pool_gauges()
         return True
 
     # -- admission -----------------------------------------------------------
@@ -1485,6 +2150,11 @@ class ServingEngine:
             else np.concatenate([req.prompt,
                                  np.asarray(req.output_tokens, np.int32)])
         Tp = int(tokens.size)
+        telemetry.request_log.event(req.id, self._eid, "admitted",
+                                    slot=slot)
+        if base:
+            telemetry.request_log.event(req.id, self._eid, "resumed",
+                                        tokens=base)
         self._fire_hook("prefill", (req,))
         pool = self.adapter_pool
         if pool is not None:
@@ -1500,18 +2170,48 @@ class ServingEngine:
                 return
             self._drop_swap(req)
             self._metrics["preempt_restarted"].inc()
+            telemetry.request_log.event(req.id, self._eid, "swap_stale")
+        t_map0 = self._clock()
+        self._pagein_acc = 0.0
         offset = self._map_slot_pages(slot, tokens,
                                       match=not (self._quant and base))
+        t_map1 = self._clock()
+        pagein_s = self._pagein_acc
         req.status = "prefilling"
         if req.tenant is not None:
             self._tenant_child("admitted", req.tenant).inc()
         m = self._metrics
-        if self.prefix_cache is not None:
+        pc = self.prefix_cache
+        if pc is not None:
+            telemetry.request_log.event(req.id, self._eid, "prefix_match",
+                                        cached_tokens=offset)
             if offset:
                 m["prefix_hits"].inc()
                 m["prefix_tokens_saved"].inc(offset)
             else:
                 m["prefix_misses"].inc()
+        # the KV tier of this admission: a page-in during the match
+        # brought the prefix back from the host tier; a hit without one
+        # was device-resident; no cached prefix is a cold start
+        self._kv_tier[slot] = "spilled" if pagein_s > 0.0 \
+            else ("resident" if offset else "cold")
+        self._chunks_fed[slot] = 0
+        if not base:
+            # latency metrics describe the FIRST admission only: a
+            # restart's wait is retry bookkeeping, not the user's TTFT
+            m["admission_wait"].observe(self._clock() - req.t_submit)
+            # TTFT phase budget: queue_wait ends where the page map
+            # begins; the map splits into prefix_match and host_pagein;
+            # prefill_chunks and first_decode close at the first token
+            t_enq = getattr(req, "t_enqueue", None)
+            self._phase(req, "queue_wait",
+                        t_map0 - (t_enq if t_enq is not None
+                                  else req.t_submit))
+            self._phase(req, "prefix_match", (t_map1 - t_map0) - pagein_s,
+                        cached_tokens=int(offset))
+            if pagein_s > 0.0:
+                self._phase(req, "host_pagein", pagein_s)
+            req.t_mark = t_map1
         # every decode step writes one KV and the last sampled token is
         # never written, so a sequence of Tp supports up to
         # max_length - Tp + 1 further tokens; `base` already spent that
@@ -1557,6 +2257,12 @@ class ServingEngine:
         self._set_sampling(slot, req)
         self._hist[slot] = None         # drafting starts after prefill
         self._sync_slot(slot)
+        m["prefill_pending"].set(self._pending_tokens())
+        if pc is not None or self.adapter_pool is not None:
+            self._set_pool_gauges()
+
+    def _pending_tokens(self):
+        return sum(int(p.size) for p in self._pending if p is not None)
 
     def _release_slot(self, slot):
         """Free a slot: scheduler slot back to the pool, page leases
@@ -1587,10 +2293,69 @@ class ServingEngine:
         self._aslot[slot] = 0
 
     def _finish(self, slot):
+        # read the stop cause before the release parks the slot: budget
+        # exhaustion leaves remaining <= 0, an eos leaves budget
+        reason = "budget" if self._remaining[slot] <= 0 else "eos"
         req = self._release_slot(slot)
         req.status = "finished"
         self._finish_times.append(self._clock())   # drain-rate window
         self._metrics["requests_finished"].inc()
+        if req.t_admit is not None and req.t_finish > req.t_admit \
+                and len(req.output_tokens) > 1:
+            # per-request decode goodput (tokens/s from first token to
+            # finish): the goodput SLO's observation stream
+            telemetry.slo.observe_goodput(
+                (len(req.output_tokens) - 1) / (req.t_finish - req.t_admit),
+                priority=req.priority, tenant=req.tenant)
+        telemetry.request_log.end(req.id, self._eid, "finished",
+                                  reason=reason,
+                                  tokens=len(req.output_tokens))
+        self._stream_close(req)
+        self._set_pool_gauges()
+        return req
+
+    # -- per-request token streams (serving/frontend.py subscribes) ---------
+    def _stream_emit(self, req, tokens):
+        """Feed freshly emitted tokens to the request's subscriber stream,
+        if any (anything with emit(list) -> bool). False when its bounded
+        buffer could not take them (the slow-client signal); a raising
+        subscriber counts the same and never takes the engine down."""
+        st = req.stream
+        if st is None:
+            return True
+        try:
+            return bool(st.emit(tokens))
+        except Exception:           # noqa: BLE001 — subscriber fault
+            return False
+
+    def _stream_close(self, req):
+        """Close the request's subscriber stream (if any) with its
+        terminal status, waking a reader blocked on it."""
+        st = req.stream
+        if st is None:
+            return
+        try:
+            st.close(req.status)
+        except Exception:           # noqa: BLE001 — subscriber fault
+            pass
+
+    def _overflow_cancel(self, slot):
+        """Slow-client policy: the request's stream could not take this
+        dispatch's tokens, so the request is cancelled (slot, pages and
+        adapter released; terminal `cancelled(stream_overflow)`) instead
+        of buffering without bound. The stream closes with its overflow
+        flag set, and the frontend sends the client an overflow error
+        event."""
+        req = self._release_slot(slot)
+        req.status = "cancelled"
+        self._metrics["requests_cancelled"].inc()
+        telemetry.request_log.end(req.id, self._eid, "cancelled",
+                                  reason="stream_overflow",
+                                  tokens=len(req.output_tokens))
+        telemetry.flight.record("stream_overflow", engine=self._eid,
+                                request=req.id)
+        self._stream_close(req)
+        self._set_pool_gauges()
         return req
 
     # -- the dispatch -------------------------------------------------------
@@ -1604,7 +2369,8 @@ class ServingEngine:
         device-resident slot state. Returns the (8 + S, B) int32 host
         array [lengths, cur_tok, done, remaining, counters, n_em, n_acc,
         ok, the S emitted token rows (-1 past n_em)], S = spec_tokens (1
-        without speculation): the dispatch's one device-to-host copy."""
+        without speculation), still on the device: the caller makes the
+        dispatch's one device-to-host copy."""
         B, W = self.num_slots, self._width
         d = self._dstate
         toks_in = grid[:, :W]
@@ -1692,7 +2458,7 @@ class ServingEngine:
                                       d["remaining"], d["counters"], n_em,
                                       n_acc, ok.to(torch.int32)]),
                          toks.T.to(torch.int32)])
-        return out.cpu().numpy().copy()
+        return out
 
     def _next_chunk(self, slot, pend, budget):
         """How many pending tokens the slot feeds in this dispatch (0:
@@ -1762,19 +2528,47 @@ class ServingEngine:
                                is_final[:, None], decode_mask[:, None],
                                n_draft[:, None]], axis=1).astype(np.int32)
         greedy_only = not bool(self._do_sample[active_slots].any())
-        out = self._unified(self._upload(grid), greedy_only)
+        cost_on = _cost.enabled()
+        if cost_on:
+            qn = np.where(chunk_len > 0, chunk_len,
+                          np.where(decode_mask, 1 + n_draft, 0))
+            cost = _cost.gpt2_dispatch_cost(
+                self.model.config, qn, self._lengths, W,
+                sum(self.weight_bytes.values()), self._kp.element_size(),
+                self._cost_logits_bytes)
+        events = self._dispatch_events() if cost_on else None
+        t0 = self._clock()
+        h0 = time.perf_counter()
+        with span("serving.dispatch", engine=self._eid,
+                  active=len(active_slots),
+                  prefill_tokens=int(chunk_len.sum()),
+                  drafted=int(n_draft.sum())):
+            if events is not None:
+                events[0].record()
+            out = self._unified(self._upload(grid), greedy_only)
+            if events is not None:
+                events[1].record()
+            # the dispatch's ONE device-to-host copy; it waits for the
+            # stream, so the end event has completed when it returns
+            out = out.cpu().numpy().copy()
+        h1 = time.perf_counter()
+        now = self._clock()
+        dt = now - t0
         (self._lengths, self._cur_tok, done, self._remaining,
          self._counters, n_em, n_acc, ok) = out[:8]
         toks = out[8:].T
         self._done = done.astype(bool)
-        now = self._clock()
         m = self._metrics
         m["decode_dispatches"].inc()
+        m["decode_steps"].inc()
+        m["decode_seconds"].observe(dt)
         n_chunks = int((chunk_len > 0).sum())
         if n_chunks:
             m["prefill_chunks"].inc(n_chunks)
             m["prefill_tokens"].inc(int(chunk_len.sum()))
-        finished, bad = [], []
+            m["prefill_seconds"].observe(dt)
+        rl = telemetry.request_log
+        finished, bad, overflowed = [], [], []
         emitted_total = accepted = 0
         for slot in active_slots:
             req = self.scheduler.request_at(slot)
@@ -1786,6 +2580,10 @@ class ServingEngine:
             cl = int(chunk_len[slot])
             if cl:
                 self._pending[slot] = self._pending[slot][cl:]
+                self._chunks_fed[slot] += 1
+                if rl.enabled:
+                    rl.event(req.id, self._eid, "prefill_chunk", dur=dt,
+                             tokens=cl, final=bool(is_final[slot]))
                 if not is_final[slot]:
                     req.dispatch_failures = 0
                     req.t_not_before = 0.0
@@ -1793,44 +2591,112 @@ class ServingEngine:
                 # final chunk: the first token landed in this dispatch
                 self._pending[slot] = None
                 self._replay[slot] = None
+                first = int(toks[slot, 0])
+                req.output_tokens.append(first)
+                req.token_times.append(now)
+                streamed = self._stream_emit(req, [first])
+                req.dispatch_failures = 0
+                req.t_not_before = 0.0
                 req.status = "running"
+                rl.event(req.id, self._eid, "prefill", dur=dt,
+                         first_token=first)
                 m["prefills"].inc()
+                emitted_total += 1
                 if not self._base[slot]:
                     req.t_admit = now
-                    m["ttft"].observe(now - req.t_submit)
+                    ttft = now - req.t_submit
+                    tier = self._kv_tier[slot]
+                    m["ttft"].observe(ttft)
+                    self._observe_ttft(req.prompt_len, ttft, tier)
+                    # close the phase budget: admit mark -> this
+                    # dispatch's start is prefill_chunks, the dispatch
+                    # that sampled the first token is first_decode
+                    t_mark = getattr(req, "t_mark", None)
+                    if rl.enabled and t_mark is not None:
+                        self._phase(req, "prefill_chunks", t0 - t_mark,
+                                    chunks=int(self._chunks_fed[slot]))
+                        self._phase(req, "first_decode", dt)
+                        rl.event(req.id, self._eid, "first_token",
+                                 ttft=ttft, kv_tier=tier)
+                    self._observe_phase_budget(req, tier)
+                    telemetry.slo.observe_ttft(
+                        ttft, priority=req.priority, tenant=req.tenant)
                 pc = self.prefix_cache
-                n_full = req.prompt_len // self.page_size
-                if pc is not None and n_full:
-                    # adopt the prompt's full pages into the radix tree;
-                    # membership locks them, so refresh the device mask
-                    pc.insert(req.prompt, [int(p) for p in
-                                           self._table_host[slot][:n_full]])
-                    self._d_lock = self._upload(self._page_lock_host())
-            elif not decode_mask[slot]:
+                if pc is not None:
+                    n_full = req.prompt_len // self.page_size
+                    if n_full:
+                        # adopt the prompt's full pages into the radix
+                        # tree; membership locks them, so refresh the
+                        # device mask
+                        pc.insert(req.prompt,
+                                  [int(p) for p in
+                                   self._table_host[slot][:n_full]])
+                        self._d_lock = self._upload(self._page_lock_host())
+                    self._set_pool_gauges()
+                if self.speculative:
+                    self._hist[slot] = [int(t) for t in req.prompt] \
+                        + req.output_tokens
+                if not streamed:
+                    overflowed.append(slot)
+                elif self._done[slot] or self._remaining[slot] <= 0:
+                    finished.append(self._finish(slot))
+                continue
+            if not decode_mask[slot]:
                 continue                # chunk queued but out of budget
+            n = int(n_em[slot])
+            emitted = [int(t) for t in toks[slot, :n]]
+            req.output_tokens.extend(emitted)
+            req.token_times.extend([now] * n)
+            streamed = self._stream_emit(req, emitted) if n else True
             # a clean dispatch clears the request's failure history:
             # probation is for consecutive faults
             req.dispatch_failures = 0
             req.t_not_before = 0.0
-            emitted = [int(t) for t in toks[slot, :int(n_em[slot])]]
-            req.output_tokens.extend(emitted)
-            emitted_total += len(emitted)
+            if self.speculative and self._hist[slot] is not None:
+                self._hist[slot].extend(emitted)
+            if rl.enabled:
+                if self.speculative:
+                    rl.event(req.id, self._eid, "verify", dur=dt,
+                             drafted=int(n_draft[slot]),
+                             accepted=int(n_acc[slot]), tokens=n)
+                else:
+                    rl.event(req.id, self._eid, "decode", dur=dt, tokens=n)
+            emitted_total += n
             accepted += int(n_acc[slot])
-            if self.speculative:
-                if cl:
-                    self._hist[slot] = [int(t) for t in req.prompt] \
-                        + req.output_tokens
-                elif self._hist[slot] is not None:
-                    self._hist[slot].extend(emitted)
-            if self._done[slot] or self._remaining[slot] <= 0:
+            if n:
+                m["token_latency"].observe(dt / n, n)
+            if not streamed:
+                overflowed.append(slot)
+            elif self._done[slot] or self._remaining[slot] <= 0:
                 finished.append(self._finish(slot))
+        for slot in overflowed:
+            finished.append(self._overflow_cancel(slot))
         m["tokens_emitted"].inc(emitted_total)
+        m["prefill_pending"].set(self._pending_tokens())
+        rejected = 0
         if self.speculative:
             drafted = int(n_draft.sum())
+            rejected = drafted - accepted
             m["spec_draft_tokens"].inc(drafted)
             m["spec_accepted_tokens"].inc(accepted)
-            m["spec_rollbacks"].inc(drafted - accepted)
+            m["spec_rollbacks"].inc(rejected)
+        if cost_on:
+            if events is not None:
+                seconds = events[0].elapsed_time(events[1]) / 1e3
+            else:
+                seconds = h1 - h0
+            self._account_flops(seconds, cost, wasted_rows=rejected)
         if bad:
             finished.extend(self._on_bad_slots(
                 bad, "non-finite logits in unified dispatch"))
         return finished
+
+    def _dispatch_events(self):
+        """The reused (start, end) CUDA timing events of the dispatch
+        (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        if self._events is None:
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+        return self._events

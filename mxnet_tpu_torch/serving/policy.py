@@ -1,10 +1,7 @@
 """SLO-aware admission and load-shedding policy.
 
 A copy of mxnet_tpu/serving/policy.py (pure Python; the port keeps its
-own so that it never imports the JAX package). One difference: the port
-has no SLO engine yet, so `slo` takes only None (no registered
-objective, which burns nothing, as the reference does with none
-registered) or False; an SLO engine object raises.
+own so that it never imports the JAX package).
 
 The engine publishes the control SIGNALS — queue depth, the TTFT
 histogram, the admission-capacity estimate. This module closes the
@@ -34,8 +31,8 @@ Degradation: `degrade_after` consecutive overloaded steps latch the
 engine degraded — speculative decoding is suspended (wasted verify
 FLOPs are pure loss when demand exceeds capacity; the engine falls
 back to the plain decode program and re-enables speculation on
-recovery) and `serving_degraded` flips (the reference also flags
-/healthz and the flight ring, not ported yet). `recover_after`
+recovery), `serving_degraded`/`/healthz` flip, and a breadcrumb lands
+in the flight ring. `recover_after`
 consecutive non-overloaded steps clear it. All thresholds default from
 engine shape (watermarks at 1x/2x num_slots) so `SheddingPolicy()` is
 usable as-is.
@@ -45,8 +42,6 @@ The policy is pure host arithmetic over a handful of counters.
 from __future__ import annotations
 
 import math
-
-from ..base import not_ported
 
 __all__ = ["SheddingPolicy"]
 
@@ -80,11 +75,15 @@ class SheddingPolicy:
         `_preempt_slot`; needs `host_kv_bytes` on the engine). Off by
         default: preemption beats shedding only when the host tier
         exists to keep the partial work.
-    slo: None (the default: no objective is registered, so none
-        burns) or False (the signal off). The reference also takes an
-        SLOEngine whose burning objectives count toward overload like
-        a blown TTFT p99; that engine is not ported yet, so any other
-        value raises. slo_eval_interval_s is kept for the snapshot.
+    slo: an SLOEngine (default: the process-global
+        `telemetry.slo.slo_engine`; pass False to disable). Any
+        objective whose FAST window is burning error budget at >=
+        `fast_burn` counts toward overload exactly like a blown TTFT
+        p99 — the multi-window burn rate reacts in ~1 min where the
+        raw p99 needs the histogram to rotate, so shedding starts
+        while there is still budget left to protect. Evaluation is
+        throttled to `slo_eval_interval_s` (assess runs on every
+        submit AND every step; burn rates move on window timescales).
     """
 
     def __init__(self, ttft_slo_ms=None, queue_low=None, queue_high=None,
@@ -106,9 +105,7 @@ class SheddingPolicy:
         if self.tenant_queue_share is not None \
                 and not 0.0 < self.tenant_queue_share <= 1.0:
             raise ValueError("tenant_queue_share must be in (0, 1]")
-        if slo is not None and slo is not False:
-            raise not_ported("SheddingPolicy(slo=<SLO engine>)")
-        self.slo = slo             # None: no objectives; False: off
+        self.slo = slo             # None → global engine; False → off
         self.slo_eval_interval_s = float(slo_eval_interval_s)
         self._slo_last = None      # (clock_t, frozenset(burning names))
         self._hot = 0              # consecutive overloaded ticks
@@ -134,10 +131,24 @@ class SheddingPolicy:
         return (not math.isnan(p99)) and p99 * 1e3 > self.ttft_slo_ms
 
     def _slo_burning(self, engine):
-        """Objective names whose fast window is burning: none, as long
-        as the port has no SLO engine (the reference's answer with no
-        objective registered)."""
-        return ()
+        """Objective names whose fast window is burning, re-evaluated
+        at most every `slo_eval_interval_s` (assess runs per submit
+        and per step; burn rates only move on window timescales)."""
+        if self.slo is False:
+            return ()
+        eng = self.slo
+        if eng is None:
+            from .. import telemetry
+            eng = telemetry.slo.slo_engine
+        if not eng.objectives:
+            return ()
+        t = engine._clock()
+        if self._slo_last is not None \
+                and t - self._slo_last[0] < self.slo_eval_interval_s:
+            return self._slo_last[1]
+        burning = tuple(eng.fast_burning())
+        self._slo_last = (t, burning)
+        return burning
 
     def assess(self, engine):
         """Current overload level from live telemetry (also stored on

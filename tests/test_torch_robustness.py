@@ -456,7 +456,8 @@ def test_dispatch_hook_phases_match_jax(sides):
 def test_supervisor_reraises_card_and_kernel_errors(sides, error, phase):
     """A CUDA error (torch.AcceleratorError) or a kernel that does not
     build or launch, raised inside an admission or a dispatch, leaves
-    step() instead of being requeued: retrying would hide the card."""
+    step() instead of being requeued (retrying would hide the card),
+    and the engine is not ready from then on."""
     eng = sides["port"].engine()
     exc = torch.AcceleratorError("CUDA error: an illegal memory access "
                                  "was encountered") \
@@ -473,6 +474,7 @@ def test_supervisor_reraises_card_and_kernel_errors(sides, error, phase):
             eng.step()
     assert eng.stats["dispatch_errors"] == 0
     assert eng.stats["dispatch_retries"] == 0
+    assert eng._ready_probe()["degraded"] == "fatal"    # never ready again
 
 
 @pytest.mark.parametrize("n_split", [1, 2, 4])
