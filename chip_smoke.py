@@ -5,7 +5,9 @@
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; never
 JAX. Phases, each printing one JSON line, and any failure raises (the
-script then exits non-zero without the final `ok` line):
+script then exits non-zero without the final `ok` line); after each
+phase the garbage collector runs and the card's cache is emptied, so
+no engine outlives its phase:
 
   1. device   the card's name and power limit (nvidia-smi), torch, CUDA.
   2. build    every CUDA kernel of the port built from csrc/ (one nvcc
@@ -188,13 +190,38 @@ script then exits non-zero without the final `ok` line):
               its TTFT), /trace, /compilez (the kernel libraries loaded,
               no build or load after mark_warm(), cost_mfu of the
               dispatch in (0, 1]), /memz (accounted <= allocated; the
-              remainder printed) and /sloz. One FaultPlan dispatch
+              remainder printed; the phase's engine the only engine
+              listed: nothing of an earlier phase alive) and /sloz. One FaultPlan dispatch
               exception latches exactly one flight dump (events.jsonl,
               metrics.json, state.json). Last, the telemetry's host cost:
               phase 5's traffic served with the request log and the cost
               accounting on and off, switched every dispatch over four
               serves (a warmup serve first): the medians and quartiles
               of ms per dispatch on each side, and their ratio.
+  5j. gpt2_router  ServingRouter over replicas of the same model (phase
+              5's engine geometry each, at most three alive at once),
+              the float32 weights re-seeded first: phase 5's 8 greedy
+              prompts and 8 sampled requests (phase 5h's first 8 prompts,
+              temperature 0.8, seeds 100-107), 32 tokens each. Every case
+              holds every stream to one engine's serve of the same
+              requests, all finished: (a) two replicas, the one owning
+              the first request with 3 tokens (read from the router's
+              owner map) killed by a ReplicaFaultPlan, in float32,
+              bfloat16 and int8 pages (float32 weights, a chunk budget no
+              dispatch reaches): replica_down {"kill": 1}, a request
+              migrated, exactly one replica_down flight dump; (b) a
+              rolling restart: drain(0, migrate=True) once a request has
+              3 tokens, mark_warm, rejoin(0), 4 new requests, some placed
+              on replica 0; (c) three replicas hedging after ten
+              dispatches' time: hedges = won + wasted; (d)
+              ServingFrontend over two replicas, 8 SSE clients, the
+              owner of a request with 3 tokens killed mid-stream. In
+              every case: the dtype's span family 36 times a dispatch
+              summed over the replicas and nothing else, its plain
+              version never, clean page audits, and /memz listing only
+              the case's engines. Dispatches a replica, requests
+              migrated and tokens re-prefilled, routed ms a dispatch
+              against the single engine's, the phase's seconds.
   6. fused    fused_attention's CUDA forward and backward against its
               plain PyTorch version (forward output, dq, dk, dv) at
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
@@ -260,7 +287,8 @@ script then exits non-zero without the final `ok` line):
               pair, its bfloat16 steps for the tensor-core pair; each
               fused entry also with its launches in phase 7b; each span
               entry with its serve_verify cell and its launches in phases
-              5d, 5g, 5h and 5i), errors, times, bound and library times.
+              5d, 5g, 5h, 5i and 5j), errors, times, bound and library
+              times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
 """
@@ -269,6 +297,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1128,6 +1157,16 @@ def serve(torch, eng, prompts, n_new, Request, reqs_out=None):
     return [r.output_tokens for r in reqs], wall
 
 
+def release_device(torch):
+    """Collect what was dropped and return its device memory to the card.
+    An engine with a host tier is a reference cycle (it installs bound
+    methods of itself into its host pool and prefix cache), so `del`
+    alone frees neither it nor its pages: only the collector does."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 KERNEL_CLASSES = (("fused_attention", ("fused_fwd", "fused_bwd")),
                   ("ragged_attention", ("ragged_",)),
                   ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -1321,7 +1360,7 @@ def phase_gpt2(torch, ra, card):
     out["float32_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
                                               Request)
     del eng, cache, logits
-    torch.cuda.empty_cache()
+    release_device(torch)
 
     # the same traffic through the plain versions
     eng = ServingEngine(model, attn_impl="torch", device=DEV, **ekw)
@@ -1331,7 +1370,7 @@ def phase_gpt2(torch, ra, card):
                             "ms_per_dispatch": wall
                             / eng.stats["decode_dispatches"] * 1e3}
     del eng
-    torch.cuda.empty_cache()
+    release_device(torch)
     divergences = []
     for i, (a, b) in enumerate(zip(got, want)):
         if a != b:
@@ -1368,7 +1407,7 @@ def phase_gpt2(torch, ra, card):
     out["bfloat16_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
                                                Request)
     del eng
-    torch.cuda.empty_cache()
+    release_device(torch)
 
     # bfloat16 kernel path against the bfloat16 plain path: with d the
     # largest |kernel - plain| first-token logit (each prompt as one
@@ -1379,11 +1418,11 @@ def phase_gpt2(torch, ra, card):
     want16, _ = serve(torch, eng, prompts, n_new, Request)
     require(ra.LAUNCHES == before, "the bf16 plain path launched a kernel")
     del eng
-    torch.cuda.empty_cache()
+    release_device(torch)
     out["bfloat16_vs_plain"] = first_token_rule(torch, model, prompts,
                                                 got16, want16, "bf16")
     del model
-    torch.cuda.empty_cache()
+    release_device(torch)
     emit(out)
     return out
 
@@ -1520,7 +1559,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     out["kv_bytes_per_token"] = {k: v / 64
                                  for k, v in out["page_bytes"].items()}
     del eng, logits
-    torch.cuda.empty_cache()
+    release_device(torch)
 
     # the same traffic through the plain versions
     eng = ServingEngine(model, attn_impl="torch", device=DEV, **ekw)
@@ -1531,7 +1570,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     require(ra.LAUNCHES[INT8] == launches[INT8] + GPT2_LAYERS,
             "the plain path launched a kernel")
     del eng
-    torch.cuda.empty_cache()
+    release_device(torch)
     divergences = []
     for i, (a, b) in enumerate(zip(got, want)):
         if a != b:
@@ -1602,7 +1641,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     out["bfloat16_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
                                                Request)
     del eng, model
-    torch.cuda.empty_cache()
+    release_device(torch)
     emit(out)
     return out
 
@@ -1681,7 +1720,7 @@ def phase_prefix(torch, ra, card):
                         "page_bytes": eng.page_pool.page_bytes,
                         "hbm_budget_bytes": kw.get("hbm_budget_bytes")}
             del eng
-            torch.cuda.empty_cache()
+            release_device(torch)
         off, on = runs[False], runs[True]
         require(on["streams"] == off["streams"],
                 f"prefix {kv}: streams differ with the cache on and off")
@@ -1694,7 +1733,7 @@ def phase_prefix(torch, ra, card):
             del r["streams"]
         out[kv] = {"off": off, "on": on, "streams_identical": True}
     del model
-    torch.cuda.empty_cache()
+    release_device(torch)
     emit(out)
     return out
 
@@ -1881,14 +1920,14 @@ def phase_gpt2_spec(torch, ra, card):
                                                want, f"spec {label}")
         res["streams_equal_kernel_plain"] = got == want
         del eng
-        torch.cuda.empty_cache()
+        release_device(torch)
         out[label] = res
     out["launches_by_family"] = {
         "float32": out["float32"]["launches"][SPAN],
         "bfloat16": out["bfloat16"]["launches"][SPAN_TC],
         "int8": out["int8_pages"]["launches"][INT8]}
     del model
-    torch.cuda.empty_cache()
+    release_device(torch)
     emit(out)
     return out
 
@@ -1951,7 +1990,7 @@ def phase_gpt2_w8(torch, ra, card, gpt2):
         del eng
     out["divergences_dequantized"] = held_to(got, deq, gaps,
                                              "w8 / dequantized float")
-    torch.cuda.empty_cache()
+    release_device(torch)
     # one budget the float32 weights bind: their bytes + 48 pages (the
     # slots want 128)
     budget = sum(out["weight_bytes"]["float32"].values()) + 48 * page_bytes
@@ -1961,7 +2000,7 @@ def phase_gpt2_w8(torch, ra, card, gpt2):
                             hbm_budget_includes_weights=True, **ekw)
         pages[name] = eng.page_pool.num_pages
         del eng
-        torch.cuda.empty_cache()
+        release_device(torch)
     require(pages["float32"] == 48 and pages["w8"] > pages["float32"],
             f"w8 admitted pages {pages}")
     out["budget"] = {"hbm_budget_bytes": budget, "page_bytes": page_bytes,
@@ -1969,7 +2008,7 @@ def phase_gpt2_w8(torch, ra, card, gpt2):
     out["gpt2_float32_kernel_ms_per_dispatch"] = \
         gpt2["float32_kernel"]["ms_per_dispatch"]
     del model, ref
-    torch.cuda.empty_cache()
+    release_device(torch)
     emit(out)
     return out
 
@@ -2051,13 +2090,13 @@ def phase_gpt2_lora(torch, ra, card, gpt2):
             for k, t in attn.items():
                 t.copy_(torch.from_numpy(base[k]))
         del pool
-        torch.cuda.empty_cache()
+        release_device(torch)
         out["float_slab" if slab is None else "int8_slab"] = res
     out["pool_over_no_pool_ms_per_dispatch"] = \
         out["float_slab"]["pool"]["ms_per_dispatch"] \
         / out["no_pool"]["ms_per_dispatch"]
     del model
-    torch.cuda.empty_cache()
+    release_device(torch)
     emit(out)
     return out
 
@@ -2230,12 +2269,12 @@ def phase_gpt2_tier(torch, ra, card, model, cfg):
             res["tier"]["wall_s"] / res["tier_off"]["wall_s"]
         res["tier_over_off_ms_per_dispatch"] = \
             res["tier"]["ms_per_dispatch"] / res["tier_off"]["ms_per_dispatch"]
-        torch.cuda.empty_cache()
+        release_device(torch)
         out[label] = res
     model.to(torch.float32)
     model.load_state_dict(saved)
     del saved
-    torch.cuda.empty_cache()
+    release_device(torch)
     out["launches_by_family"] = {
         "float32": out["float32"]["launches"][SPAN],
         "bfloat16": out["bfloat16"]["launches"][SPAN_TC],
@@ -2428,7 +2467,7 @@ def phase_gpt2_robust(torch, ra, card, model, cfg):
         "faulted": {"dispatches": d, "wall_s": wall,
                     "ms_per_dispatch": wall / d * 1e3}}
     del eng
-    torch.cuda.empty_cache()
+    release_device(torch)
 
     # preemption: phase gpt2's prompts for the low requests, two of this
     # phase's for the urgent ones; a non-binding chunk budget keeps every
@@ -2521,7 +2560,7 @@ def phase_gpt2_robust(torch, ra, card, model, cfg):
                         "partial_tokens": len(run.output_tokens),
                         "shed": eng.stats["shed"] + eng2.stats["shed"]}
     del eng, eng2
-    torch.cuda.empty_cache()
+    release_device(torch)
     emit(out)
     return out
 
@@ -2838,6 +2877,9 @@ def http_checks(torch, label, res, eng, fe, srv, want, n_new, telemetry):
     require(0.0 < prog["mfu"] <= 1.0, f"http {label}: cost_mfu "
             f"{prog['mfu']}")
     memz = json.loads(http_get(f"{srv.url}/memz")[1])
+    listed = sorted(k for k in memz["components"] if k.startswith("engine/"))
+    require(listed == [f"engine/{eng._eid}"], f"http {label}: /memz lists "
+            f"engines {listed}; only engine/{eng._eid} is alive")
     allocated = torch.cuda.memory_allocated()
     remainder = allocated - memz["accounted_bytes"]
     require(0 <= remainder <= MEMZ_SLACK,
@@ -2900,7 +2942,6 @@ def one_fault_dump(torch, eng, prompts, Request, FaultPlan, telemetry,
 def phase_gpt2_http(torch, ra, card, model, cfg):
     """Phase 5i: the 774M engine behind ServingFrontend, with the
     telemetry plane read over HTTP."""
-    import gc
     import shutil
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.serving import (FaultPlan, Request, ServingEngine,
@@ -2958,8 +2999,7 @@ def phase_gpt2_http(torch, ra, card, model, cfg):
                                                Request, telemetry)
             out[label] = r
             del eng, fe, srv
-            gc.collect()
-            torch.cuda.empty_cache()
+            release_device(torch)
     finally:
         telemetry.slo.configure([])
     from mxnet_tpu_torch.telemetry import cost
@@ -2968,6 +3008,380 @@ def phase_gpt2_http(torch, ra, card, model, cfg):
     out["launches_by_family"] = {
         "float32": out["float32"]["launches"][SPAN],
         "bfloat16": out["bfloat16"]["launches"][SPAN_TC]}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5j: the in-process router over several 774M replicas
+# ---------------------------------------------------------------------------
+
+ROUTER_SAMPLED = dict(temperature=0.8, seed0=100)
+
+
+def router_requests(Request, greedy, sampled, n_new, tag=""):
+    """Phase 5j's traffic: a greedy request g<i> per prompt of `greedy`
+    and a sampled one s<i> (temperature 0.8, seed 100 + i) per prompt of
+    `sampled`, `n_new` tokens each."""
+    return ([Request(p, n_new, request_id=f"{tag}g{i}")
+             for i, p in enumerate(greedy)]
+            + [Request(p, n_new, request_id=f"{tag}s{i}", do_sample=True,
+                       temperature=ROUTER_SAMPLED["temperature"],
+                       seed=ROUTER_SAMPLED["seed0"] + i)
+               for i, p in enumerate(sampled)])
+
+
+def memz_engines(srv):
+    """The engine providers /memz lists."""
+    memz = json.loads(http_get(f"{srv.url}/memz")[1])
+    return sorted(k for k in memz["components"] if k.startswith("engine/"))
+
+
+def require_alone(srv, engines, label):
+    """/memz lists exactly `engines`: no engine of an earlier case or
+    phase is alive."""
+    listed = memz_engines(srv)
+    want = sorted(f"engine/{e._eid}" for e in engines)
+    require(listed == want, f"router {label}: /memz lists {listed}, alive "
+            f"should be {want} only")
+
+
+def router_drive(torch, router, reqs, kill_after=None, ReplicaFaultPlan=None):
+    """Submit `reqs` to `router` and step it until it is idle. With
+    `kill_after`, once a request has emitted that many tokens the replica
+    that owns it (read from the router's owner map) is killed by a
+    ReplicaFaultPlan on the next step. Returns the terminal requests by
+    id, the wall seconds, the victim's index (or None) and the plan's
+    counts."""
+    for r in reqs:
+        router.submit(r)
+    plan, victim, done, steps = None, None, [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        while router.has_work and steps < 20000:
+            if kill_after is not None and plan is None:
+                owned = [(idx, r) for idx, r in router._owner.values()
+                         if len(r.output_tokens) >= kill_after]
+                if owned:
+                    victim = owned[0][0]
+                    plan = ReplicaFaultPlan(kill={1: victim}).install(router)
+            done.extend(router.step())
+            steps += 1
+    finally:
+        if plan is not None:
+            plan.uninstall()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(steps < 20000, "router: the fleet did not drain")
+    return ({r.id: r for r in done}, wall, victim,
+            dict(plan.counts) if plan is not None else {})
+
+
+def router_gates(label, router, engines, done, want, launches, key,
+                 plain_calls):
+    """Every case's gates: each stream equals the single engine's, every
+    request finished, the dtype's span family ran 36 times a dispatch
+    summed over the replicas (nothing else), its plain version never,
+    the page audits are clean. Returns the case's readings."""
+    require(sorted(done) == sorted(want),
+            f"router {label}: terminal {sorted(done)} against "
+            f"{sorted(want)}")
+    bad = [rid for rid, r in done.items()
+           if r.status != "finished" or r.output_tokens != want[rid]]
+    require(not bad, f"router {label}: streams differ from the single "
+            f"engine's for {bad[:4]} (statuses "
+            f"{[done[b].status for b in bad[:4]]})")
+    per = [e.stats["decode_dispatches"] for e in engines]
+    require(launches.get(key, 0) == GPT2_LAYERS * sum(per)
+            and sum(launches.values()) == launches.get(key, 0),
+            f"router {label}: launches {launches} for {per} dispatches")
+    require(plain_calls.calls == 0, f"router {label}: the plain span "
+            f"version ran {plain_calls.calls} times")
+    audits = [e.audit_pages() for e in engines]
+    require(audits == [[]] * len(engines), f"router {label}: audits "
+            f"{[a[:2] for a in audits]}")
+    return {"dispatches_per_replica": per, "launches": launches,
+            "stats": router.stats}
+
+
+def router_migrations(telemetry, engines):
+    """Requests the replicas adopted, and the prompt + emitted tokens
+    they re-prefilled, read from the request log."""
+    eids = {e._eid for e in engines}
+    adopted = [t for t in telemetry.request_log.recent(512)
+               if t.get("migrated_from") and t["engine"] in eids]
+    return {"adopted": len(adopted),
+            "reprefilled_tokens": sum(t["prompt_len"] + t["resumed_tokens"]
+                                      for t in adopted)}
+
+
+def router_http(torch, fe, router, prompts, n_new, ReplicaFaultPlan):
+    """8 SSE clients at once against a frontend over `router`; once a
+    request has 3 tokens, a ReplicaFaultPlan kills the replica that owns
+    it. Returns each client's (status, events), the victim, the plan's
+    counts and the wall seconds."""
+    host, port = fe.host, fe.port
+    killed = {}
+
+    def client(i, p):
+        status, _, text = http_post(host, port, {
+            "prompt": p, "max_new_tokens": n_new, "request_id": f"h{i}"})
+        return status, sse_events(text)
+
+    def killer():
+        deadline = time.time() + HTTP_TIMEOUT / 2
+        while time.time() < deadline:
+            owned = [idx for idx, r in list(router._owner.values())
+                     if len(r.output_tokens) >= 3]
+            if owned:
+                killed["victim"] = owned[0]
+                killed["plan"] = ReplicaFaultPlan(
+                    kill={1: owned[0]}).install(router)
+                return
+            time.sleep(0.002)
+        require(False, "router http: no request reached 3 tokens")
+
+    fns = [lambda i=i, p=p: client(i, p) for i, p in enumerate(prompts)]
+    fns.append(killer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = run_threads(fns)
+        deadline = time.time() + HTTP_TIMEOUT
+        while (router.has_work or fe.stats["active_streams"]) \
+                and time.time() < deadline:
+            time.sleep(0.005)
+    finally:
+        if "plan" in killed:
+            killed["plan"].uninstall()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res[:len(prompts)], killed.get("victim"),
+            dict(killed["plan"].counts) if "plan" in killed else {}, wall)
+
+
+def phase_gpt2_router(torch, ra, card, model, cfg):
+    """Phase 5j: ServingRouter over several replicas of the one 774M model:
+    a replica killed mid-decode (float32, bfloat16 and int8 pages), a
+    rolling restart, hedging and the frontend over a router, each held to
+    one engine's serve of the same traffic."""
+    import shutil
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models import init_params
+    from mxnet_tpu_torch.serving import (ReplicaFaultPlan, Request,
+                                         ServingEngine, ServingFrontend,
+                                         ServingRouter)
+    from mxnet_tpu_torch.telemetry import cost
+
+    t_phase = time.perf_counter()
+    greedy = gpt2_traffic(cfg.vocab_size)
+    sampled = robust_traffic(cfg.vocab_size)[:8]
+    n_new = 32
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
+    out = {"phase": "gpt2_router", "card": card,
+           "config": "gpt2_774m_config", "engine": ekw,
+           "prompt_lens": {"greedy": list(map(len, greedy)),
+                           "sampled": list(map(len, sampled))},
+           "new_tokens": n_new, "sampled": ROUTER_SAMPLED}
+    dump_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "flight_dumps", "router")
+    shutil.rmtree(dump_root, ignore_errors=True)
+    # the seeded float32 weights (phase 5i left the model in bfloat16)
+    model.to(torch.float32)
+    init_params(model, seed=0, std=0.02)
+    srv = telemetry.IntrospectionServer(0)
+
+    def oracle(label, kw, tag=""):
+        """One engine's serve of the traffic: the streams every case of
+        `label` is held to, and its ms per dispatch."""
+        release_device(torch)
+        eng = ServingEngine(model, device=DEV, **kw)
+        require_alone(srv, [eng], f"{label} oracle")
+        reqs = router_requests(Request, greedy, sampled, n_new, tag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = eng.stats["decode_dispatches"]
+        require(all(r.status == "finished" for r in reqs),
+                f"router {label}: the single engine did not finish")
+        return ({r.id: list(r.output_tokens) for r in reqs},
+                {"dispatches": d, "ms_per_dispatch": wall / d * 1e3,
+                 "prefill_tokens": eng.stats["prefill_tokens"]})
+
+    def fleet(label, n, kw, **rkw):
+        release_device(torch)
+        engines = [ServingEngine(model, device=DEV, **kw) for _ in range(n)]
+        require_alone(srv, engines, label)
+        return engines, ServingRouter(engines, **rkw)
+
+    def measured(label, run, key, want):
+        """Run `run()` with the launch counts reset and the plain span
+        version counted; the common gates and readings."""
+        with counting(ra, "_ragged_span_reference") as plain_calls:
+            ra.reset_launches()
+            router, engines, done, wall = run()
+            launches = dict(ra.LAUNCHES)
+        r = router_gates(label, router, engines, done, want, launches, key,
+                         plain_calls)
+        r["wall_s"] = wall
+        r["ms_per_dispatch"] = wall / sum(r["dispatches_per_replica"]) * 1e3
+        r.update(router_migrations(telemetry, engines))
+        return r
+
+    try:
+        # 1. a replica killed mid-decode, in each page dtype
+        for label, dtype, kv, key in (("float32", torch.float32, None, SPAN),
+                                      ("int8_pages", torch.float32, "int8",
+                                       INT8),
+                                      ("bfloat16", torch.bfloat16, None,
+                                       SPAN_TC)):
+            model.to(dtype)
+            kw = dict(ekw, kv_dtype=kv)
+            if kv is not None:
+                # int8 codes depend on where chunks end: a budget no
+                # dispatch reaches keeps each request's chunk grid its own
+                kw["prefill_chunk_budget"] = 8 * 64
+            want, alone = oracle(label, kw)
+            res = {"single_engine": alone}
+            case = f"kill {label}"
+            rec = telemetry.flight.install(
+                out_dir=os.path.join(dump_root, label), stall_timeout=1e9,
+                queue_full_threshold=10 ** 6)
+            try:
+                def run():
+                    engines, router = fleet(case, 2, kw,
+                                            hedge_min_samples=10 ** 9)
+                    done, wall, victim, counts = router_drive(
+                        torch, router,
+                        router_requests(Request, greedy, sampled, n_new),
+                        kill_after=3, ReplicaFaultPlan=ReplicaFaultPlan)
+                    res["victim"], res["faults"] = victim, counts
+                    return router, engines, done, wall
+                r = measured(case, run, key, want)
+                latched = [x for x in rec.latched
+                           if x.startswith("replica_down:")]
+            finally:
+                telemetry.flight.uninstall()
+            st = r["stats"]
+            require(res["faults"] == {"kill": 1}
+                    and st["replica_down"] == {"kill": 1}
+                    and st["migrated"] >= 1 and r["adopted"] >= 1,
+                    f"router {case}: faults {res['faults']}, stats {st}")
+            require(len(latched) == 1, f"router {case}: replica_down dumps "
+                    f"{latched}")
+            res.update(r, dumps=latched,
+                       routed_over_single_ms_per_dispatch=(
+                           r["ms_per_dispatch"] / alone["ms_per_dispatch"]))
+            out[label] = res
+        model.to(torch.float32)
+        init_params(model, seed=0, std=0.02)
+        want, alone = oracle("float32", ekw)
+        late = router_requests(Request, greedy[:4], [], n_new, "late")
+        late_want = {f"late{k}": v for k, v in want.items()
+                     if k in {"g0", "g1", "g2", "g3"}}
+
+        # 2. rolling restart: replica 0 drained with migration mid-serve,
+        # warmed, rejoined, and given new work
+        rolling = {}
+
+        def run():
+            engines, router = fleet("rolling", 2, ekw,
+                                    hedge_min_samples=10 ** 9)
+            reqs = router_requests(Request, greedy, sampled, n_new)
+            for r in reqs:
+                router.submit(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = []
+            while not any(len(r.output_tokens) >= 3 for r in reqs):
+                done.extend(router.step())
+            rolling["before_drain"] = engines[0].scheduler.num_active
+            router.drain(0, migrate=True)
+            require(not engines[0].scheduler.has_work,
+                    "router rolling: replica 0 kept work after the drain")
+            engines[0].mark_warm()
+            router.rejoin(0)
+            for r in late:
+                router.submit(r)
+            rolling["late_owners"] = [router._owner[r.id][0] for r in late]
+            while router.has_work:
+                done.extend(router.step())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return router, engines, {r.id: r for r in done}, wall
+        r = measured("rolling", run, SPAN, dict(want, **late_want))
+        require(r["stats"]["migrated"] >= 1 and r["stats"]["drains"] == 1
+                and rolling["before_drain"] >= 1
+                and 0 in rolling["late_owners"],
+                f"router rolling: {rolling}, stats {r['stats']}")
+        out["rolling"] = dict(r, **rolling)
+        require(not cost.steady_state(), "router rolling: a warm replica "
+                "outlived its case")
+
+        # 3. hedging over three replicas: a request still running after
+        # about ten dispatches is duplicated to the least-loaded replica
+        hedge_s = 10 * alone["ms_per_dispatch"] / 1e3
+
+        def run():
+            engines, router = fleet("hedge", 3, ekw, hedge_after_s=hedge_s)
+            done, wall, _, _ = router_drive(
+                torch, router,
+                router_requests(Request, greedy, sampled, n_new))
+            return router, engines, done, wall
+        r = measured("hedge", run, SPAN, want)
+        st = r["stats"]
+        require(st["hedges"] >= 1
+                and st["hedges"] == st["hedges_won"] + st["hedges_wasted"],
+                f"router hedge: {st}")
+        out["hedge"] = dict(r, hedge_after_s=hedge_s)
+
+        # 4. the frontend over a two-replica router, a kill mid-stream
+        http = {}
+
+        def run():
+            engines, router = fleet("http", 2, ekw,
+                                    hedge_min_samples=10 ** 9)
+            fe = ServingFrontend(router, keepalive_s=0.05,
+                                 step_idle_s=0.001)
+            try:
+                streams, victim, counts, wall = router_http(
+                    torch, fe, router, greedy, n_new, ReplicaFaultPlan)
+            finally:
+                fe.close()
+            http.update(victim=victim, faults=counts)
+            done = {}
+            for i, (status, evs) in enumerate(streams):
+                fin = [p for ev, p in evs if ev == "done"]
+                require(status == 200 and len(fin) == 1,
+                        f"router http: stream h{i} ended {status} {fin}")
+                done[f"g{i}"] = SimpleNamespace(status=fin[0]["status"],
+                                                output_tokens=sse_tokens(evs))
+            return router, engines, done, wall
+        r = measured("http", run, SPAN,
+                     {k: v for k, v in want.items() if k.startswith("g")})
+        require(http["faults"] == {"kill": 1}
+                and r["stats"]["replica_down"] == {"kill": 1}
+                and r["stats"]["migrated"] >= 1,
+                f"router http: {http}, stats {r['stats']}")
+        out["http"] = dict(r, **http)
+        release_device(torch)
+        require(memz_engines(srv) == [], "router: an engine outlived the "
+                f"phase: {memz_engines(srv)}")
+    finally:
+        srv.close()
+        model.to(torch.float32)
+    require(not cost.steady_state(), "router: a warm engine outlived the "
+            "phase")
+    out["single_engine_float32"] = alone
+    out["launches_by_family"] = {
+        "float32": sum(out[c]["launches"][SPAN]
+                       for c in ("float32", "rolling", "hedge", "http")),
+        "bfloat16": out["bfloat16"]["launches"][SPAN_TC],
+        "int8": out["int8_pages"]["launches"][INT8]}
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -3295,7 +3709,7 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
 
 
 def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
-                 card):
+                 router, card):
     """The four span kernels' kernels-line entries: the CUDA-core kernel
     at float32 q (launches from the float32 serves, phases 5 and 5b) and
     the tensor-core kernel at bfloat16 q (launches from the bfloat16
@@ -3304,7 +3718,8 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
     speculative serve of phase 5d (none: bfloat16 q on int8 pages is not
     served with speculation there), on the host-tier serves of phase 5g,
     on phase 5h's chaos soak (float32) and int8 restart (none: phase 5h
-    serves no bfloat16) and on phase 5i's HTTP serves (float pages)."""
+    serves no bfloat16), on phase 5i's HTTP serves (float pages) and on
+    phase 5j's routed serves (none for bfloat16 q on int8 pages)."""
     fam = tier["launches_by_family"]
     rob = {SPAN: robust["chaos"]["launches"][SPAN],
            INT8: robust["preempt"]["restart_int8"]["launches"][INT8]}
@@ -3335,6 +3750,9 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
                 "gpt2_robust_launches": rob.get(name),
                 "gpt2_http_launches": http["launches_by_family"].get(
                     {SPAN: "float32", SPAN_TC: "bfloat16"}.get(name)),
+                "gpt2_router_launches": router["launches_by_family"].get(
+                    {SPAN: "float32", SPAN_TC: "bfloat16",
+                     INT8: "int8"}.get(name)),
                 "card": card}
     sfam = spec["launches_by_family"]
     return [entry(SPAN, SOURCE, span, "float32", gpt2["launches"][SPAN],
@@ -3462,6 +3880,9 @@ def main():
         t = time.perf_counter()
         out = fn(*args, **kw)
         seconds[name] = time.perf_counter() - t
+        # a phase's locals die at its return: engines among them that sit
+        # in a reference cycle wait for the collector
+        release_device(torch)
         return out
     span = timed("span", phase_span, torch, F, ra)
     span8 = timed("span_int8", phase_span, torch, F, ra, quant=True)
@@ -3477,14 +3898,16 @@ def main():
     robust = timed("gpt2_robust", phase_gpt2_robust, torch, ra, card, model,
                    cfg)
     http = timed("gpt2_http", phase_gpt2_http, torch, ra, card, model, cfg)
+    router = timed("gpt2_router", phase_gpt2_router, torch, ra, card, model,
+                   cfg)
     del model
-    torch.cuda.empty_cache()
+    release_device(torch)
     fused = timed("fused", phase_fused, torch, F, fa)
     bert = timed("bert", phase_bert, torch, fa, card)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
 
     kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust,
-                           http, card)
+                           http, router, card)
     kernels.append(kernel_entry(
         "ragged_decode_attention", SOURCE,
         gpt2["launches"]["ragged_decode_attention"], decode["float32"],

@@ -86,10 +86,14 @@ time from two CUDA events read after the dispatch's one device-to-host
 copy, never through an extra synchronize. The frontend's seams:
 `cancel`, `drain`/`undrain` with `estimated_drain_wait`, and per-request
 token streams (`Request.stream`, fed every dispatch; a stream that
-cannot take a dispatch's tokens cancels its request).
+cannot take a dispatch's tokens cancels its request). The router's
+(serving/router.py): `export_requests` takes every queued and running
+request off the engine with its emitted tokens, and `adopt` queues one
+on a survivor, which re-prefills prompt + emitted and continues it
+bit-identically (the restart continuation above).
 
 Not ported yet: tensor parallelism (tp, tp_devices raise) and the
-router's migration seams (adopt, export_requests, export_handoff).
+cross-process fleet's KV handoff (export_handoff, _adopt_payload).
 """
 from __future__ import annotations
 
@@ -119,7 +123,7 @@ from .page_pool import PagePool, PagePoolExhausted
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
 from .scheduler import (QueueFullError, Request, ShedError, SlotScheduler,
-                        TenantQuotaError)
+                        TenantQuotaError, _seq_counter)
 from .speculative import PromptLookupProposer, verify_tokens
 from .weight_quant import build_weight_plan
 
@@ -1336,6 +1340,109 @@ class ServingEngine:
         self._set_load_gauges()
         self._set_pool_gauges()
         return req
+
+    # -- migration seams (serving/router.py failover + drain) --------------
+    @loop_only
+    def adopt(self, request, migrated_from=None):
+        """Queue a request EXPORTED from another replica, preserving
+        its emitted tokens: admission re-prefills prompt+emitted and
+        resumes the RNG counter at the next token index (the same
+        restart continuation a rolled-back request uses; on int8 pages
+        it replays the request's recorded write schedule), so a migrated
+        output is bit-identical to an unfaulted run on the original
+        replica. Unlike submit(), class queue bounds do not apply —
+        the fleet already accepted this request — and t_submit /
+        t_deadline carry over (router and replicas share one clock
+        domain). Raises while draining; rejects oversized sequences."""
+        if self._draining:
+            self._reject(request, "draining")
+        total = request.prompt_len + len(request.output_tokens)
+        if total > self.max_length:
+            self._metrics["requests_rejected"].inc()
+            raise MXNetError(
+                f"sequence of {total} tokens (prompt + emitted) exceeds "
+                f"slot capacity {self.max_length}")
+        now = self._clock()
+        if request.t_submit is None:
+            request.t_submit = now
+        request.priority = min(max(int(request.priority), 0),
+                               self.scheduler.num_priorities - 1)
+        if request._seq is None:
+            request._seq = next(_seq_counter)
+        request.dispatch_failures = 0
+        request.t_not_before = 0.0
+        self.scheduler.requeue(request)
+        request.status = "queued"
+        request.t_enqueue = now
+        if not isinstance(getattr(request, "phases", None), dict):
+            request.phases = {}
+        # stitch: export_requests packed the origin timeline's trace id
+        # and start onto the Request — the continuation opens with the
+        # SAME trace id, the ORIGINAL t_begin, and the phase budget
+        # accumulated so far, so the migrated request reads as one
+        # trace, not two orphans
+        t = getattr(request, "trace", None) or {}
+        telemetry.request_log.begin(
+            request.id, self._eid, trace_id=t.get("trace_id"),
+            t_begin=t.get("t_begin"), phases=request.phases,
+            prompt_len=request.prompt_len,
+            max_new_tokens=request.max_new_tokens,
+            priority=request.priority,
+            deadline_ms=request.deadline_ms,
+            migrated_from=migrated_from,
+            resumed_tokens=len(request.output_tokens))
+        self._metrics["queue_depth"].set(self.scheduler.num_queued)
+        return request
+
+    @loop_only
+    def export_requests(self):
+        """Remove and return EVERY queued and in-flight request
+        (original submit order), releasing slots, page leases and
+        adapter pins. The emitted tokens (and, on int8 pages, the write
+        schedule) stay on each Request, so a survivor replica can
+        adopt() them and continue bit-identically. Device writes are
+        best-effort — the caller may be abandoning a wedged replica,
+        whose device state no longer matters; host-side lease
+        accounting is always rolled back."""
+        out = list(self.scheduler.queued_requests())
+        for q in self.scheduler._queues:
+            q.clear()
+        for slot in list(self.scheduler.active_slots):
+            req = self.scheduler.request_at(slot)
+            try:
+                self._release_slot(slot)
+            except Exception:       # noqa: BLE001 — wedged replica
+                try:
+                    self.scheduler.release(slot)
+                except Exception:   # noqa: BLE001
+                    pass
+                self._free_slot_pages(slot)
+                try:
+                    self._release_adapter(slot)
+                except Exception:   # noqa: BLE001
+                    pass
+            out.append(req)
+        out.sort(key=lambda r: r._seq if r._seq is not None else -1)
+        for req in out:
+            # a swap payload cannot travel to another replica — drop
+            # it; the adopter restarts via the replay path instead
+            self._drop_swap(req)
+            req.status = "exported"
+            # pack the stitch context BEFORE ending the timeline: the
+            # adopting replica re-opens the trace with the same id and
+            # original start (adopt() passes these back to begin())
+            tr = telemetry.request_log.live_trace(req.id, self._eid)
+            if tr is not None:
+                t = dict(getattr(req, "trace", None) or {})
+                t.setdefault("trace_id", tr.trace_id)
+                t["t_begin"] = tr.t_begin
+                req.trace = t
+            telemetry.request_log.end(
+                req.id, self._eid, "migrated",
+                tokens=len(req.output_tokens))
+        self._set_load_gauges()
+        self._set_pool_gauges()
+        return out
 
     @property
     def has_work(self):

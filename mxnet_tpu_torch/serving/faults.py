@@ -1,8 +1,8 @@
 """Seeded fault-injection harness for the serving engine.
 
-Counterpart of mxnet_tpu/serving/faults.py: `FaultPlan` and `FaultError`
-(a copy but for `_inject_nan`, which writes with torch). The fleet-level
-`ReplicaFaultPlan` waits for the router, which is not ported yet.
+Counterpart of mxnet_tpu/serving/faults.py: `FaultPlan`, `FaultError`
+and `ReplicaFaultPlan` (a copy but for `_inject_nan`, which writes with
+torch).
 
 A `FaultPlan` is a deterministic, seed-driven schedule of faults
 injected through the engine's existing `dispatch_hook` seam (the hook
@@ -40,6 +40,16 @@ Fault kinds (each an independent per-dispatch probability under one
 `install(engine)` claims the engine's dispatch_hook and wraps
 `page_pool.alloc`; `uninstall()` restores both and releases any held
 pages. `counts` tallies the faults actually injected.
+
+`ReplicaFaultPlan` is the fleet-level analogue: it claims a
+`ServingRouter`'s `replica_hook` seam and injects replica-scoped
+faults — kill (the replica's step raises, the router must fail it
+over), hang (the replica silently stops making progress, the router's
+stall watchdog must catch it), and persistent-degrade (the replica
+keeps re-entering degraded state, so readiness-based routing must
+route around it) — on explicit per-step schedules and/or seeded
+per-step probabilities. Composing a per-replica `FaultPlan` with a
+fleet `ReplicaFaultPlan` gives the whole-stack chaos soak.
 """
 from __future__ import annotations
 
@@ -51,7 +61,7 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["FaultPlan", "FaultError"]
+__all__ = ["FaultPlan", "FaultError", "ReplicaFaultPlan"]
 
 
 class FaultError(MXNetError):
@@ -227,4 +237,135 @@ class FaultPlan:
 
     def __repr__(self):
         return (f"FaultPlan(seed={self.seed}, injected={self._injected}, "
+                f"counts={dict(self.counts)})")
+
+
+def _schedule(spec):
+    """Normalize {step: replica | [replicas]} / [(step, replica)] into
+    {step: [replicas]}."""
+    out = {}
+    items = spec.items() if isinstance(spec, dict) else spec
+    for step, who in items:
+        idxs = [who] if isinstance(who, int) else list(who)
+        out.setdefault(int(step), []).extend(int(i) for i in idxs)
+    return out
+
+
+class ReplicaFaultPlan:
+    """Deterministic replica-level fault schedule for a ServingRouter
+    (module docstring). Steps count ROUTER steps (the fleet tick fires
+    once per `router.step()`).
+
+    kill / hang / degrade: explicit schedules — {step: replica} (or a
+        list of replicas, or [(step, replica), ...]). A kill makes the
+        replica's next step raise FaultError("replica_kill"); a hang
+        freezes it (the hook answers "skip" — no engine.step() — for
+        `hang_ticks` router steps, or forever with hang_ticks=None);
+        degrade re-asserts `_set_degraded(True)` on the replica every
+        tick from then on — a persistent fault that readiness-based
+        placement must route around, not a one-shot blip.
+    kill_p / hang_p: additional per-replica per-step probabilities
+        under the plan's seeded Generator (a given seed + fleet replays
+        the same chaos). `max_faults` caps the RANDOM faults only;
+        scheduled ones always fire.
+    """
+
+    def __init__(self, seed=0, kill=(), hang=(), degrade=(),
+                 hang_ticks=40, kill_p=0.0, hang_p=0.0,
+                 max_faults=None):
+        self.seed = int(seed)
+        self._rng = np.random.default_rng(self.seed)
+        self.kill = _schedule(kill)
+        self.hang = _schedule(hang)
+        self.degrade = _schedule(degrade)
+        self.hang_ticks = hang_ticks
+        self.kill_p = float(kill_p)
+        self.hang_p = float(hang_p)
+        self.max_faults = max_faults
+        self.counts = defaultdict(int)
+        self._injected = 0
+        self._step = 0
+        self._pending_kill = set()     # replica idxs to kill on touch
+        self._hung_until = {}          # replica idx -> last hung step
+        self._degraded = set()         # replica idxs under degrade
+        self._router = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def install(self, router):
+        """Claim `router.replica_hook`."""
+        if self._router is not None:
+            raise MXNetError("ReplicaFaultPlan is already installed")
+        self._router = router
+        router.replica_hook = self.hook
+        return self
+
+    def uninstall(self):
+        """Restore the router's hook; scheduled state stays as-is
+        (a killed replica is the router's to rejoin())."""
+        router = self._router
+        if router is None:
+            return
+        if router.replica_hook is self.hook:
+            router.replica_hook = None
+        self._router = None
+
+    # -- the hook ----------------------------------------------------------
+    def _budget_left(self):
+        return self.max_faults is None or self._injected < self.max_faults
+
+    def _draw(self, p):
+        if not p or not self._budget_left():
+            return False
+        if self._rng.random() >= p:
+            return False
+        self._injected += 1
+        return True
+
+    def _start_hang(self, idx):
+        until = None if self.hang_ticks is None \
+            else self._step + int(self.hang_ticks)
+        self._hung_until[idx] = until
+        self.counts["hang"] += 1
+
+    def hook(self, router, idx, engine):
+        if idx is None:                 # fleet tick
+            self._step += 1
+            for i in self.kill.get(self._step, ()):
+                self._pending_kill.add(i)
+            for i in self.hang.get(self._step, ()):
+                self._start_hang(i)
+            for i in self.degrade.get(self._step, ()):
+                self._degraded.add(i)
+                self.counts["degrade"] += 1
+            up = [i for i, rep in enumerate(router.replicas)
+                  if rep.state == "up"]
+            # at most one random fault per tick: a seeded draw should
+            # not take the whole fleet down in one step
+            for i in up:
+                if self._draw(self.kill_p):
+                    self._pending_kill.add(i)
+                    break
+                if self._draw(self.hang_p):
+                    self._start_hang(i)
+                    break
+            return None
+        if idx in self._degraded:
+            # persistent-degrade: re-assert every tick — the engine's
+            # flight-recorder rearm must not bring it back
+            engine._set_degraded(True, "injected persistent degrade")
+        if idx in self._pending_kill:
+            self._pending_kill.discard(idx)
+            self._hung_until.pop(idx, None)
+            self.counts["kill"] += 1
+            raise FaultError("replica_kill",
+                             f"injected replica kill (replica {idx}, "
+                             f"router step {self._step})")
+        until = self._hung_until.get(idx, -1)
+        if until is None or until > self._step:
+            self.counts["hang_ticks"] += 1
+            return "skip"               # frozen: no step, no progress
+        return None
+
+    def __repr__(self):
+        return (f"ReplicaFaultPlan(seed={self.seed}, step={self._step}, "
                 f"counts={dict(self.counts)})")

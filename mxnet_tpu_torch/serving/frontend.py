@@ -1,9 +1,9 @@
 """Streaming HTTP ingress for the serving stack — stdlib-only.
 
 Counterpart of mxnet_tpu/serving/frontend.py over one port
-`ServingEngine` (a `ServingRouter` fleet backend is not ported yet and
-raises). `ServingFrontend` turns the engine into a servable endpoint on
-the same ThreadingHTTPServer stack as telemetry/server.py:
+`ServingEngine` or a `ServingRouter` fleet of them. `ServingFrontend`
+turns the backend into a servable endpoint on the same
+ThreadingHTTPServer stack as telemetry/server.py:
 
     POST /v1/generate   generate from a JSON body; the default
                         response is an SSE stream (`tokens` events as
@@ -49,6 +49,11 @@ parse, enqueue a submit/cancel command, and read the Request + its
 TokenStream. One serving-loop thread owns every backend mutation —
 it drains the command queue between `step()` calls, which is exactly
 the "call from the serving thread" contract engine.cancel() states.
+A frontend fronting a ServingRouter inherits the fleet's failover: a
+replica kill mid-stream migrates the Request (stream attached) via
+export/adopt, and the client's stream continues bit-identically. A
+CUDA or kernel error leaves the router's step() like an engine's and
+fails the frontend as above.
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ import time
 from http.server import BaseHTTPRequestHandler
 from urllib.parse import parse_qs, urlparse
 
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..analysis import assertions_enabled, claim_ownership, thread_safe
 from .. import telemetry
 from ..telemetry import server as _tserver
@@ -381,8 +386,8 @@ class _Handler(BaseHTTPRequestHandler):
                             "sent": sent})
                     else:
                         # terminal reconciliation: tokens that reached
-                        # the Request but not the buffer (a close
-                        # racing the last dispatch)
+                        # the Request but not the buffer (hedge-won
+                        # graft, close racing the last dispatch)
                         tail = [int(t) for t
                                 in req.output_tokens[sent:]]
                         if tail:
@@ -492,10 +497,9 @@ class _Box:
 class ServingFrontend:
     """The HTTP ingress plus the serving loop that owns the backend.
 
-    `backend` is a ServingEngine (duck-typed: submit/cancel/step/
-    has_work/estimated_drain_wait; a ServingRouter, which has
-    `replicas`, raises until the router is ported). The constructor
-    starts both the
+    `backend` is a ServingEngine or a ServingRouter (duck-typed:
+    submit/cancel/step/has_work; an engine's estimated_drain_wait, or
+    a router's `replicas`). The constructor starts both the
     listener and the serving-loop thread; `close()` is deterministic
     and idempotent (loop joined, port released) and the instance is a
     context manager. `shutdown()` is the graceful path: admission
@@ -505,8 +509,6 @@ class ServingFrontend:
     def __init__(self, backend, port=0, host="127.0.0.1", *,
                  stream_buffer=256, keepalive_s=0.25,
                  step_idle_s=0.01, submit_timeout_s=30.0):
-        if hasattr(backend, "replicas"):
-            raise not_ported("ServingFrontend over a ServingRouter")
         self._backend = backend
         self._fid = next(_frontend_ids)
         self.stream_buffer = int(stream_buffer)
@@ -789,8 +791,22 @@ class ServingFrontend:
 
     def _drain_estimate(self):
         """Seconds until in-flight work drains — the Retry-After a
-        draining frontend attaches."""
-        return self._backend.estimated_drain_wait()
+        draining frontend attaches. Router backends report their
+        slowest up replica (the drain completes when IT does)."""
+        reps = getattr(self._backend, "replicas", None)
+        if reps is None:
+            return self._backend.estimated_drain_wait()
+        waits = []
+        for rep in reps:
+            if rep.state != "up":
+                continue
+            try:
+                w = rep.engine.estimated_drain_wait()
+            except Exception:       # noqa: BLE001 — dead replica
+                w = None
+            if w is not None:
+                waits.append(w)
+        return max(waits) if waits else None
 
     # -- observability -----------------------------------------------------
     @thread_safe

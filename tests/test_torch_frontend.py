@@ -17,11 +17,15 @@ same requests over loopback HTTP:
   * a KernelError out of a dispatch stops the port frontend's serving
     loop: the open stream ends with a backend_failed error, /readyz
     answers 503 and new POSTs 503 (the reference has no fatal class);
-  * a ServingRouter backend is refused (not ported yet).
+  * over a ServingRouter of two engines, a double cancel is idempotent
+    (same results as JAX's), and a replica killed under a live SSE
+    stream leaves the stream running to the end: greedy equal to the
+    JAX frontend-over-router stream and to an unfaulted offline run,
+    sampled equal to the port's offline run.
 
 Every connection has a timeout, every server is closed in a `finally`
 and every thread is joined with a timeout; servers bind port 0. The
-JAX engines are built once per module and kept alive until it ends.
+JAX engines are kept alive until the module ends.
 """
 import gc
 import http.client
@@ -41,7 +45,6 @@ from mxnet_tpu.models import GPT2Config as JaxConfig  # noqa: E402
 from mxnet_tpu.models import GPT2ForCausalLM as JaxGPT2  # noqa: E402
 from mxnet_tpu.serving import frontend as jax_frontend  # noqa: E402
 import mxnet_tpu_torch.serving as port_serving  # noqa: E402
-from mxnet_tpu_torch import MXNetError  # noqa: E402
 from mxnet_tpu_torch.models import (GPT2Config, GPT2ForCausalLM,  # noqa: E402
                                     load_jax_params)
 from mxnet_tpu_torch.serving import frontend as port_frontend  # noqa: E402
@@ -51,6 +54,10 @@ KW = dict(vocab_size=97, units=32, num_layers=2, num_heads=2,
           max_length=64, dropout=0.0, attention_dropout=0.0)
 ENGINE = dict(num_slots=2, max_length=64, page_size=8)
 TIMEOUT = 60
+# engine factories by serving package, and the routers' engines, which
+# the module fixture keeps alive until the module ends
+sides_engine = {}
+sides_alive = []
 
 
 @pytest.fixture(scope="module")
@@ -70,9 +77,15 @@ def sides():
     out = {"jax": (jax_serving, jax_frontend, engines.pop("jax")),
            "port": (port_serving, port_frontend, engines.pop("port")),
            "net": net}
+    sides_engine[jax_serving.__name__] = lambda: jax_serving.ServingEngine(
+        jnet, attn_impl="xla", **ENGINE)
+    sides_engine[port_serving.__name__] = lambda: port_serving.ServingEngine(
+        net, device="cpu", **ENGINE)
     yield out
     # the engines die here, not inside a later module's engine build
     out.clear()
+    sides_engine.clear()
+    sides_alive.clear()
     gc.collect()
 
 
@@ -420,8 +433,110 @@ def test_kernel_error_stops_the_loop_and_flips_readyz(sides):
     assert f"{names[1]}=fatal" not in port_tserver.healthz_body()
 
 
-def test_router_backend_is_not_ported(sides):
-    class Router:
-        replicas = ()
-    with pytest.raises(MXNetError, match="not ported"):
-        port_serving.ServingFrontend(Router())
+def _router(side, n=2, **kw):
+    """A router over `n` fresh engines of the fixture's geometry (kept
+    alive until the module ends)."""
+    mod = side[0]
+    make = sides_engine[mod.__name__]
+    engines = [make() for _ in range(n)]
+    router = mod.ServingRouter(engines, **kw)
+    sides_alive.extend(engines + [router])
+    return router, engines
+
+
+def _double_cancel(side):
+    mod = side[0]
+    router, engines = _router(side)
+    req = mod.Request([5, 5, 5], 6, request_id="dc")
+    router.submit(req)
+    first = router.cancel("dc")
+    return (first is req, req.status, router.cancel("dc"),
+            [e.cancel("dc") for e in engines],
+            sum(e.stats["requests_cancelled"] for e in engines),
+            [e.audit_pages() for e in engines])
+
+
+def test_double_cancel_via_router_is_idempotent_like_jax(sides):
+    out = {key: _double_cancel(sides[key]) for key in ("jax", "port")}
+    assert out["port"] == out["jax"]
+    assert out["port"] == (True, "cancelled", None, [False, False], 1,
+                           [[], []])
+
+
+def _kill_mid_stream(side, body):
+    """POST `body` to a frontend over a two-replica router of paced
+    engines; once the request has 3 tokens, kill the replica that owns
+    it. (status, events, kills, audits)."""
+    mod = side[0]
+    router, engines = _router(side, hedge_after_s=1e9)
+    for e in engines:
+        e.dispatch_hook = lambda e: time.sleep(0.005)   # paced engines
+    fe = mod.ServingFrontend(router, keepalive_s=0.05, step_idle_s=0.005)
+    plan, out = None, {}
+    try:
+        def go():
+            out["res"] = _post(fe, body)
+        t = threading.Thread(target=go)
+        t.start()
+        deadline = time.time() + TIMEOUT
+        owner = None
+        while owner is None and time.time() < deadline:
+            o = router._owner.get(body["request_id"])
+            if o is not None and len(o[1].output_tokens) >= 3:
+                owner = o[0]                # mid-decode on this replica
+            time.sleep(0.002)
+        assert owner is not None, "the request never started decoding"
+        plan = mod.ReplicaFaultPlan(kill={1: owner}).install(router)
+        t.join(timeout=TIMEOUT)
+        assert not t.is_alive()
+    finally:
+        if plan is not None:
+            plan.uninstall()
+        fe.close()
+        for e in engines:
+            e.dispatch_hook = None
+    status, _, text = out["res"]
+    return (status, _sse(text), plan.counts["kill"],
+            router.stats["migrated"], router.stats["replica_down"],
+            [(e.audit_pages(), e.audit_adapters()) for e in engines])
+
+
+def _held_stream(res, want):
+    status, evs, kills, migrated, down, audits = res
+    assert status == 200 and kills == 1 and migrated == 1
+    assert down == {"kill": 1}
+    assert _done(evs)["status"] == "finished"
+    assert _tokens(evs) == want
+    assert audits == [([], []), ([], [])]
+
+
+def test_replica_kill_mid_stream_survives_like_jax(sides):
+    """A replica killed under a live greedy SSE stream: the router
+    migrates the Request (stream attached) by export/adopt, and the
+    client's stream runs on, equal to the JAX frontend-over-router
+    stream and to an unfaulted offline run."""
+    body = {"prompt": [11, 23, 42, 7, 56], "max_new_tokens": 24,
+            "request_id": "k0"}
+    out = {key: _kill_mid_stream(sides[key], body)
+           for key in ("jax", "port")}
+    ref = port_serving.Request(body["prompt"], 24, request_id="k0")
+    port_serving.ServingEngine(sides["net"], device="cpu",
+                               **ENGINE).serve([ref])
+    assert ref.status == "finished" and len(ref.output_tokens) == 24
+    _held_stream(out["jax"], list(ref.output_tokens))
+    _held_stream(out["port"], list(ref.output_tokens))
+
+
+def test_replica_kill_mid_stream_sampled_equals_offline_run(sides):
+    """The same with a sampled stream (the port's own sampler): the
+    migrated stream equals the port's unfaulted offline run."""
+    body = {"prompt": [11, 23, 42, 7, 56], "max_new_tokens": 24,
+            "request_id": "k1", "do_sample": True, "temperature": 0.9,
+            "seed": 11}
+    ref = port_serving.Request(body["prompt"], 24, request_id="k1",
+                               do_sample=True, temperature=0.9, seed=11)
+    port_serving.ServingEngine(sides["net"], device="cpu",
+                               **ENGINE).serve([ref])
+    assert ref.status == "finished" and len(ref.output_tokens) == 24
+    _held_stream(_kill_mid_stream(sides["port"], body),
+                 list(ref.output_tokens))
