@@ -70,8 +70,9 @@ no engine outlives its phase:
               largest |kernel - plain| first-token logit, first tokens
               agree wherever the plain top-2 gap exceeds 2*d.
               The float32 and bfloat16 kernel paths each serve once more
-              under torch.profiler: device busy share, top kernels and
-              the span kernel's device ms a serve.
+              with dispatches 10-29 under torch.profiler (SERVE_TRACE):
+              device busy share, top kernels and the span kernel's
+              device ms over those 20 dispatches.
   5b. gpt2_int8  the same model and traffic on int8 KV pages
               (kv_dtype="int8", chunk_tokens 64): float32 through the
               kernels (the int8 span kernel exactly 36 times a dispatch,
@@ -87,7 +88,8 @@ no engine outlives its phase:
               the served cache through the span kernel (logits within
               1e-4 of the plain path); then bfloat16 on int8 pages, timed
               (the int8 tensor-core span kernel 36 times a dispatch) and
-              profiled, and KV bytes per token of each page dtype.
+              profiled (dispatches 10-29), and KV bytes per token of each
+              page dtype.
   5c. prefix  the 774M model in float32 on the kernel path, float and
               int8 pages, the prefix cache off and on: every prompt is a
               256-token shared prefix (4 pages) and a unique tail
@@ -222,6 +224,36 @@ no engine outlives its phase:
               the case's engines. Dispatches a replica, requests
               migrated and tokens re-prefilled, routed ms a dispatch
               against the single engine's, the phase's seconds.
+  5k. gpt2_fleet  the cross-process fleet (serving/fleet) over the same
+              model at phase 5j's geometry and traffic, the float32
+              weights re-seeded first, every stream held to one engine's
+              serve of the same requests. FleetWorkers in this process
+              over loopback HTTP (their engines declared warm: the
+              script's kernel libraries are loaded by then): a mixed
+              fleet of two; a prefill + decode pair in float32, bfloat16
+              and int8 pages (a chunk budget no dispatch reaches) that
+              ships each request's KV pages at its first token (handoffs
+              = requests, every payload landed, no handoff_fallback, no
+              prefill on the decode worker); the float32 pair again with
+              ship_payload off (the decode worker replays). Each: the
+              dtype's span family 36 times a dispatch summed over the
+              workers and nothing else, its plain version never,
+              steady_state_compiles 0, clean audits; handoff ms (median,
+              max), exact wire bytes a blob, routed ms a dispatch
+              against the single engine's. Then six worker processes
+              (`python -m mxnet_tpu_torch.serving.fleet.worker` on the
+              card, started together; they load the kernel libraries
+              main() built): two mixed float32 workers and two on int8
+              pages, in each pair the worker streaming the first request
+              with 3 tokens SIGKILLed (the victim down, requests adopted
+              by the survivor, their count and re-prefilled tokens); a
+              prefill + decode pair with a FleetCollector and this
+              process's IntrospectionServer: /fleetz 200 with both
+              worker pids, the merged serving_tokens_emitted_total equal
+              to the workers' own and to the streams' tokens, each
+              request one trace across both pids in
+              fleet_chrome_trace(). Seconds to READY, every worker
+              process reaped.
   6. fused    fused_attention's CUDA forward and backward against its
               plain PyTorch version (forward output, dq, dk, dv) at
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
@@ -287,7 +319,7 @@ no engine outlives its phase:
               pair, its bfloat16 steps for the tensor-core pair; each
               fused entry also with its launches in phase 7b; each span
               entry with its serve_verify cell and its launches in phases
-              5d, 5g, 5h, 5i and 5j), errors, times, bound and library
+              5d, 5g, 5h, 5i, 5j and 5k), errors, times, bound and library
               times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
@@ -1219,10 +1251,10 @@ def profiled(torch, run, top):
                             for d, k, c in rows[:top]]}
 
 
-def trace_serve(torch, eng, prompts, n_new, Request):
-    """Serve once under the profiler."""
-    return profiled(torch,
-                    lambda: serve(torch, eng, prompts, n_new, Request)[1], 8)
+# the serve profiles of phases 5 and 5b: dispatches 10-29 of the 38 a
+# serve (every prompt has landed by then); a whole serve's trace cost
+# 40-80 s of the profiler's post-processing each
+SERVE_TRACE = (10, 20)
 
 
 def trace_window(torch, eng, prompts, n_new, Request, skip, steps):
@@ -1357,8 +1389,9 @@ def phase_gpt2(torch, ra, card):
                              "ms_per_dispatch": wall / dispatches * 1e3}
     out["launches"] = launches
     out["decode_forward_logits_max_abs_diff"] = dlog
-    out["float32_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
-                                              Request)
+    out["float32_kernel_trace"] = trace_window(
+        torch, eng, prompts, n_new, Request, skip=SERVE_TRACE[0],
+        steps=SERVE_TRACE[1])
     del eng, cache, logits
     release_device(torch)
 
@@ -1404,8 +1437,9 @@ def phase_gpt2(torch, ra, card):
         "greedy_tokens_equal_to_float32":
             sum(x == y for a, b in zip(got16, got) for x, y in zip(a, b)),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    out["bfloat16_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
-                                               Request)
+    out["bfloat16_kernel_trace"] = trace_window(
+        torch, eng, prompts, n_new, Request, skip=SERVE_TRACE[0],
+        steps=SERVE_TRACE[1])
     del eng
     release_device(torch)
 
@@ -1638,8 +1672,9 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
         "ms_per_dispatch": wall / d16 * 1e3,
         "greedy_tokens_equal_to_float32_int8":
             sum(x == y for a, b in zip(got16, got) for x, y in zip(a, b))}
-    out["bfloat16_kernel_trace"] = trace_serve(torch, eng, prompts, n_new,
-                                               Request)
+    out["bfloat16_kernel_trace"] = trace_window(
+        torch, eng, prompts, n_new, Request, skip=SERVE_TRACE[0],
+        steps=SERVE_TRACE[1])
     del eng, model
     release_device(torch)
     emit(out)
@@ -3387,6 +3422,491 @@ def phase_gpt2_router(torch, ra, card, model, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 5k: the cross-process fleet over 774M workers
+# ---------------------------------------------------------------------------
+
+FLEET_READY_S = 300      # a 774M worker's start to READY, at most
+FLEET_KILL_AFTER = 3     # tokens a request has when its worker is killed
+
+
+def fleet_spec(cfg, ekw):
+    """The worker spec of phase 5k: the model's whole config, the seeded
+    weights every phase shares (seed 0, std 0.02), the engine kwargs and
+    the phase's device."""
+    import inspect
+    from mxnet_tpu_torch.models import GPT2Config
+    names = inspect.signature(GPT2Config).parameters
+    return {"config": {n: getattr(cfg, n) for n in names}, "seed": 0,
+            "init_std": 0.02, "engine": dict(ekw), "device": DEV}
+
+
+def blob_bytes(blob):
+    """Exact `wire.dumps(blob)` length without building the string: the
+    base64 page data is ASCII, so it adds its length to the JSON of the
+    blob with every data field emptied."""
+    from mxnet_tpu_torch.serving.fleet import wire
+    kvp = blob.get("kv_payload")
+    if kvp is None:
+        return len(wire.dumps(blob)), 0
+    data, pages = 0, []
+    for page in kvp["pages"]:
+        out = {}
+        for name, leaf in page.items():
+            nd = leaf["__nd__"]
+            data += len(nd["data"])
+            out[name] = {"__nd__": dict(nd, data="")}
+        pages.append(out)
+    rest = dict(blob, kv_payload=dict(kvp, pages=pages))
+    return len(wire.dumps(rest)) + data, data
+
+
+def record_blobs(router, sizes):
+    """Wrap the prefill RPC of the router's prefill-capable workers so
+    that each handoff blob's exact wire bytes (and payload bytes) land in
+    `sizes`."""
+    for rep in router.workers:
+        if rep.role in ("prefill", "mixed"):
+            rpc = rep.client.prefill
+
+            def prefill(*a, _rpc=rpc, **kw):
+                blob = _rpc(*a, **kw)
+                sizes.append(blob_bytes(blob))
+                return blob
+            rep.client.prefill = prefill
+
+
+def fleet_drive(torch, router, reqs, procs=None):
+    """Submit `reqs` to a FleetRouter and wait for every one (each wait
+    bounded). With `procs`, once a request has FLEET_KILL_AFTER tokens
+    the worker process streaming it is SIGKILLed. Returns the requests by
+    id, the wall seconds and the victim's index (or None)."""
+    from mxnet_tpu_torch.serving import TokenStream
+    for r in reqs:
+        r.stream = TokenStream(capacity=64)
+        router.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    victim = None
+    if procs is not None:
+        deadline = time.monotonic() + HTTP_TIMEOUT / 2
+        while victim is None and time.monotonic() < deadline:
+            for tr in list(router._live.values()):
+                if tr.rep is not None \
+                        and len(tr.req.output_tokens) >= FLEET_KILL_AFTER:
+                    victim = tr.rep.index
+                    break
+            else:
+                time.sleep(0.002)
+        require(victim is not None, "fleet: no request reached "
+                f"{FLEET_KILL_AFTER} tokens")
+        procs.workers[victim].kill()
+    for r in reqs:
+        router.result(r, timeout=HTTP_TIMEOUT)
+    torch.cuda.synchronize()
+    return {r.id: r for r in reqs}, time.perf_counter() - t0, victim
+
+
+def fleet_streams(label, done, want):
+    require(sorted(done) == sorted(want), f"fleet {label}: requests "
+            f"{sorted(done)} against {sorted(want)}")
+    bad = [rid for rid, r in done.items()
+           if r.status != "finished" or list(r.output_tokens) != want[rid]]
+    require(not bad, f"fleet {label}: streams differ from the single "
+            f"engine's for {bad[:4]} (statuses "
+            f"{[done[b].status for b in bad[:4]]})")
+
+
+def fleet_events(telemetry, eid, name, prefix):
+    """How many of engine `eid`'s timelines of requests whose id starts
+    with `prefix` hold event `name` (the warmup's are left out)."""
+    return sum(any(e.get("event") == name for e in t.get("events") or ())
+               for t in telemetry.request_log.recent(512)
+               if str(t["engine"]) == str(eid)
+               and str(t["request_id"]).startswith(prefix))
+
+
+def wire_hops(router):
+    """The router's export -> adoption-ack seconds (the wire alone; the
+    engine's handoff phase also holds the wait for a decode slot): count,
+    mean, median (to a histogram bucket) and max, in ms."""
+    h = router._m["handoff_s"]
+    if not h.count:
+        return {"n": 0}
+    return {"n": h.count, "mean_ms": h.sum / h.count * 1e3,
+            "median_ms_bucket": h.percentile(50) * 1e3,
+            "max_ms": h._max * 1e3}
+
+
+def ms_stats(xs):
+    xs = sorted(xs)
+    return {"median_ms": float(np.median(xs)) * 1e3 if xs else None,
+            "max_ms": xs[-1] * 1e3 if xs else None, "n": len(xs)}
+
+
+def spawn_workers(jobs):
+    """Start one worker process per (spec, role, kw) of `jobs`, all at
+    once, each bounded by FLEET_READY_S; returns [(WorkerProc, seconds
+    to READY)]. On any failure every worker that came up is killed and
+    the first error raised."""
+    import threading
+    from mxnet_tpu_torch.serving.fleet import spawn_worker
+    out, errors = [None] * len(jobs), []
+
+    def start(i, spec, role, kw):
+        t0 = time.perf_counter()
+        try:
+            w = spawn_worker(spec, role=role, ready_timeout_s=FLEET_READY_S,
+                             **kw)
+            out[i] = (w, time.perf_counter() - t0)
+        except Exception as e:            # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=start, args=(i,) + job, daemon=True)
+               for i, job in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=FLEET_READY_S + 60)
+    if errors or any(t.is_alive() for t in threads) or None in out:
+        for got in out:
+            if got is not None:
+                got[0].kill()
+        if errors:
+            raise errors[0]
+        require(False, "fleet: a worker neither came up nor failed")
+    return out
+
+
+def phase_gpt2_fleet(torch, ra, card, model, cfg):
+    """Phase 5k: the cross-process fleet of the same 774M model. Workers
+    in this process over loopback HTTP (where the launch counters can be
+    read): a mixed fleet of two, a disaggregated prefill + decode pair in
+    float32, bfloat16 and int8 pages shipping the KV payload, the float32
+    pair again without it; then worker processes on the card: two mixed
+    float32 workers and two on int8 pages, one SIGKILLed mid-decode, and
+    a prefill + decode pair with a FleetCollector on this process's
+    introspection server. Every stream is held to one engine's serve."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models import init_params
+    from mxnet_tpu_torch.serving import Request, ServingEngine
+    from mxnet_tpu_torch.serving.fleet import (FleetProcs, FleetRouter,
+                                               FleetWorker, WorkerClient)
+    from mxnet_tpu_torch.serving.fleet.observe import parse_prometheus
+    from mxnet_tpu_torch.telemetry import cost
+
+    t_phase = time.perf_counter()
+    greedy = gpt2_traffic(cfg.vocab_size)
+    sampled = robust_traffic(cfg.vocab_size)[:8]
+    n_new = 32
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
+    # int8 codes depend on where chunks end: a budget no dispatch reaches
+    # keeps every request on its natural chunk grid (the grid a failover
+    # replays on)
+    ekw8 = dict(ekw, kv_dtype="int8", prefill_chunk_budget=8 * 64)
+    out = {"phase": "gpt2_fleet", "card": card,
+           "config": "gpt2_774m_config", "engine": ekw,
+           "prompt_lens": {"greedy": list(map(len, greedy)),
+                           "sampled": list(map(len, sampled))},
+           "new_tokens": n_new, "sampled": ROUTER_SAMPLED}
+    model.to(torch.float32)
+    init_params(model, seed=0, std=0.02)
+
+    def traffic(tag=""):
+        return router_requests(Request, greedy, sampled, n_new, tag)
+
+    def oracle(label, kw, tag):
+        release_device(torch)
+        eng = ServingEngine(model, device=DEV, **kw)
+        reqs = traffic(tag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(all(r.status == "finished" for r in reqs),
+                f"fleet {label}: the single engine did not finish")
+        d = eng.stats["decode_dispatches"]
+        return ({r.id: list(r.output_tokens) for r in reqs},
+                {"dispatches": d, "ms_per_dispatch": wall / d * 1e3})
+
+    def warmed(kw):
+        """Two engines declared warm. Every kernel library is loaded in
+        this process by now, so warmup traffic (warm_engine, which each
+        worker process runs) would load nothing here; after mark_warm()
+        a load would count as a steady compile."""
+        release_device(torch)
+        engines = [ServingEngine(model, device=DEV, **kw) for _ in range(2)]
+        for eng in engines:
+            eng.mark_warm()
+        return engines
+
+    def in_process(label, roles, engines, key, want, alone, ship=True):
+        """One in-process case on `engines` (their counters reset first);
+        its gates and readings."""
+        for eng in engines:
+            eng.reset_stats()
+        ws = [FleetWorker(eng, role=role, worker_id=f"{role}{i}",
+                          ship_payload=ship)
+              for i, (role, eng) in enumerate(zip(roles, engines))]
+        router = None
+        sizes = []
+        try:
+            router = FleetRouter([w.url for w in ws])
+            record_blobs(router, sizes)
+            with counting(ra, "_ragged_span_reference") as plain_calls:
+                ra.reset_launches()
+                done, wall, _ = fleet_drive(torch, router, traffic(label))
+                launches = dict(ra.LAUNCHES)
+            fleet_streams(label, {k[len(label):]: v
+                                  for k, v in done.items()}, want)
+            per = [w.engine.stats["decode_dispatches"] for w in ws]
+            require(launches.get(key, 0) == GPT2_LAYERS * sum(per)
+                    and sum(launches.values()) == launches.get(key, 0),
+                    f"fleet {label}: launches {launches} for {per} "
+                    "dispatches")
+            require(plain_calls.calls == 0, f"fleet {label}: the plain "
+                    f"span version ran {plain_calls.calls} times")
+            st = [w.fleet_stats() for w in ws]
+            steady = [s["stats"]["steady_state_compiles"] for s in st]
+            require(steady == [0] * len(ws), f"fleet {label}: steady "
+                    f"compiles {steady}")
+            audits = [w.engine.audit_pages() for w in ws]
+            require(audits == [[]] * len(ws), f"fleet {label}: audits "
+                    f"{[a[:2] for a in audits]}")
+            r = {"roles": list(roles), "wall_s": wall,
+                 "dispatches_per_worker": per, "launches": launches,
+                 "ms_per_dispatch": wall / sum(per) * 1e3,
+                 "routed_over_single_ms_per_dispatch":
+                     wall / sum(per) * 1e3 / alone["ms_per_dispatch"]}
+            if router.disaggregated:
+                pre, dec = st[0], st[1]
+                n = len(done)
+                fallback = fleet_events(telemetry, ws[1].engine._eid,
+                                        "handoff_fallback", label)
+                landed = fleet_events(telemetry, ws[1].engine._eid,
+                                      "adopted_payload", label)
+                hops = [d.phases.get("handoff") for d in done.values()]
+                require(pre["handoffs"] == n and pre["handoffs_final"] == 0,
+                        f"fleet {label}: handoffs {pre['handoffs']} of {n}")
+                if ship:
+                    require(fallback == 0 and landed == n
+                            and None not in hops, f"fleet {label}: "
+                            f"{landed} payloads landed, {fallback} fell "
+                            f"back, hops {hops}")
+                    require(dec["stats"]["prefill_tokens"] == 0,
+                            f"fleet {label}: the decode worker "
+                            "re-prefilled")
+                else:
+                    require(landed == 0 and hops == [None] * n,
+                            f"fleet {label}: a payload landed with "
+                            "ship_payload off")
+                r.update(handoffs=pre["handoffs"], payloads_landed=landed,
+                         handoff_fallbacks=fallback,
+                         decode_prefill_tokens=dec["stats"]
+                         ["prefill_tokens"],
+                         handoff=ms_stats([h for h in hops
+                                           if h is not None]),
+                         wire_hop=wire_hops(router),
+                         blob_bytes=[b for b, _ in sizes],
+                         payload_b64_bytes=[p for _, p in sizes],
+                         blob_bytes_per_request=(
+                             float(np.mean([b for b, _ in sizes]))
+                             if sizes else None))
+            return r
+        finally:
+            if router is not None:
+                router.close()
+            for w in ws:
+                w.close()
+
+    procs_all = []
+    srv = None
+    try:
+        # A. workers in this process, over loopback HTTP: one warmed pair
+        # of engines a page dtype, behind the case's FleetWorkers
+        pair = ("prefill", "decode")
+        want, alone = oracle("float32", ekw, "")
+        out["single_engine_float32"] = alone
+        engines = warmed(ekw)
+        out["mixed"] = in_process("mixed", ("mixed", "mixed"), engines,
+                                  SPAN, want, alone)
+        out["disagg_float32"] = in_process("disagg_float32", pair, engines,
+                                           SPAN, want, alone)
+        out["disagg_no_payload"] = in_process(
+            "disagg_no_payload", pair, engines, SPAN, want, alone,
+            ship=False)
+        engines = None
+        want8, alone8 = oracle("int8", ekw8, "")
+        out["single_engine_int8"] = alone8
+        engines = warmed(ekw8)
+        out["disagg_int8"] = in_process("disagg_int8", pair, engines, INT8,
+                                        want8, alone8)
+        engines = None
+        model.to(torch.bfloat16)
+        want16, alone16 = oracle("bfloat16", ekw, "")
+        out["single_engine_bfloat16"] = alone16
+        engines = warmed(ekw)
+        out["disagg_bfloat16"] = in_process("disagg_bfloat16", pair,
+                                            engines, SPAN_TC, want16, alone16)
+        del engines
+        model.to(torch.float32)
+        init_params(model, seed=0, std=0.02)
+        release_device(torch)
+        require(not cost.steady_state(), "fleet: a warm in-process worker "
+                "outlived its case")
+
+        # B. worker processes on the card, all started at once (the
+        # kernel libraries were built before any spawn: they only load)
+        spec, spec8 = fleet_spec(cfg, ekw), fleet_spec(cfg, ekw8)
+        started = spawn_workers(
+            [(spec, "mixed", {}), (spec, "mixed", {}),
+             (spec8, "mixed", {}), (spec8, "mixed", {}),
+             (spec, "prefill", {}), (spec, "decode", {})])
+        procs_all = [w for w, _ in started]
+        out["ready_s"] = [s for _, s in started]
+        pids = [w.pid for w in procs_all]
+        require(len(set(pids)) == 6 and os.getpid() not in pids,
+                f"fleet: worker pids {pids}")
+        for w in procs_all:
+            info = WorkerClient(w.url).stats()
+            require(info["engine"]["device"].split(":")[0] == DEV
+                    and info["pid"] == w.pid
+                    and info["stats"]["steady_state_compiles"] == 0,
+                    f"fleet: worker {w.pid} reports {info['engine']}, "
+                    f"steady {info['stats']['steady_state_compiles']}")
+        for label, pair, key_want in (
+                ("kill_float32", FleetProcs(procs_all[0:2]), want),
+                ("kill_int8", FleetProcs(procs_all[2:4]), want8)):
+            router = FleetRouter(pair.urls)
+            try:
+                done, wall, victim = fleet_drive(
+                    torch, router, traffic(label), procs=pair)
+                survivor = pair.workers[1 - victim]
+                view = {w["index"]: w
+                        for w in router.fleet_stats()["workers"]}
+                moved = [t for t in WorkerClient(survivor.url).requests(512)
+                         if t.get("migrated_from") == "wire"]
+            finally:
+                router.close()
+            fleet_streams(label, {k[len(label):]: v
+                                  for k, v in done.items()}, key_want)
+            require(view[victim]["state"] == "down"
+                    and view[1 - victim]["state"] == "up"
+                    and not pair.workers[victim].alive
+                    and pair.workers[1 - victim].alive and moved,
+                    f"fleet {label}: victim {victim}, states "
+                    f"{[v['state'] for v in view.values()]}, "
+                    f"{len(moved)} adopted")
+            out[label] = {
+                "victim_pid": pair.workers[victim].pid, "wall_s": wall,
+                "migrated": len(moved),
+                "reprefilled_tokens": sum(t["prompt_len"]
+                                          + t["resumed_tokens"]
+                                          for t in moved),
+                "survivor_stats": {k: view[1 - victim]["stats"]["stats"][k]
+                                   for k in ("decode_dispatches",
+                                             "prefill_tokens",
+                                             "steady_state_compiles")}}
+            pair.close()
+
+        # the disaggregated pair of processes, observed by a collector
+        pair = FleetProcs(procs_all[4:6])
+        srv = telemetry.IntrospectionServer(0)
+        router = FleetRouter(pair.urls)
+        sizes = []
+        try:
+            record_blobs(router, sizes)
+            coll = router.observe(interval_s=0.5)
+            done, wall, _ = fleet_drive(torch, router, traffic("procs"))
+            fleet_streams("disagg processes",
+                          {k[len("procs"):]: v for k, v in done.items()},
+                          want)
+            merged = coll.scrape()
+            code, body = http_get(f"{srv.url}/fleetz")
+            fz = json.loads(body)
+            own = [sum(v for _l, v in parse_prometheus(
+                WorkerClient(u).metrics_text())
+                ["serving_tokens_emitted_total"]["samples"])
+                for u in pair.urls]
+            got = sum(ch.value for _v, ch in merged.get(
+                "serving_tokens_emitted_total")._samples())
+            emitted = sum(len(r.output_tokens) for r in done.values())
+            trace = coll.fleet_chrome_trace()
+            by_trace = {}
+            for e in trace["traceEvents"]:
+                if e.get("ph") == "X" and e.get("cat") == "request":
+                    by_trace.setdefault(e["args"].get("trace_id"),
+                                        set()).add(e["pid"])
+            spans = [by_trace.get(r.trace["trace_id"], set())
+                     for r in done.values()]
+            hops = [r.phases.get("handoff") for r in done.values()]
+            stats = [WorkerClient(u).stats() for u in pair.urls]
+        finally:
+            router.close()
+        wpids = sorted(w.pid for w in pair.workers)
+        require(code == 200 and sorted(row["pid"] for row in fz["workers"])
+                == wpids and all(row["state"] == "ok"
+                                 for row in fz["workers"]),
+                f"fleet: /fleetz {code} {fz.get('workers')}")
+        require(got == sum(own) == emitted, f"fleet: merged tokens {got}, "
+                f"the workers' own {own}, streams {emitted}")
+        require(all(s == set(wpids) for s in spans), "fleet: a request "
+                f"is not one trace across both workers: {spans[:4]}")
+        require(None not in hops and stats[0]["handoffs"] == len(done)
+                and [s["stats"]["steady_state_compiles"] for s in stats]
+                == [0, 0], f"fleet: hops {hops}, stats "
+                f"{[s['handoffs'] for s in stats]}")
+        out["disagg_processes"] = {
+            "wall_s": wall, "handoff": ms_stats(hops),
+            "wire_hop": wire_hops(router),
+            "blob_bytes_per_request": float(np.mean([b for b, _ in sizes])),
+            "blob_bytes": [b for b, _ in sizes],
+            "fleetz_pids": wpids, "merged_tokens": got,
+            "tokens_per_worker": own,
+            "collector_cycles": fz["cycles"],
+            "dispatches_per_worker": [s["stats"]["decode_dispatches"]
+                                      for s in stats]}
+        pair.close()
+    finally:
+        for w in procs_all:
+            w.kill()
+        if srv is not None:
+            srv.close()
+        model.to(torch.float32)
+        release_device(torch)
+    require(not any(w.alive for w in procs_all), "fleet: a worker "
+            "process outlived the phase")
+    require(not cost.steady_state(), "fleet: a warm engine outlived the "
+            "phase")
+    out["launches_by_family"] = {
+        "float32": sum(out[c]["launches"][SPAN]
+                       for c in ("mixed", "disagg_float32",
+                                 "disagg_no_payload")),
+        "bfloat16": out["disagg_bfloat16"]["launches"][SPAN_TC],
+        "int8": out["disagg_int8"]["launches"][INT8]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for label in ("disagg_float32", "disagg_bfloat16", "disagg_int8"):
+        print(json.dumps({"fleet": label, "card": card,
+                          "handoff": out[label]["handoff"],
+                          "wire_hop": out[label]["wire_hop"],
+                          "blob_bytes_per_request":
+                              out[label]["blob_bytes_per_request"]}),
+              flush=True)
+    print(json.dumps({"fleet": "summary", "card": card,
+                      "handoff_processes": out["disagg_processes"]["handoff"],
+                      "wire_hop_processes":
+                          out["disagg_processes"]["wire_hop"],
+                      "ms_per_dispatch_routed_over_single": {
+                          c: out[c]["routed_over_single_ms_per_dispatch"]
+                          for c in ("mixed", "disagg_float32",
+                                    "disagg_no_payload", "disagg_int8",
+                                    "disagg_bfloat16")},
+                      "ready_s": out["ready_s"],
+                      "seconds": out["seconds"]}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: BERT-base MLM training steps
 # ---------------------------------------------------------------------------
 
@@ -3709,7 +4229,7 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
 
 
 def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
-                 router, card):
+                 router, fleet, card):
     """The four span kernels' kernels-line entries: the CUDA-core kernel
     at float32 q (launches from the float32 serves, phases 5 and 5b) and
     the tensor-core kernel at bfloat16 q (launches from the bfloat16
@@ -3719,7 +4239,9 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
     served with speculation there), on the host-tier serves of phase 5g,
     on phase 5h's chaos soak (float32) and int8 restart (none: phase 5h
     serves no bfloat16), on phase 5i's HTTP serves (float pages) and on
-    phase 5j's routed serves (none for bfloat16 q on int8 pages)."""
+    phase 5j's routed serves (none for bfloat16 q on int8 pages) and on
+    phase 5k's in-process fleet workers (none for bfloat16 q on int8
+    pages)."""
     fam = tier["launches_by_family"]
     rob = {SPAN: robust["chaos"]["launches"][SPAN],
            INT8: robust["preempt"]["restart_int8"]["launches"][INT8]}
@@ -3751,6 +4273,9 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
                 "gpt2_http_launches": http["launches_by_family"].get(
                     {SPAN: "float32", SPAN_TC: "bfloat16"}.get(name)),
                 "gpt2_router_launches": router["launches_by_family"].get(
+                    {SPAN: "float32", SPAN_TC: "bfloat16",
+                     INT8: "int8"}.get(name)),
+                "gpt2_fleet_launches": fleet["launches_by_family"].get(
                     {SPAN: "float32", SPAN_TC: "bfloat16",
                      INT8: "int8"}.get(name)),
                 "card": card}
@@ -3900,6 +4425,8 @@ def main():
     http = timed("gpt2_http", phase_gpt2_http, torch, ra, card, model, cfg)
     router = timed("gpt2_router", phase_gpt2_router, torch, ra, card, model,
                    cfg)
+    fleet = timed("gpt2_fleet", phase_gpt2_fleet, torch, ra, card, model,
+                  cfg)
     del model
     release_device(torch)
     fused = timed("fused", phase_fused, torch, F, fa)
@@ -3907,7 +4434,7 @@ def main():
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
 
     kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust,
-                           http, router, card)
+                           http, router, fleet, card)
     kernels.append(kernel_entry(
         "ragged_decode_attention", SOURCE,
         gpt2["launches"]["ragged_decode_attention"], decode["float32"],

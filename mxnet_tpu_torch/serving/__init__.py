@@ -1,7 +1,8 @@
 """Continuous-batching serving (counterpart of mxnet_tpu.serving: the
 engine, its pools and caches, the host KV tier, the robustness layer,
 the in-process multi-replica router and the HTTP frontend over an
-engine or a router)."""
+engine or a router). The cross-process fleet is the `fleet`
+subpackage."""
 from .adapters import (AdapterPool, AdapterPoolExhausted, merged_weights,
                        random_lora)
 from .engine import ServingEngine

@@ -90,10 +90,14 @@ cannot take a dispatch's tokens cancels its request). The router's
 (serving/router.py): `export_requests` takes every queued and running
 request off the engine with its emitted tokens, and `adopt` queues one
 on a survivor, which re-prefills prompt + emitted and continues it
-bit-identically (the restart continuation above).
+bit-identically (the restart continuation above). The fleet's
+(serving/fleet): `export_handoff` takes one decoding request off the
+engine WITH its KV pages and decode cursor (`Request.kv_payload`), and
+an engine that adopts it scatters the pages into fresh ones and goes on
+decoding with no re-prefill; a payload that cannot land falls back to
+the restart continuation (a `handoff_fallback` event).
 
-Not ported yet: tensor parallelism (tp, tp_devices raise) and the
-cross-process fleet's KV handoff (export_handoff, _adopt_payload).
+Not ported yet: tensor parallelism (tp, tp_devices raise).
 """
 from __future__ import annotations
 
@@ -1444,6 +1448,62 @@ class ServingEngine:
         self._set_pool_gauges()
         return out
 
+    @loop_only
+    def export_handoff(self, request_id):
+        """Export ONE decoding request WITH its KV: the prefill-to-decode
+        handoff seam of the fleet (serving/fleet). The slot's used pages
+        (codes and, on int8 pools, their scale rows, read through the
+        tier gather; bfloat16 as 2-byte bit patterns) and the decode
+        cursor land in `req.kv_payload`; the slot and its leases are
+        released and the timeline ends "migrated" with the stitch context
+        packed, as export_requests does. An engine that adopts the
+        payload (`_adopt_payload`) scatters the pages back verbatim and
+        goes on decoding bit-identically with no re-prefill.
+
+        Returns None when the request is not decoding here: terminal,
+        never admitted, or still mid-prefill (its unfed chunk queue is
+        host state the payload does not carry; the caller retries after
+        the final chunk landed)."""
+        slot = None
+        for s in self.scheduler.active_slots:
+            if self.scheduler.request_at(s).id == request_id:
+                slot = s
+                break
+        if slot is None:
+            return None
+        req = self.scheduler.request_at(slot)
+        if self._pending[slot] is not None or not req.output_tokens:
+            return None
+        length = int(self._lengths[slot])
+        n_used = min(self._pages_per_slot, -(-length // self.page_size))
+        row = [int(p) for p in self._table_host[slot][:n_used]]
+        req.kv_payload = {
+            "length": length,
+            "cur_tok": int(self._cur_tok[slot]),
+            "remaining": int(self._remaining[slot]),
+            "counters": int(self._counters[slot]),
+            "pages": self._tier_gather(row),
+            # the wall-anchored trace clock, the only clock an adopting
+            # process shares with this one: its "handoff" phase is
+            # measured from here
+            "t_export": telemetry.now(),
+        }
+        self._drop_swap(req)
+        self._release_slot(slot)
+        req.status = "exported"
+        tr = telemetry.request_log.live_trace(req.id, self._eid)
+        if tr is not None:
+            t = dict(getattr(req, "trace", None) or {})
+            t.setdefault("trace_id", tr.trace_id)
+            t["t_begin"] = tr.t_begin
+            req.trace = t
+        telemetry.request_log.end(
+            req.id, self._eid, "migrated", reason="handoff",
+            tokens=len(req.output_tokens))
+        self._set_load_gauges()
+        self._set_pool_gauges()
+        return req
+
     @property
     def has_work(self):
         return self.scheduler.has_work
@@ -2224,6 +2284,104 @@ class ServingEngine:
         self._set_pool_gauges()
         return True
 
+    def _payload_pages(self, pages, length):
+        """The shipped pages of a handoff payload as the tier scatter
+        takes them, or None when they cannot land in this engine's
+        pools: a page count that does not cover `length`, another
+        geometry or dtype, scale rows on a float pool or none on an int8
+        one. bfloat16 pools take 2-byte leaves ('<i2' bit patterns, or
+        the reference's '|V2'), viewed as int16 bits."""
+        P, S = self._pages_per_slot, self.page_size
+        if (not pages or length < 1 or length > self.max_length
+                or len(pages) != min(P, -(-length // S))):
+            return None
+        L, _, S_, H, D = self._kp.shape
+        bf16 = self._kp.dtype == torch.bfloat16
+        want = np.dtype(np.int16) if bf16 \
+            else torch.empty((), dtype=self._kp.dtype).numpy().dtype
+        names = ("k", "v", "ks", "vs") if self._quant else ("k", "v")
+        out = []
+        for page in pages:
+            if set(page) != set(names):
+                return None
+            pl = {}
+            for name in names:
+                a = np.asarray(page[name])
+                if name in ("ks", "vs"):
+                    if a.shape != (L, H) or a.dtype != np.float32:
+                        return None
+                else:
+                    if a.shape != (L, S_, H, D):
+                        return None
+                    if bf16 and a.dtype.itemsize == 2 \
+                            and a.dtype.kind in "iV":
+                        a = a.view(np.int16)
+                    if a.dtype != want:
+                        return None
+                pl[name] = a
+            out.append(pl)
+        return out
+
+    def _adopt_payload(self, slot, req):
+        """Splice a handed-off request straight into decode from its
+        shipped KV payload (export_handoff on the exporting engine,
+        possibly in another process): a full row of fresh exclusive
+        pages, the shipped slabs scattered into them (int8 codes with
+        their scale rows, so nothing is re-quantized or replayed), and
+        the decode cursor restored from the payload. The continuation is
+        bit-identical to the exporter having kept decoding. False when
+        the payload cannot land here (geometry, dtype, pool pressure):
+        the caller falls back to the replay restart, which reaches the
+        same tokens by recomputing."""
+        kvp = req.kv_payload
+        length = int(kvp.get("length", -1))
+        pages = self._payload_pages(kvp.get("pages") or [], length)
+        if pages is None:
+            return False
+        P = self._pages_per_slot
+        pc = self.prefix_cache
+        try:
+            if pc is not None and self.page_pool.num_free < P:
+                pc.reclaim(P)
+            fresh = self.page_pool.alloc(P)
+        except PagePoolExhausted:   # pool pressure: the replay restart
+            return False
+        try:
+            # recycled pages start from scale 0 before the shipped scales
+            # land on the payload's pages (the rest stay 0 for decode's
+            # monotone max update)
+            self._zero_scales(fresh)
+            self._tier_scatter(list(zip(fresh[:len(pages)], pages)))
+        except BaseException:
+            # the slot table does not reference `fresh` yet
+            self.page_pool.free(self.page_pool.decref(fresh))
+            raise
+        self._table_host[slot] = np.asarray(fresh, np.int32)
+        self._mapped[slot] = True
+        self._kv_tier[slot] = "cold"
+        req.kv_payload = None
+        self._restore_slot(slot, req, length, int(kvp["cur_tok"]),
+                           int(kvp["remaining"]), int(kvp["counters"]))
+        # the handoff TTFT phase: export stamp -> payload scattered, on
+        # the shared wall-anchored clock. The exporter closed the other
+        # phases at the first token; this engine owns only the hop and
+        # publishes it into the phase histogram itself
+        t_exp = kvp.get("t_export")
+        if t_exp is not None and telemetry.request_log.enabled:
+            dur = max(0.0, telemetry.now() - float(t_exp))
+            self._phase(req, "handoff", dur)
+            key = ("handoff", "cold")
+            child = self._phase_children.get(key)
+            if child is None:
+                child = self._phase_fam.labels(self._eid, *key)
+                self._phase_children[key] = child
+            child.observe(dur)
+        telemetry.request_log.event(
+            req.id, self._eid, "adopted_payload", slot=slot,
+            pages=len(pages), tokens=len(req.output_tokens))
+        self._set_pool_gauges()
+        return True
+
     # -- admission -----------------------------------------------------------
     def _set_sampling(self, slot, req):
         self._seeds[slot] = req.seed
@@ -2245,7 +2403,9 @@ class ServingEngine:
         exhaustion (backpressure), and _on_admit_fault rolls back what
         was taken.
 
-        A preempted request resumes from its swap when it can. A request
+        A handed-off request (kv_payload) goes straight to decode from
+        its shipped pages when they can land, as a preempted request
+        resumes from its swap when it can. A request
         rolled back after a fault (or a preempted one whose swap went
         stale) restarts: it re-feeds its prompt PLUS the `base` tokens it
         emitted, with its sampling counter resumed at `base` (streams are
@@ -2272,6 +2432,17 @@ class ServingEngine:
             self._metrics["adapter_page_ins"].inc(pool.page_ins - seen[0])
             self._metrics["adapter_evictions"].inc(
                 pool.evictions - seen[1])
+        if req.kv_payload is not None:
+            # a cross-process handoff (serving/fleet): scatter the
+            # shipped pages and splice straight into decode, no
+            # re-prefill. A payload that cannot land here falls through
+            # to the restart below, which reaches the same tokens by
+            # recomputing (`kv_history` rode the wire)
+            if self._adopt_payload(slot, req):
+                return
+            req.kv_payload = None
+            telemetry.request_log.event(req.id, self._eid,
+                                        "handoff_fallback")
         if req.swap is not None:
             if self._try_resume(slot, req):
                 return

@@ -506,6 +506,8 @@ class ServingFrontend:
     flips to 503 + Retry-After (and the registered /readyz probe flips
     not-ready), open streams drain, then everything closes."""
 
+    server_class = _FrontendServer  # the fleet worker adds its routes
+
     def __init__(self, backend, port=0, host="127.0.0.1", *,
                  stream_buffer=256, keepalive_s=0.25,
                  step_idle_s=0.01, submit_timeout_s=30.0):
@@ -539,7 +541,7 @@ class ServingFrontend:
         self._loop_thread = threading.Thread(
             target=self._serving_loop,
             name=f"mx-serving-loop:{self._fid}", daemon=True)
-        self._server = _FrontendServer(self, port, host)
+        self._server = self.server_class(self, port, host)
         self._loop_thread.start()
 
     # -- lifecycle ---------------------------------------------------------

@@ -40,8 +40,8 @@ must manage:
     /fleetz      JSON: the fleet collector's view — per-worker health/
                  role/staleness, fleet tokens/sec and tokens/sec/chip,
                  the fleet-global SLO snapshot (404 until a
-                 collector registers via register_fleetz_provider; the
-                 port has no fleet collector yet)
+                 collector registers via register_fleetz_provider:
+                 serving/fleet/observe.py FleetCollector.start())
 
 Every read is a snapshot under the instrument locks, so concurrent
 scrapes during serving never tear. Components publish into `/statusz`

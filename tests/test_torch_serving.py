@@ -10,6 +10,7 @@ counter-based generator, so they are held to the port itself (schedule
 independence) and to the sampling distribution (total variation).
 """
 import ast
+import re
 import pathlib
 
 import numpy as np
@@ -399,6 +400,20 @@ def _imports(path):
             yield node.module or ""
 
 
+# a string that names a module of the JAX package, as `python -m` or
+# importlib would take it: such a string launches or imports the JAX
+# package with no import statement showing it
+_JAX_MODULE_PATH = re.compile(r"mxnet_tpu(\.[A-Za-z_][A-Za-z0-9_]*)*")
+
+
+def _module_path_strings(path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _JAX_MODULE_PATH.fullmatch(node.value.strip()):
+            yield node.value
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -409,4 +424,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = name.split(".")[0]
             if top in ("jax", "jaxlib", "mxnet_tpu"):
                 bad.append(f"{path.relative_to(ROOT)}: {name}")
+        for value in _module_path_strings(path):
+            bad.append(f"{path.relative_to(ROOT)}: string {value!r}")
     assert bad == []
+
+
+def test_import_guard_flags_a_jax_module_path_string(tmp_path):
+    """The guard's string rule: a `-m` argument naming the JAX package's
+    worker is caught, the port's own module path and prose are not."""
+    src = tmp_path / "launcher.py"
+    src.write_text(
+        '"""Counterpart of mxnet_tpu.serving.fleet.launch."""\n'
+        'CMD = ["python", "-m", "mxnet_tpu.serving.fleet.worker"]\n'
+        'OK = ["python", "-m", "mxnet_tpu_torch.serving.fleet.worker"]\n'
+        'ALSO = "mxnet_tpu"\n')
+    assert sorted(_module_path_strings(src)) == [
+        "mxnet_tpu", "mxnet_tpu.serving.fleet.worker"]
