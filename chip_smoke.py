@@ -254,6 +254,29 @@ no engine outlives its phase:
               request one trace across both pids in
               fleet_chrome_trace(). Seconds to READY, every worker
               process reaped.
+  5l. gpt2_tp  tensor-parallel serving: a fresh 774M model at phase 5's
+              geometry and traffic (chunk 64) under ServingEngine(tp=2
+              and tp=4, tp_devices=[DEV] * tp), the shards running in
+              lockstep on the one card. float32 streams equal tp=1's
+              except where tp=1's own top-2 gap is below 1e-4; w8 at
+              tp=2 against w8 at tp=1 under the same rule. int8 pages at
+              tp=2: a stream may leave tp=1's only where tp=1's gap is
+              below twice the measured tp=2 / tp=1 logit distance there
+              (both replaying the request's write schedule on one slot:
+              a code one step off moves the logits by about 5e-3), and
+              layer-0 codes and scales of one prefill chunk written at
+              both shard counts are the same bytes.
+              bfloat16 at tp=2: first tokens agree where tp=1's gap
+              exceeds twice the measured tp=2 / tp=1 logit distance. Each tp serve launches its span family 36 x
+              dispatches x tp times and nothing else, its plain version
+              never. One single-token lockstep forward at tp=2 on the
+              served cache drives the decode kernel (72 launches,
+              logits within 1e-4 of the plain versions'); one float32
+              handoff from the tp=2 engine lands in a tp=1 engine and
+              finishes with no re-prefill; ServingEngine(tp=2) with the
+              default device list raises on one card. ms a dispatch at
+              tp=1 / 2 / 4, a profiled tp=2 window, per-chip weight and
+              page bytes, the phase's seconds.
   6. fused    fused_attention's CUDA forward and backward against its
               plain PyTorch version (forward output, dq, dk, dv) at
               BERT-base shapes (B=32, T=512, H=12, D=64, key padding from
@@ -319,8 +342,8 @@ no engine outlives its phase:
               pair, its bfloat16 steps for the tensor-core pair; each
               fused entry also with its launches in phase 7b; each span
               entry with its serve_verify cell and its launches in phases
-              5d, 5g, 5h, 5i, 5j and 5k), errors, times, bound and library
-              times.
+              5d, 5g, 5h, 5i, 5j, 5k and 5l, the decode entry with its
+              launches in 5l), errors, times, bound and library times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
 """
@@ -3907,6 +3930,359 @@ def phase_gpt2_fleet(torch, ra, card, model, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 5l: tensor-parallel serving on one card
+# ---------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)
+# profiled window of the tp=2 float32 serve: (dispatches skipped, traced)
+TP_TRACE = (10, 10)
+
+
+def tp_logits(torch, eng, tokens, impl="auto"):
+    """The next-token logits after `tokens` (one slot, the whole prefix
+    as one span) through a tp engine's shard modules in lockstep, in
+    float32: through the kernels (impl "auto") or the plain versions."""
+    from mxnet_tpu_torch.models.gpt2 import tp_forward
+    ids = torch.tensor([tokens], device=DEV)
+    return tp_forward(eng._shards, eng._tp_group, ids,
+                      tp_caches(torch, eng, 1, impl=impl))[0, -1].float()
+
+
+def column_slice_bits(torch):
+    """A reading, not a gate: whether a bias-free float32 product over a
+    column slice of a 774M projection's weight gives the bits of that
+    slice of the whole product (M rows of 1280 units, tp-way slices)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=DEV).manual_seed(0)
+    out = {}
+    for M in (8, 64, 512):
+        x = torch.randn(M, 1280, device=DEV, generator=g)
+        w = torch.randn(1280, 1280, device=DEV, generator=g) * 0.02
+        full = F.linear(x, w)
+        for tp in TP_SIZES:
+            n = 1280 // tp
+            out[f"M{M}_tp{tp}"] = bool(torch.equal(
+                full[:, :n], F.linear(x, w[:n].contiguous())))
+    return out
+
+
+def tp_serve(torch, ra, eng, prompts, n_new, Request, key, label):
+    """Serve through a tp engine with the span family `key` counted: it
+    must launch 36 x dispatches x tp times and nothing else, its plain
+    version never. Returns (streams, serve_stats, launches)."""
+    with counting(ra, "_ragged_span_reference") as plain:
+        ra.reset_launches()
+        got, wall = serve(torch, eng, prompts, n_new, Request)
+        launches = dict(ra.LAUNCHES)
+    st = serve_stats(eng, wall, got)
+    want = GPT2_LAYERS * st["dispatches"] * eng._tp
+    require(launches[key] == want and sum(launches.values()) == want,
+            f"{label}: launches {launches}, want {key} {want}")
+    require(plain.calls == 0, f"{label}: the plain span version ran "
+            f"{plain.calls} times on the kernel path")
+    require(all(len(t) == n_new for t in got), f"{label}: short streams")
+    require(eng.audit_pages() == [], f"{label}: page audit")
+    return got, st, launches
+
+
+def tp_caches(torch, eng, B, kv_dtype=None, impl="torch"):
+    """One fresh ragged cache per shard of a tp engine: B slots at length
+    0, 1024 positions, page 64, the shard's H / tp heads."""
+    from mxnet_tpu_torch.models import PagedKVCache
+    cfg, tp = eng.model.config, eng._tp
+    return [PagedKVCache.create(
+        cfg.num_layers, B, cfg.num_heads // tp, 1024,
+        cfg.units // cfg.num_heads, dtype=eng.model.dtype, page_size=64,
+        lengths=np.zeros(B), attn_impl=impl, kv_dtype=kv_dtype, device=dev)
+        for dev in eng._tp_group.devices]
+
+
+def int8_pair_logits(torch, model, eng, prompt, emitted, history):
+    """The plain int8 path's next-token logits after `prompt + emitted`
+    at tp=1 (the model) and at the tp engine's shard count (its shards in
+    lockstep), each on one slot replaying the engine's write schedule
+    (int8_logits' feeds). Returns (tp=1, tp) float32 logits."""
+    from mxnet_tpu_torch.models.gpt2 import tp_forward
+    c1 = model.make_cache(1, 1024, page_size=64, lengths=[0],
+                          attn_impl="torch", kv_dtype="int8")
+    cs = tp_caches(torch, eng, 1, kv_dtype="int8")
+    cuts = np.cumsum([0] + list(history))
+    feeds = [prompt[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    feeds += [[t] for t in emitted]
+    with torch.no_grad():
+        for toks in feeds:
+            ids = torch.tensor([toks], device=DEV)
+            l1, c1 = model(ids, c1)
+            l2 = tp_forward(eng._shards, eng._tp_group, ids, cs)
+            cs = [c.advance(len(toks)) for c in cs]
+    return l1[0, -1].float(), l2[0, -1].float()
+
+
+def int8_layer0_check(torch, model, eng, prompts):
+    """Layer 0's int8 codes and scales after one prefill chunk of every
+    prompt (its first 64 tokens, one slot each, fresh pools) written at
+    tp=1 and at the tp engine's shard count, in the global head layout:
+    they must be the same bytes (layer 0 reads the replicated embeddings
+    through column slices of query/key/value; the quantizer is
+    head-local). A serve's pools cannot be compared so: a stream that
+    leaves tp=1's writes other tokens."""
+    from mxnet_tpu_torch.models.gpt2 import tp_forward
+    B, W = len(prompts), 64
+    ids = torch.zeros((B, W), dtype=torch.long, device=DEV)
+    spans = torch.tensor([min(len(p), W) for p in prompts],
+                         dtype=torch.int32, device=DEV)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p[:W])] = torch.tensor(p[:W], device=DEV)
+    c1 = model.make_cache(B, 1024, page_size=64, lengths=np.zeros(B),
+                          attn_impl="torch", kv_dtype="int8")
+    cs = tp_caches(torch, eng, B, kv_dtype="int8")
+    for c in [c1] + cs:
+        c.spans = spans
+    with torch.no_grad():
+        model(ids, c1)
+        tp_forward(eng._shards, eng._tp_group, ids, cs)
+    N = c1.num_pages
+    out = {}
+    for name, axis in (("k_pages", 2), ("v_pages", 2), ("k_scale", 1),
+                       ("v_scale", 1)):
+        a = getattr(c1, name)[0, :N].cpu()
+        b = torch.cat([getattr(c, name)[0, :N] for c in cs], axis).cpu()
+        diff = (a.float() - b.float()).abs()
+        out[name] = {"bytes_equal": bool(torch.equal(a, b)),
+                     "elements_differing": int((diff > 0).sum()),
+                     "elements": a.numel(),
+                     "max_abs_diff": diff.max().item()}
+        require(out[name]["bytes_equal"], f"int8 tp layer-0 {name} "
+                f"differs from tp=1's: {out[name]}")
+    return out
+
+
+def phase_gpt2_tp(torch, ra, card, gpt2):
+    """Phase 5l: tensor-parallel serving of the 774M model on the one
+    card, tp=2 and tp=4 over [DEV] * tp."""
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.models import PagedKVCache
+    from mxnet_tpu_torch.models.gpt2 import tp_forward
+    from mxnet_tpu_torch.serving import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    model, cfg = gpt2_774m(torch)
+    prompts = gpt2_traffic(cfg.vocab_size)
+    require(list(map(len, prompts)) == gpt2["prompt_lens"],
+            "phase gpt2 and gpt2_tp traffic differ")
+    n_new = 32
+    ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
+    out = {"phase": "gpt2_tp", "card": card, "config": "gpt2_774m_config",
+           "engine": ekw, "tp_devices": f"[{DEV!r}] * tp",
+           "prompt_lens": gpt2["prompt_lens"], "new_tokens": n_new}
+
+    def tp_engine(m, tp, **kw):
+        return ServingEngine(m, device=DEV, tp=tp, tp_devices=[DEV] * tp,
+                             **ekw, **kw)
+
+    out["column_slice_bits_equal"] = column_slice_bits(torch)
+    # the default device list takes the first tp cards: one is too few
+    require(torch.cuda.device_count() == 1, "gpt2_tp expects one card")
+    try:
+        ServingEngine(model, device=DEV, tp=2, **ekw)
+        raise AssertionError("ServingEngine(tp=2) built on one card")
+    except MXNetError as e:
+        require("needs 2 devices, have 1" in str(e), f"tp=2 error: {e}")
+        out["default_devices_error"] = str(e)
+
+    # float32: tp=1 with its own top-2 gaps, then timed
+    eng = ServingEngine(model, device=DEV, **ekw)
+    want, gaps, _ = serve_gaps(torch, eng, prompts, n_new, Request)
+    eng.reset_stats()
+    again, wall = serve(torch, eng, prompts, n_new, Request)
+    require(again == want, "tp=1 float32 serves differ")
+    f32 = {"tp1": serve_stats(eng, wall, want)}
+    del eng
+    release_device(torch)
+    launches_f32 = 0
+    for tp in TP_SIZES:
+        eng = tp_engine(model, tp)
+        got, st, launches = tp_serve(torch, ra, eng, prompts, n_new,
+                                     Request, SPAN, f"float32 tp={tp}")
+        launches_f32 += launches[SPAN]
+        z = eng._statusz()["sharding"]
+        st.update(launches=launches,
+                  divergences=held_to(got, want, gaps, f"float32 tp={tp}"),
+                  streams_equal_tp1=got == want,
+                  weight_bytes_per_chip=eng.stats["weight_bytes_per_chip"],
+                  weight_bytes_total=eng.stats["weight_bytes_total"],
+                  kv_page_bytes=eng.stats["kv_page_bytes"],
+                  kv_page_bytes_per_chip=z["kv_page_bytes_per_chip"],
+                  heads_per_shard=z["heads_per_shard"],
+                  ms_over_tp1=st["ms_per_dispatch"]
+                  / f32["tp1"]["ms_per_dispatch"])
+        require(z["kv_page_bytes_per_chip"] * tp == st["kv_page_bytes"],
+                f"tp={tp}: per-chip page bytes {z}")
+        if tp == 2:
+            # the decode kernel at H / tp heads: one single-token lockstep
+            # forward on the served cache (slot i holds request i's
+            # prompt + 31 tokens), kernels against plain versions
+            lengths = torch.tensor([len(p) + n_new - 1 for p in prompts],
+                                   dtype=torch.int32, device=DEV)
+            last = torch.tensor([[s[-1]] for s in got], device=DEV)
+            logits = {}
+            ra.reset_launches()
+            for impl in ("auto", "torch"):
+                caches = [PagedKVCache(kp, vp, eng._dstate["table"],
+                                       lengths, attn_impl=impl)
+                          for kp, vp, _, _ in eng._pools]
+                logits[impl] = tp_forward(eng._shards, eng._tp_group, last,
+                                          caches).float()
+            dec = ra.LAUNCHES["ragged_decode_attention"]
+            require(dec == GPT2_LAYERS * tp and sum(ra.LAUNCHES.values())
+                    == dec, f"tp decode launches {dict(ra.LAUNCHES)}")
+            dlog = (logits["auto"] - logits["torch"]).abs().max().item()
+            require(dlog <= 1e-4, f"tp decode forward logits differ by "
+                    f"{dlog}")
+            st["decode_launches"] = dec
+            st["decode_forward_logits_max_abs_diff"] = dlog
+            st["trace"] = trace_window(torch, eng, prompts, n_new, Request,
+                                       skip=TP_TRACE[0], steps=TP_TRACE[1])
+            # one float32 handoff from this tp=2 engine into a tp=1
+            # engine: the payload's global head layout lands there
+            r = Request(prompts[0], n_new, request_id="handoff")
+            eng.submit(r)
+            while not r.output_tokens:
+                eng.step()
+            exp = eng.export_handoff(r.id)
+            require(exp is not None, "tp=2 export_handoff gave nothing")
+            pages = len(exp.kv_payload["pages"])
+            dst = ServingEngine(model, device=DEV, **ekw)
+            dst.adopt(exp, migrated_from="tp2")
+            while dst.has_work:
+                dst.step()
+            require(exp.status == "finished" and dst.stats[
+                "prefill_tokens"] == 0, "the tp=2 payload did not land")
+            f32["handoff_tp2_to_tp1"] = {
+                "pages": pages,
+                "divergences": held_to([exp.output_tokens], [want[0]],
+                                       [gaps[0]], "tp=2 -> tp=1 handoff"),
+                "tokens_equal_tp1": exp.output_tokens == want[0]}
+            del dst, caches, logits
+        f32[f"tp{tp}"] = st
+        del eng
+        release_device(torch)
+    out["float32"] = f32
+
+    # int8 pages at tp=2 against tp=1. The reductions reassociate float32
+    # sums from layer 1 on, and the int8 quantizer turns such a
+    # difference into a code one step off now and then, which moves the
+    # 774M logits by about 5e-3 (PERF.md section 6): the rule
+    # reads the distance d between the two shard counts' logits where a
+    # stream differs, in place of float32's fixed 1e-4
+    eng = ServingEngine(model, device=DEV, kv_dtype="int8", **ekw)
+    reqs1 = []
+    want8, wall = serve(torch, eng, prompts, n_new, Request, reqs1)
+    i8 = {"tp1": serve_stats(eng, wall, want8)}
+    del eng
+    release_device(torch)
+    eng = tp_engine(model, 2, kv_dtype="int8")
+    got8, st, launches = tp_serve(torch, ra, eng, prompts, n_new, Request,
+                                  INT8, "int8 tp=2")
+    divs = []
+    for i, (a, b) in enumerate(zip(got8, want8)):
+        if a == b:
+            continue
+        j = next(k for k in range(n_new) if a[k] != b[k])
+        l1, l2 = int8_pair_logits(torch, model, eng, prompts[i], b[:j],
+                                  reqs1[i].kv_history)
+        row = {"request": i, "token": j, "tp1_top2_gap": gap2(l1),
+               "max_abs_logit_diff": (l2 - l1).abs().max().item()}
+        divs.append(row)
+        require(row["tp1_top2_gap"] < 2 * row["max_abs_logit_diff"],
+                f"int8 tp=2: request {i} diverges at token {j} where "
+                f"tp=1's gap {row['tp1_top2_gap']} exceeds 2 x "
+                f"{row['max_abs_logit_diff']}")
+    st.update(launches=launches, divergences=divs,
+              streams_equal_tp1=sum(a == b for a, b in zip(got8, want8)),
+              layer0=int8_layer0_check(torch, model, eng, prompts))
+    i8["tp2"] = st
+    out["int8_pages"] = i8
+    del eng
+    release_device(torch)
+
+    # bfloat16 at tp=2 against tp=1: first tokens where the gap exceeds
+    # twice the measured tp=2 / tp=1 logit distance
+    model.to(torch.bfloat16)
+    eng = ServingEngine(model, device=DEV, **ekw)
+    serve(torch, eng, prompts, n_new, Request)          # warm-up
+    eng.reset_stats()
+    want16, wall = serve(torch, eng, prompts, n_new, Request)
+    b16 = {"tp1": serve_stats(eng, wall, want16)}
+    del eng
+    eng = tp_engine(model, 2)
+    got16, st, launches = tp_serve(torch, ra, eng, prompts, n_new, Request,
+                                   SPAN_TC, "bfloat16 tp=2")
+    first = []
+    for i, p in enumerate(prompts):
+        l2 = tp_logits(torch, eng, p)
+        l1 = float_logits(torch, model, p, "auto")
+        first.append({"request": i, "max_abs_logit_diff":
+                      (l2 - l1).abs().max().item(), "tp1_top2_gap":
+                      gap2(l1), "equal": got16[i][0] == want16[i][0]})
+    d = max(r["max_abs_logit_diff"] for r in first)
+    for r in first:
+        if r["tp1_top2_gap"] > 2 * d:
+            require(r["equal"], f"bf16 tp=2 first token of request "
+                    f"{r['request']} differs where the gap "
+                    f"{r['tp1_top2_gap']} exceeds 2 x {d}")
+    st.update(launches=launches, max_abs_logit_diff=d, first_tokens=first,
+              streams_equal_tp1=sum(a == b for a, b in zip(got16, want16)),
+              ms_over_tp1=st["ms_per_dispatch"]
+              / b16["tp1"]["ms_per_dispatch"])
+    b16["tp2"] = st
+    out["bfloat16"] = b16
+    del eng, model
+    release_device(torch)
+
+    # w8 at tp=2 against w8 at tp=1 (each w8 engine quantizes its model
+    # in place: one fresh model, quantized by the tp=1 engine)
+    model, _ = gpt2_774m(torch)
+    eng = ServingEngine(model, device=DEV, weight_dtype="int8", **ekw)
+    want_w8, gaps_w8, wall = serve_gaps(torch, eng, prompts, n_new, Request)
+    w8 = {"tp1": serve_stats(eng, wall, want_w8)}
+    del eng
+    eng = tp_engine(model, 2)
+    require(eng.weight_dtype == "int8", "the w8 model serves float at tp=2")
+    got_w8, st, launches = tp_serve(torch, ra, eng, prompts, n_new, Request,
+                                    SPAN, "w8 tp=2")
+    st.update(launches=launches,
+              divergences=held_to(got_w8, want_w8, gaps_w8, "w8 tp=2"),
+              streams_equal_tp1=got_w8 == want_w8,
+              weight_bytes_per_chip=eng.stats["weight_bytes_per_chip"])
+    w8["tp2"] = st
+    out["w8"] = w8
+    del eng, model
+    release_device(torch)
+
+    out["launches_by_family"] = {
+        "float32": launches_f32,
+        "bfloat16": out["bfloat16"]["tp2"]["launches"][SPAN_TC],
+        "int8": out["int8_pages"]["tp2"]["launches"][INT8],
+        "w8_float32": out["w8"]["tp2"]["launches"][SPAN],
+        "decode": out["float32"]["tp2"]["decode_launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    print(json.dumps({"gpt2_tp": "summary", "card": card,
+                      "ms_per_dispatch": {
+                          f"tp{t}": f32[f"tp{t}"]["ms_per_dispatch"]
+                          for t in (1,) + TP_SIZES},
+                      "weight_bytes_per_chip": {
+                          f"tp{t}": f32[f"tp{t}"]["weight_bytes_per_chip"]
+                          for t in TP_SIZES},
+                      "kv_page_bytes_per_chip": {
+                          f"tp{t}": f32[f"tp{t}"]["kv_page_bytes_per_chip"]
+                          for t in TP_SIZES},
+                      "seconds": out["seconds"]}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: BERT-base MLM training steps
 # ---------------------------------------------------------------------------
 
@@ -4229,7 +4605,7 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
 
 
 def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
-                 router, fleet, card):
+                 router, fleet, tp, card):
     """The four span kernels' kernels-line entries: the CUDA-core kernel
     at float32 q (launches from the float32 serves, phases 5 and 5b) and
     the tensor-core kernel at bfloat16 q (launches from the bfloat16
@@ -4241,7 +4617,8 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
     serves no bfloat16), on phase 5i's HTTP serves (float pages) and on
     phase 5j's routed serves (none for bfloat16 q on int8 pages) and on
     phase 5k's in-process fleet workers (none for bfloat16 q on int8
-    pages)."""
+    pages) and on phase 5l's tensor-parallel serves (float32 q: the
+    float32 and w8 serves; none for bfloat16 q on int8 pages)."""
     fam = tier["launches_by_family"]
     rob = {SPAN: robust["chaos"]["launches"][SPAN],
            INT8: robust["preempt"]["restart_int8"]["launches"][INT8]}
@@ -4278,7 +4655,11 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
                 "gpt2_fleet_launches": fleet["launches_by_family"].get(
                     {SPAN: "float32", SPAN_TC: "bfloat16",
                      INT8: "int8"}.get(name)),
+                "gpt2_tp_launches": tp_fam.get(name),
                 "card": card}
+    tf = tp["launches_by_family"]
+    tp_fam = {SPAN: tf["float32"] + tf["w8_float32"], SPAN_TC: tf["bfloat16"],
+              INT8: tf["int8"]}
     sfam = spec["launches_by_family"]
     return [entry(SPAN, SOURCE, span, "float32", gpt2["launches"][SPAN],
                   sfam["float32"]),
@@ -4429,16 +4810,18 @@ def main():
                   cfg)
     del model
     release_device(torch)
+    tp = timed("gpt2_tp", phase_gpt2_tp, torch, ra, card, gpt2)
     fused = timed("fused", phase_fused, torch, F, fa)
     bert = timed("bert", phase_bert, torch, fa, card)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
 
     kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust,
-                           http, router, fleet, card)
+                           http, router, fleet, tp, card)
     kernels.append(kernel_entry(
         "ragged_decode_attention", SOURCE,
         gpt2["launches"]["ragged_decode_attention"], decode["float32"],
         decode["bfloat16"], card, splits=decode["splits"],
+        gpt2_tp_launches=tp["launches_by_family"]["decode"],
         span_sq1_ms=decode["float32"]["span_sq1_ms"],
         span_sq1_ms_bf16=decode["bfloat16"]["span_sq1_ms"]))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],

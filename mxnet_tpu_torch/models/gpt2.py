@@ -26,9 +26,16 @@ Ported:
     query/key/value/proj outputs. The reference installs it as a module
     global around its traced program; here it is a forward argument.
     Without one the forward is the adapter-free one, bit for bit.
+  * the serving tensor-parallel split (the reference's `_tp_ctx`): a
+    shard GPT2Model built with tp=(rank, size) holds its head slice of
+    query/key/value and fc1 (column-parallel) and the matching in-slice
+    of proj and fc2 (row-parallel); `tp_forward` runs the shards in
+    lockstep over a parallel.tp.TPGroup, one reduction per projection,
+    the row-parallel bias added once after it. The reference's
+    `_lora_delta` under tp is `lora_rank_part` + `lora_finish`.
+    parallel/tp.py `shard_gpt2` builds the shards from a full model.
 
-Not ported yet: the lockstep KVCache path, `generate()` and the
-tensor-parallel split.
+Not ported yet: the lockstep KVCache path and `generate()`.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from .kv_cache import PagedKVCache
 
 __all__ = ["GPT2Config", "GPT2Model", "GPT2ForCausalLM", "gpt2_small_config",
            "gpt2_medium_config", "gpt2_774m_config", "gpt2_xl_config",
-           "AdapterBatch"]
+           "AdapterBatch", "tp_forward"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -67,20 +74,57 @@ class AdapterBatch(NamedTuple):
     b_scale: Optional[torch.Tensor] = None
 
 
+def _lora_slice(ad, leaf, pidx, layer):
+    """Each row's slice of slab leaf `leaf` ("A": (Bsz, U, R), "B":
+    (Bsz, R, U)) for projection `pidx` of `layer`, dequantized to
+    float32 for an int8 slab."""
+    slots = ad.slots.long()
+    g = getattr(ad, leaf)[pidx, layer][slots]
+    sc = ad.a_scale if leaf == "A" else ad.b_scale
+    if sc is not None:
+        g = g.float() * sc[pidx, layer][slots][:, None, None]
+    return g
+
+
 def lora_delta(ad, pidx, layer, x):
     """Each row's low-rank delta for projection `pidx` of `layer`: x @
     A_s @ B_s * alpha/r with s the row's slab slot, in the reference's
     order (the products in the slab's dtype, float32 for an int8 slab
     after the gathered slices are dequantized; scaled in float32; cast
     to x's dtype)."""
-    slots = ad.slots.long()
-    ag = ad.A[pidx, layer][slots]                 # (Bsz, U, R)
-    bg = ad.B[pidx, layer][slots]                 # (Bsz, R, U)
-    if ad.a_scale is not None:
-        ag = ag.float() * ad.a_scale[pidx, layer][slots][:, None, None]
-        bg = bg.float() * ad.b_scale[pidx, layer][slots][:, None, None]
+    ag = _lora_slice(ad, "A", pidx, layer)
+    bg = _lora_slice(ad, "B", pidx, layer)
     d = torch.bmm(torch.bmm(x.to(ag.dtype), ag), bg)
-    return (d.float() * ad.scale[slots][:, None, None]).to(x.dtype)
+    return (d.float() * ad.scale[ad.slots.long()][:, None, None]).to(x.dtype)
+
+
+def lora_rank_part(ad, pidx, layer, x, rank):
+    """Under tensor parallelism, shard `rank`'s rank-R partial of
+    projection `pidx`'s delta: its U-slice of the input against its
+    local U rows of A (ad holds the shard's slab slices). For
+    query/key/value the input is the replicated residual, sliced here
+    at the shard's head offset; proj's input is already the shard's
+    head slice. The partials' sum (all_reduce) is x @ A."""
+    ag = _lora_slice(ad, "A", pidx, layer)
+    u = ag.shape[1]
+    xs = x if pidx == 3 else x[..., rank * u:(rank + 1) * u]
+    return torch.bmm(xs.to(ag.dtype), ag)
+
+
+def lora_finish(ad, pidx, layer, r, dtype, rank, size):
+    """The shard's delta from the reduced rank-R product `r`: r @ its
+    out-slice of B, scaled in float32 and cast to `dtype`. For proj the
+    slice is scattered to its head offset in a full-width zero tensor,
+    so that proj's own reduction assembles the whole delta."""
+    d = torch.bmm(r, _lora_slice(ad, "B", pidx, layer))
+    d = (d.float() * ad.scale[ad.slots.long()][:, None, None]).to(dtype)
+    if pidx != 3:
+        return d
+    u = d.shape[-1]
+    full = torch.zeros(d.shape[:-1] + (u * size,), dtype=d.dtype,
+                       device=d.device)
+    full[..., rank * u:(rank + 1) * u] = d
+    return full
 
 
 class GPT2Config:
@@ -139,20 +183,28 @@ def gpt2_xl_config(**kw):              # 1.5B
 
 class GPT2Attention(nn.Module):
     """Causal self-attention: over the chunk itself (no cache, training)
-    or over a ragged paged KV cache."""
+    or over a ragged paged KV cache. tp=(rank, size): shard `rank` of a
+    size-way head split (num_heads / size heads; query/key/value give
+    units / size outputs, proj takes units / size inputs)."""
 
     def __init__(self, units, num_heads, device, dtype, dropout=0.0,
-                 attention_impl="auto"):
+                 attention_impl="auto", tp=(0, 1)):
         super().__init__()
         if units % num_heads:
             raise MXNetError(f"units {units} % heads {num_heads} != 0")
+        rank, size = tp
+        if num_heads % size:
+            raise MXNetError(f"tp={size} must divide num_heads "
+                             f"({num_heads})")
         self._units, self._num_heads = units, num_heads
         self._dropout, self._impl = dropout, attention_impl
+        self._tp = (rank, size)
         kw = dict(device=device, dtype=dtype)
-        self.query = Dense(units, units, **kw)
-        self.key = Dense(units, units, **kw)
-        self.value = Dense(units, units, **kw)
-        self.proj = Dense(units, units, **kw)
+        local = units // size
+        self.query = Dense(units, local, **kw)
+        self.key = Dense(units, local, **kw)
+        self.value = Dense(units, local, **kw)
+        self.proj = Dense(local, units, **kw)
 
     def _project(self, dense, pidx, x, layer_idx, adapters):
         y = dense(x)
@@ -177,6 +229,14 @@ class GPT2Attention(nn.Module):
             out = out.reshape(b, t, h * d)
             return self._project(self.proj, 3, out, layer_idx,
                                  adapters), None
+        out, cache = self._attend(q, k, v, cache, layer_idx)
+        return self._project(self.proj, 3, out, layer_idx, adapters), cache
+
+    def _attend(self, q, k, v, cache, layer_idx):
+        """Write the chunk's k/v (B, t, h, d) into the ragged cache and
+        attend each slot's live rows over its pages. Returns the output
+        (B, t, h * d) in q's dtype and the cache."""
+        b, t, h, d = q.shape
         # the cache takes the reference's (B, H, t, D) layout
         cache = cache.write_decode(layer_idx, k.transpose(1, 2),
                                    v.transpose(1, 2))
@@ -198,23 +258,40 @@ class GPT2Attention(nn.Module):
                 lengths, q_counts=cache.spans, impl=cache.attn_impl,
                 k_scale=cache.k_scale[layer_idx] if quant else None,
                 v_scale=cache.v_scale[layer_idx] if quant else None)
-        out = out.to(q.dtype).reshape(b, t, h * d)
-        return self._project(self.proj, 3, out, layer_idx, adapters), cache
+        return out.to(q.dtype).reshape(b, t, h * d), cache
+
+    def tp_attend(self, x, cache, layer_idx, deltas=None):
+        """A shard's attention under tensor parallelism up to proj: its
+        query/key/value head slice of x (plus each one's reduced LoRA
+        delta in `deltas`), the cache write and the attention over its
+        pools. Returns the (B, t, units / size) output."""
+        b, t, _ = x.shape
+        h = self._num_heads // self._tp[1]
+        d = self._units // self._num_heads
+        ys = [dense(x) for dense in (self.query, self.key, self.value)]
+        if deltas is not None:
+            ys = [y + dl for y, dl in zip(ys, deltas)]
+        q, k, v = (y.view(b, t, h, d) for y in ys)
+        return self._attend(q, k, v, cache, layer_idx)[0]
 
 
 class GPT2Block(nn.Module):
     """Pre-LN transformer block (GPT-2 style)."""
 
-    def __init__(self, cfg, device, dtype):
+    def __init__(self, cfg, device, dtype, tp=(0, 1)):
         super().__init__()
         c, kw = cfg, dict(device=device, dtype=dtype)
+        if c.hidden_size % tp[1]:
+            raise MXNetError(f"tp={tp[1]} must divide the FFN hidden size "
+                             f"({c.hidden_size})")
         self.ln1 = LayerNorm(c.units, c.layer_norm_eps, **kw)
         self.attn = GPT2Attention(c.units, c.num_heads,
                                   dropout=c.attention_dropout,
-                                  attention_impl=c.attention_impl, **kw)
+                                  attention_impl=c.attention_impl, tp=tp,
+                                  **kw)
         self.ln2 = LayerNorm(c.units, c.layer_norm_eps, **kw)
-        self.fc1 = Dense(c.units, c.hidden_size, **kw)
-        self.fc2 = Dense(c.hidden_size, c.units, **kw)
+        self.fc1 = Dense(c.units, c.hidden_size // tp[1], **kw)
+        self.fc2 = Dense(c.hidden_size // tp[1], c.units, **kw)
         self._activation = c.activation
         self.dropout = Dropout(c.dropout) if c.dropout else None
 
@@ -227,29 +304,37 @@ class GPT2Block(nn.Module):
         h = _ops.activation(self.fc1(self.ln2(x)), self._activation)
         return x + self._drop(self.fc2(h)), cache
 
+    def tp_mlp(self, x):
+        """A shard's MLP partial under tensor parallelism: fc1's hidden
+        slice (column-parallel), then fc2's bias-free partial product
+        (row-parallel; w8 scales applied to the partial)."""
+        h = _ops.activation(self.fc1(self.ln2(x)), self._activation)
+        return self.fc2(h, bias=False)
+
 
 class GPT2Model(nn.Module):
-    """Embeddings + pre-LN blocks + final LN."""
+    """Embeddings + pre-LN blocks + final LN. tp=(rank, size) builds
+    shard `rank` of a size-way tensor-parallel split (parallel/tp.py
+    shard_gpt2 fills it; tp_forward runs it)."""
 
-    def __init__(self, config, device, dtype):
+    def __init__(self, config, device, dtype, tp=(0, 1)):
         super().__init__()
         c = self.config = config
         kw = dict(device=device, dtype=dtype)
+        self.tp = tuple(tp)
         self.word_embed = Embedding(c.vocab_size, c.units, **kw)
         self.position_embed = Embedding(c.max_length, c.units, **kw)
         self.embed_dropout = Dropout(c.dropout) if c.dropout else None
         for i in range(c.num_layers):
-            self.add_module(f"layer{i}", GPT2Block(c, **kw))
+            self.add_module(f"layer{i}", GPT2Block(c, tp=tp, **kw))
         self.ln_f = LayerNorm(c.units, c.layer_norm_eps, **kw)
 
     def blocks(self):
         return [getattr(self, f"layer{i}")
                 for i in range(self.config.num_layers)]
 
-    def forward(self, inputs, cache=None, adapters=None):
-        """(hidden states (B, t, C), cache advanced by t or None)."""
-        if cache is not None and not cache.ragged:
-            raise not_ported("the GPT-2 forward over a lockstep cache")
+    def embed(self, inputs, cache=None):
+        """Token plus position embeddings of the chunk (B, t)."""
         t = inputs.shape[1]
         positions = torch.arange(t, device=inputs.device)
         if cache is not None:
@@ -261,12 +346,82 @@ class GPT2Model(nn.Module):
             # nothing.
             positions = (cache.length[:, None].long() + positions).clamp(
                 max=self.config.max_length - 1)
-        x = self.word_embed(inputs) + self.position_embed(positions)
+        return self.word_embed(inputs) + self.position_embed(positions)
+
+    def forward(self, inputs, cache=None, adapters=None):
+        """(hidden states (B, t, C), cache advanced by t or None)."""
+        if cache is not None and not cache.ragged:
+            raise not_ported("the GPT-2 forward over a lockstep cache")
+        if self.tp[1] > 1:
+            raise MXNetError("a tensor-parallel shard runs only inside "
+                             "tp_forward")
+        t = inputs.shape[1]
+        x = self.embed(inputs, cache)
         if self.embed_dropout is not None:
             x = self.embed_dropout(x)
         for i, block in enumerate(self.blocks()):
             x, cache = block(x, cache, i, adapters)
         return self.ln_f(x), None if cache is None else cache.advance(t)
+
+
+def _add_bias(full, dense):
+    return full if dense.bias is None else full + dense.bias
+
+
+@torch.no_grad()
+def tp_forward(shards, group, inputs, caches, adapters=None):
+    """The serving forward under tensor parallelism: the shard backbones
+    (parallel/tp.py shard_gpt2) in lockstep over `group`, one shard
+    after another between reductions, as the reference's shard_map body
+    runs on every shard between its psums:
+
+      * each shard embeds the chunk (replicated embeddings);
+      * per layer, each shard's attention partial (its heads over its
+        own pools, then proj's bias-free partial product), ONE
+        all_reduce, proj's bias once, the residual; then each shard's
+        MLP partial, ONE all_reduce, fc2's bias once, the residual;
+      * the final LayerNorm and the tied LM head once, on shard 0.
+
+    inputs (B, t) token ids on shard 0's device; caches one ragged
+    PagedKVCache per shard over its (L, pages, page, H / size, D) pools,
+    written in place; adapters None or one AdapterBatch per shard (its
+    slab slices: A on the U axis, B on the out axis): each projection's
+    rank-R partial is reduced once more before its delta, and proj's
+    delta rides proj's own reduction. Returns the logits (B, t, V) on
+    shard 0's device. Serving only: no dropout."""
+    size = group.size
+    ranks = range(size)
+    blocks = [s.blocks() for s in shards]
+    xs = [s.embed(x, c) for s, x, c in
+          zip(shards, group.broadcast(inputs), caches)]
+    for i in range(shards[0].config.num_layers):
+        bl = [blocks[r][i] for r in ranks]
+        hs = [bl[r].ln1(xs[r]) for r in ranks]
+        deltas = [None] * size
+        if adapters is not None:
+            per = []
+            for pidx in range(3):
+                red = group.all_reduce([lora_rank_part(
+                    adapters[r], pidx, i, hs[r], r) for r in ranks])
+                per.append([lora_finish(adapters[r], pidx, i, red[r],
+                                        hs[r].dtype, r, size)
+                            for r in ranks])
+            deltas = [[per[p][r] for p in range(3)] for r in ranks]
+        outs = [bl[r].attn.tp_attend(hs[r], caches[r], i, deltas[r])
+                for r in ranks]
+        parts = [bl[r].attn.proj(outs[r], bias=False) for r in ranks]
+        if adapters is not None:
+            red = group.all_reduce([lora_rank_part(
+                adapters[r], 3, i, outs[r], r) for r in ranks])
+            parts = [parts[r] + lora_finish(adapters[r], 3, i, red[r],
+                                            outs[r].dtype, r, size)
+                     for r in ranks]
+        full = group.all_reduce(parts)
+        xs = [xs[r] + _add_bias(full[r], bl[r].attn.proj) for r in ranks]
+        full = group.all_reduce([bl[r].tp_mlp(xs[r]) for r in ranks])
+        xs = [xs[r] + _add_bias(full[r], bl[r].fc2) for r in ranks]
+    h = shards[0].ln_f(xs[0])
+    return _ops.fully_connected(h, shards[0].word_embed.weight)
 
 
 class GPT2ForCausalLM(nn.Module):

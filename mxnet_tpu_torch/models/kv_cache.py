@@ -55,12 +55,31 @@ def _host(x):
     return x.cpu() if torch.is_tensor(x) else x
 
 
+def _sharded(pools):
+    return isinstance(pools, (list, tuple))
+
+
 def gather_kv_pages(k_pages, v_pages, idx, k_scale=None, v_scale=None):
     """Whole pages (rows of the page axis) out of paged pools: the host
     tier's device-to-host read. idx: the page ids to take, a 1-D int
     tensor or sequence. Returns (k, v, ks, vs): k/v (L, n, page_size, H,
     D) copies, ks/vs (L, n, H) float32 scale rows (None on float
-    pools)."""
+    pools). Per-shard pools (lists, one head slice per shard, scales
+    None or lists) give the global layout: the shards' heads
+    concatenated in shard order, on shard 0's device."""
+    if _sharded(k_pages):
+        n = len(k_pages)
+        parts = [gather_kv_pages(
+            k_pages[r], v_pages[r], idx,
+            None if k_scale is None else k_scale[r],
+            None if v_scale is None else v_scale[r]) for r in range(n)]
+        d0 = k_pages[0].device
+
+        def cat(j, axis):
+            if parts[0][j] is None:
+                return None
+            return torch.cat([p[j].to(d0) for p in parts], axis)
+        return cat(0, 3), cat(1, 3), cat(2, 2), cat(3, 2)
     idx = torch.as_tensor(idx, dtype=torch.long, device=k_pages.device)
     k = k_pages.index_select(1, idx)
     v = v_pages.index_select(1, idx)
@@ -76,8 +95,25 @@ def scatter_kv_pages(k_pages, v_pages, idx, k_val, v_val, k_scale=None,
     verbatim: int8 codes and their float32 scale rows exactly as
     gathered, never re-quantized, which is what makes a paged-in page
     read the bits a never-evicted one does. idx holds live page ids
-    only (no padding rows). Returns (k_pages, v_pages, k_scale,
-    v_scale)."""
+    only (no padding rows). Per-shard pools (lists) take values in the
+    global head layout, each shard its head slice. Returns (k_pages,
+    v_pages, k_scale, v_scale)."""
+    if _sharded(k_pages):
+        h0 = 0
+        for r, kp in enumerate(k_pages):
+            h = kp.shape[3]
+            dev = kp.device
+
+            def cut(val, axis):
+                return None if val is None \
+                    else val.narrow(axis, h0, h).to(dev)
+            scatter_kv_pages(
+                kp, v_pages[r], idx, cut(k_val, 3), cut(v_val, 3),
+                None if k_scale is None else k_scale[r],
+                None if v_scale is None else v_scale[r],
+                cut(ks_val, 2), cut(vs_val, 2))
+            h0 += h
+        return k_pages, v_pages, k_scale, v_scale
     idx = torch.as_tensor(idx, dtype=torch.long, device=k_pages.device)
     k_pages.index_copy_(1, idx, k_val.to(k_pages.dtype))
     v_pages.index_copy_(1, idx, v_val.to(v_pages.dtype))

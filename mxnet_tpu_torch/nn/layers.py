@@ -50,11 +50,13 @@ class Dense(nn.Module):
         self.scale = scale.float()
         return self
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
+        """bias=False: the bias-free product (a row-parallel shard's
+        partial, whose bias is added once after the reduction)."""
+        b = self.bias if bias else None
         if self.codes is not None:
-            return _ops.fully_connected(x, self.codes, self.bias,
-                                        scale=self.scale)
-        return _ops.fully_connected(x, self.weight, self.bias)
+            return _ops.fully_connected(x, self.codes, b, scale=self.scale)
+        return _ops.fully_connected(x, self.weight, b)
 
 
 class LayerNorm(nn.Module):

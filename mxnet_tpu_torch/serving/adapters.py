@@ -25,6 +25,13 @@ in-place copy into one slab slot, LRU-evicting an unpinned resident
 when the slab is full), raising ``AdapterPoolExhausted`` when every
 slot is pinned (backpressure in the engine, like PagePoolExhausted);
 ``release`` drops a pin; ``audit`` checks the invariants.
+
+Under tensor parallelism (``shard_batches``) each shard reads its slices
+of the slab: A split on its U axis, B on its out axis (the head-aligned
+split of the base weights, so each shard's delta lands in its projection
+before the reduction), the scales whole. The slices are cached by the
+slab's identity and page-in count, so a page-in replaces them whole; on
+the slab's own device they are views and cost no copy.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 from ..analysis import loop_only, thread_safe
 from ..base import MXNetError, resolve_device
 from ..models.gpt2 import _DTYPES, AdapterBatch
+from ..parallel.mesh import place
 
 __all__ = ["AdapterPool", "AdapterPoolExhausted", "random_lora",
            "merged_weights"]
@@ -124,12 +132,33 @@ class AdapterPool:
         self._tick = 0
         self.page_ins = 0
         self.evictions = 0
+        self._shard_cache = None
 
     def batch(self, slots):
         """The forward's adapter operand for per-row slab slots
         `slots` (Bsz,) int."""
         return AdapterBatch(self.A, self.B, self.scale, slots,
                             self.a_scale, self.b_scale)
+
+    def shard_batches(self, slots, group):
+        """One adapter operand per shard of a parallel.tp.TPGroup: shard
+        r's U-slice of A, out-slice of B, the scales whole, and `slots`,
+        each on the shard's device."""
+        key = (id(self.A), id(self.B), self.page_ins,
+               tuple(group.devices))
+        if self._shard_cache is None or self._shard_cache[0] != key:
+            u = self.config.units // group.size
+            views = []
+            for r, dev in enumerate(group.devices):
+                leaves = [self.A[..., r * u:(r + 1) * u, :],
+                          self.B[..., r * u:(r + 1) * u], self.scale,
+                          self.a_scale, self.b_scale]
+                views.append([None if x is None else place(x, dev)
+                              for x in leaves])
+            self._shard_cache = (key, views)
+        return [AdapterBatch(a, b, sc, s, asc, bsc)
+                for (a, b, sc, asc, bsc), s in
+                zip(self._shard_cache[1], group.broadcast(slots))]
 
     # -- queries -----------------------------------------------------------
     @property

@@ -97,7 +97,22 @@ an engine that adopts it scatters the pages into fresh ones and goes on
 decoding with no re-prefill; a payload that cannot land falls back to
 the restart continuation (a `handoff_fallback` event).
 
-Not ported yet: tensor parallelism (tp, tp_devices raise).
+Tensor parallelism (`tp=N`, `tp_devices`): the reference's head-wise
+megatron split, in one process over a list of shard devices
+(parallel/mesh.py; a device may repeat, so N shards can share one card
+or the CPU). query/key/value and fc1 are column-parallel, proj and fc2
+row-parallel (a bias-free partial, ONE reduction, the bias once), each
+shard's KV pools hold its H / N heads, and the embeddings, the tied LM
+head, the LayerNorms, the page table, the lock mask and the slot state
+stay whole. The dispatch runs the shards in lockstep
+(models/gpt2.py `tp_forward`); the finite guard, sampling, speculative
+verify and the slot state run once, on shard 0, whose device must be the
+engine's. Every eager page op (scrub, scale reset, CoW copy, tier and
+handoff moves, the audit's scale read) runs on every shard's pools, and
+payloads keep the global head layout, so a tp=2 engine's handoff lands
+in a tp=1 or tp=4 engine. hbm_budget_bytes is per chip: a page costs
+page_bytes / N of it. Greedy streams equal tp=1's up to floating-point
+reassociation in the reductions.
 """
 from __future__ import annotations
 
@@ -116,11 +131,14 @@ from ..telemetry import cost as _cost
 from ..telemetry import ledger as _ledger
 from ..telemetry import server as _tserver
 from ..telemetry import span
-from ..base import MXNetError, not_ported, resolve_device
-from ..models.gpt2 import _DTYPES
+from ..base import MXNetError, resolve_device
+from ..models.gpt2 import _DTYPES, tp_forward
 from ..models.kv_cache import (PagedKVCache, gather_kv_pages,
                                scatter_kv_pages)
 from ..ops._build import KernelError
+from ..parallel.mesh import serving_tp_devices
+from ..parallel.rules import split_kind
+from ..parallel.tp import TPGroup, shard_gpt2
 from .adapters import AdapterPoolExhausted
 from .host_tier import HostPagePool
 from .page_pool import PagePool, PagePoolExhausted
@@ -133,9 +151,6 @@ from .weight_quant import build_weight_plan
 
 __all__ = ["ServingEngine"]
 
-# JAX-engine options this port does not cover yet, with the default that
-# means "off"; any other value raises
-_NOT_PORTED = {"tp": 1, "tp_devices": None}
 _KV_DTYPES = (None, "int8", torch.int8)
 
 # per-slot state mirrored on the device, in the order of the host arrays
@@ -262,8 +277,8 @@ _METRICS = {
                            "KV bytes per token position (kv_page_bytes "
                            "/ page_size)"),
     "tp_shards": ("g", "serving_tp_shards",
-                  "tensor-parallel shards of the dispatch (1: the port "
-                  "has no tensor parallelism yet)"),
+                  "tensor-parallel shards of the dispatch (1: "
+                  "unsharded)"),
     "weight_quant_enabled": ("g", "serving_weight_quant_enabled",
                              "1 when the engine serves w8 weights"),
     "kv_spill_pages": ("c", "serving_kv_spill_pages_total",
@@ -452,6 +467,12 @@ class ServingEngine:
     codes plus every float tensor) to hbm_budget_bytes before sizing
     the pool. adapter_pool: an AdapterPool on this engine's device;
     requests then name their adapter by Request.adapter_id.
+
+    tp: tensor-parallel shards (default 1: unsharded); it must divide
+    num_heads and the FFN hidden size. tp_devices: the shard devices
+    (torch.device or strings; default the first tp CUDA devices, raising
+    when there are fewer); a device may repeat (["cpu"] * tp,
+    ["cuda:0"] * tp), and the first must be `device`.
     """
 
     def __init__(self, model, num_slots, max_length=None, page_size=64,
@@ -464,13 +485,7 @@ class ServingEngine:
                  spec_min_ngram=1, weight_dtype=None,
                  hbm_budget_includes_weights=False, adapter_pool=None,
                  policy=None, max_retries=3, clock=None, tenant_quotas=None,
-                 host_kv_bytes=None, **options):
-        for key, value in options.items():
-            if key not in _NOT_PORTED:
-                raise TypeError(f"ServingEngine() got an unexpected "
-                                f"keyword argument {key!r}")
-            if value != _NOT_PORTED[key]:
-                raise not_ported(f"ServingEngine({key}=...)")
+                 host_kv_bytes=None, tp=1, tp_devices=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise MXNetError(f"the model lives on {model.device}, the "
@@ -495,6 +510,31 @@ class ServingEngine:
         self.decode_block = decode_block
         self.prefill_bucket = prefill_bucket
         self.attn_impl = attn_impl
+        # tensor-parallel serving: a construction-time mode. tp=1 is the
+        # unsharded engine, bit for bit; tp=N runs N shard modules over
+        # N shard pools in lockstep (module docstring)
+        self._tp = int(tp or 1)
+        if self._tp < 1:
+            raise MXNetError(f"tp must be >= 1, got {tp}")
+        if self._tp > 1:
+            if cfg.num_heads % self._tp:
+                raise MXNetError(
+                    f"tp={self._tp} must divide num_heads "
+                    f"({cfg.num_heads}) — the KV pool and the qkv/proj "
+                    "weights shard head-wise")
+            if cfg.hidden_size % self._tp:
+                raise MXNetError(
+                    f"tp={self._tp} must divide the FFN hidden size "
+                    f"({cfg.hidden_size}) — fc1/fc2 shard on it")
+        self._tp_devices = serving_tp_devices(self._tp, tp_devices)
+        self._tp_group = None
+        if self._tp_devices is not None:
+            if self._tp_devices[0] != self.device:
+                raise MXNetError(
+                    f"tp_devices[0] is {self._tp_devices[0]}, the engine "
+                    f"(shard 0, where the slot state lives) is on "
+                    f"{self.device}")
+            self._tp_group = TPGroup(self._tp_devices)
         self.chunk_tokens = int(chunk_tokens or page_size)
         if self.chunk_tokens < 1:
             raise MXNetError("chunk_tokens must be >= 1")
@@ -547,7 +587,12 @@ class ServingEngine:
         self._hook_kw_cache = None
 
         self._w8_plan = self._quantize_weights(weight_dtype)
-        self.weight_bytes = self._served_weight_bytes()
+        # the shard modules, sliced once from the (possibly just
+        # quantized) model's tensors; None unsharded
+        self._shards = None if self._tp_group is None \
+            else shard_gpt2(model, self._tp_group)
+        self.weight_bytes, self._weight_bytes_per_chip = \
+            self._served_weight_bytes()
         # what the engine serves: a model an earlier engine quantized
         # serves its codes here too
         self.weight_dtype = "int8" if self.weight_bytes["int8"] \
@@ -596,27 +641,37 @@ class ServingEngine:
             if hbm_budget_includes_weights:
                 # the served weights come out of the same device bytes:
                 # this turns w8's smaller weights into admitted pages
-                page_budget -= sum(self.weight_bytes.values())
+                page_budget -= self._weight_bytes_per_chip
                 if page_budget <= 0:
                     raise MXNetError(
                         f"hbm_budget_bytes {hbm_budget_bytes} is below the "
-                        f"{sum(self.weight_bytes.values())} B the "
+                        f"{self._weight_bytes_per_chip} B/chip the "
                         f"{self.weight_dtype} weights alone need")
-            afford = page_budget // page_bytes
+            # the budget is per chip: under tp each chip holds 1/tp of
+            # every page (the head axis splits), so it buys tp x the pages
+            chip_page = page_bytes // self._tp
+            afford = page_budget // chip_page
             if afford < P:
                 raise MXNetError(
                     f"hbm_budget_bytes {hbm_budget_bytes} affords {afford} "
-                    f"pages at {page_bytes} B/page — below the {P} pages "
-                    f"one full-length slot needs")
+                    f"pages at {chip_page} B/page/chip — below the {P} "
+                    f"pages one full-length slot needs")
             total_pages = min(total_pages, afford)
-        pools = PagedKVCache.create(
-            L, B, H, max_length, Dh, dtype=dt, page_size=page_size,
-            num_pages=total_pages, page_table=np.zeros((B, P), np.int32),
-            lengths=np.zeros(B), attn_impl=attn_impl,
-            kv_dtype="int8" if self._quant else None, device=self.device)
-        self._kp, self._vp = pools.k_pages, pools.v_pages
-        # (L, total_pages + 1, H) float32 scales of int8 pools, else None
-        self._ks, self._vs = pools.k_scale, pools.v_scale
+        # one pool set per shard over its H / tp heads (the whole pools
+        # unsharded); shard 0's are _kp/_vp/_ks/_vs
+        self._kv_shape = (L, page_size, H, Dh)
+        self._pools = []
+        for dev in self._tp_devices or [self.device]:
+            pools = PagedKVCache.create(
+                L, B, H // self._tp, max_length, Dh, dtype=dt,
+                page_size=page_size, num_pages=total_pages,
+                page_table=np.zeros((B, P), np.int32),
+                lengths=np.zeros(B), attn_impl=attn_impl,
+                kv_dtype="int8" if self._quant else None, device=dev)
+            # (L, total_pages + 1, H / tp) float32 scales of int8 pools
+            self._pools.append((pools.k_pages, pools.v_pages,
+                                pools.k_scale, pools.v_scale))
+        self._kp, self._vp, self._ks, self._vs = self._pools[0]
         self.page_pool = PagePool(total_pages, page_bytes=page_bytes)
         self.prefix_cache = PrefixCache(self.page_pool, page_size,
                                         budget_pages=extra) \
@@ -708,11 +763,13 @@ class ServingEngine:
         self._set_pool_gauges()
         # device-cost accounting: each dispatch's model-formula cost
         # under one program key, timed by a reused pair of CUDA events
-        self._cost_program = f"engine{self._eid}/dispatch"
+        self._cost_program = f"engine{self._eid}/dispatch" + (
+            f"/tp{self._tp}" if self._tp > 1 else "")
         self._cost_dtype = str(model.dtype).replace("torch.", "")
         self._cost_logits_bytes = model.dtype.itemsize   # logits' dtype
         self._events = None
-        _cost.register_program(self._cost_program, dtype=self._cost_dtype)
+        _cost.register_program(self._cost_program, dtype=self._cost_dtype,
+                               shards=self._tp)
         _cost.add_steady_probe(self._steady_probe)
         # live introspection: /statusz shows this engine's config and
         # occupancy, the flight recorder's watchdog probes its progress,
@@ -738,6 +795,7 @@ class ServingEngine:
             raise MXNetError(f"weight_dtype {weight_dtype!r} unsupported "
                              "(int8 or None)")
         plan = build_weight_plan(self.model.named_parameters(),
+                                 tp=self._tp,
                                  max_shards=self.model.config.num_heads)
         if not plan:
             raise MXNetError("weight_dtype='int8' found no megatron col/row "
@@ -748,14 +806,24 @@ class ServingEngine:
         return plan
 
     def _served_weight_bytes(self):
-        """The device bytes of the weights this engine serves: int8 =
-        w8 code slabs, float32 = every other tensor (parameters, w8
-        scales), whatever its float dtype, as in the reference."""
-        out = {"int8": 0, "float32": 0}
-        for t in list(self.model.parameters()) + list(self.model.buffers()):
-            key = "int8" if t.dtype == torch.int8 else "float32"
-            out[key] += t.numel() * t.element_size()
-        return out
+        """The device bytes of the weights this engine serves, as in the
+        reference: ({"int8": w8 code slabs, "float32": every other tensor
+        (parameters, w8 scales), whatever its float dtype}, the bytes one
+        chip holds). On a chip a tensor the tp split cuts (column and row
+        weights or w8 codes, column biases, column w8 scales) counts
+        1/tp, a replicated one whole."""
+        out, chip = {"int8": 0, "float32": 0}, 0
+        for name, t in itertools.chain(self.model.named_parameters(),
+                                       self.model.named_buffers()):
+            nb = t.numel() * t.element_size()
+            out["int8" if t.dtype == torch.int8 else "float32"] += nb
+            base, _, leaf = name.rpartition(".")
+            kind = split_kind(f"{base}.weight" if leaf in ("codes", "scale")
+                              else name)
+            if leaf == "scale" and kind == "row":
+                kind = "replicated"     # row scales stay whole per shard
+            chip += nb if kind == "replicated" else nb // self._tp
+        return out, chip
 
     def _upload(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
@@ -774,7 +842,7 @@ class ServingEngine:
         out["weight_bytes_int8"] = self.weight_bytes["int8"]
         out["weight_bytes_float32"] = self.weight_bytes["float32"]
         out["weight_bytes_total"] = sum(self.weight_bytes.values())
-        out["weight_bytes_per_chip"] = out["weight_bytes_total"]
+        out["weight_bytes_per_chip"] = self._weight_bytes_per_chip
         return out
 
     def _set_static_gauges(self):
@@ -786,7 +854,7 @@ class ServingEngine:
         m["kv_quant_enabled"].set(int(self._quant))
         m["kv_page_bytes"].set(pb)
         m["kv_bytes_per_token"].set(pb / self.page_size)
-        m["tp_shards"].set(1)
+        m["tp_shards"].set(self._tp)
         m["weight_quant_enabled"].set(int(bool(self.weight_bytes["int8"])))
         for wd, nb in self.weight_bytes.items():
             self._wbytes_fam.labels(self._eid, wd).set(nb)
@@ -969,7 +1037,7 @@ class ServingEngine:
                 "kv_page_bytes": self.page_pool.page_bytes,
                 "weight_dtype": self.weight_dtype,
                 "weight_bytes": dict(self.weight_bytes),
-                "weight_bytes_per_chip": sum(self.weight_bytes.values()),
+                "weight_bytes_per_chip": self._weight_bytes_per_chip,
                 "quantized_weights": len(self._w8_plan),
                 "hbm_budget_bytes": self._hbm_budget,
                 "hbm_budget_includes_weights": self._hbm_includes_weights,
@@ -979,9 +1047,18 @@ class ServingEngine:
                 "adapter_slots": pool.slots if pool is not None else None,
                 "adapter_max_rank": pool.max_rank
                 if pool is not None else None,
-                "tp_shards": 1,
+                "tp_shards": self._tp,
             },
-            "sharding": None,
+            "sharding": None if self._tp_group is None else {
+                "tp_shards": self._tp,
+                "mesh_devices": [str(d) for d in self._tp_group.devices],
+                "heads_per_shard": self.model.config.num_heads // self._tp,
+                "kv_page_bytes_per_chip":
+                    self.page_pool.page_bytes // self._tp,
+                "replicated": ["embeddings", "lm_head", "layernorm",
+                               "page_table", "page_lock",
+                               "slot_scalars", "logits"],
+            },
             "admission_capacity": self.admission_capacity_estimate(),
             "kv_tier": None if self.host_pool is None else {
                 "host_budget_bytes": self.host_pool.budget_bytes,
@@ -1071,12 +1148,18 @@ class ServingEngine:
         the ledger dedupes them across engines over one model); the
         prefix-cache figure is a Detail (those pages live inside the
         kv_pages slab), and so is the host tier (host RAM)."""
-        kv = [self._kp, self._vp]
-        if self._quant:
-            kv += [self._ks, self._vs]   # dequant scales live with KV
+        kv = []
+        for kp, vp, ks, vs in self._pools:
+            kv += [kp, vp]
+            if self._quant:
+                kv += [ks, vs]           # dequant scales live with KV
+        weights = list(self.model.parameters()) + list(self.model.buffers())
+        for shard in self._shards or ():
+            # a shard's slices share the model's storage where they can
+            # (the ledger counts a storage once) and own the rest
+            weights += list(shard.parameters()) + list(shard.buffers())
         out = {
-            "weights": list(self.model.parameters())
-            + list(self.model.buffers()),
+            "weights": weights,
             "kv_pages": kv,
             "slot_state": list(self._dstate.values()) + [self._d_lock],
         }
@@ -1579,9 +1662,10 @@ class ServingEngine:
             # per-page summary over layers and heads; the trash page's
             # row is not a pool page
             N = self.page_pool.num_pages
-            scales = torch.maximum(
-                self._ks[:, :N].abs().amax(dim=(0, 2)),
-                self._vs[:, :N].abs().amax(dim=(0, 2))).cpu().numpy()
+            scales = np.max([torch.maximum(
+                ks[:, :N].abs().amax(dim=(0, 2)),
+                vs[:, :N].abs().amax(dim=(0, 2))).cpu().numpy()
+                for _, _, ks, vs in self._pools], axis=0)
         host_keys = spilled_keys = None
         extra = []
         if self.host_pool is not None:
@@ -1840,12 +1924,13 @@ class ServingEngine:
                  and (member is None or not member[int(p)])]
         if not pages:
             return
-        idx = torch.as_tensor(pages, device=self.device)
-        self._kp[:, idx] = 0
-        self._vp[:, idx] = 0
-        if self._quant:
-            self._ks[:, idx] = 0.0
-            self._vs[:, idx] = 0.0
+        for kp, vp, ks, vs in self._pools:
+            idx = torch.as_tensor(pages, device=kp.device)
+            kp[:, idx] = 0
+            vp[:, idx] = 0
+            if self._quant:
+                ks[:, idx] = 0.0
+                vs[:, idx] = 0.0
 
     def _on_bad_slots(self, bad, exc_msg):
         """Slots whose dispatch gave non-finite logits (the finite
@@ -1893,9 +1978,10 @@ class ServingEngine:
         """int8 pools: recycled pages start from scale 0, or the
         monotone update would inherit an old owner's scale."""
         if self._quant and pages:
-            idx = torch.as_tensor(pages, device=self.device)
-            self._ks[:, idx] = 0.0
-            self._vs[:, idx] = 0.0
+            for _, _, ks, vs in self._pools:
+                idx = torch.as_tensor(pages, device=ks.device)
+                ks[:, idx] = 0.0
+                vs[:, idx] = 0.0
 
     def _map_slot_pages(self, slot, tokens, match=True):
         """Page-table surgery for an admission (`tokens`: the prompt,
@@ -1935,9 +2021,9 @@ class ServingEngine:
         self._zero_scales(fresh)
         if cow_src is not None:
             dst = fresh[0]             # lands at row index len(matched)
-            for pool in (self._kp, self._vp) + (
-                    (self._ks, self._vs) if self._quant else ()):
-                pool[:, dst] = pool[:, cow_src]
+            for pools in self._pools:
+                for pool in pools[:4 if self._quant else 2]:
+                    pool[:, dst] = pool[:, cow_src]
             pc.release([cow_src])      # drop our lease on the source
             offset = Tp - 1
         else:
@@ -1963,7 +2049,7 @@ class ServingEngine:
         scale rows (L, n, H) float32 (None on float pools). One block
         per engine, pinned on the card (a pinned allocation costs far
         more than the copy it serves), grown to the largest n asked."""
-        L, _, S, H, D = self._kp.shape
+        L, S, H, D = self._kv_shape
         if self._stage is None or self._stage[0] < n:
             pin = self.device.type == "cuda"
             if self._stage_event is not None:
@@ -1984,6 +2070,17 @@ class ServingEngine:
             vs = sc[n * L * H:2 * n * L * H].view(L, n, H)
         return k, v, ks, vs
 
+    def _pool_args(self):
+        """(k_pages, v_pages, k_scale, v_scale) as the tier gather and
+        scatter take them: shard 0's tensors unsharded, else one list
+        per leaf with a pool per shard (the global head layout)."""
+        if self._tp_group is None:
+            return self._pools[0]
+        leaves = [list(x) for x in zip(*self._pools)]
+        if not self._quant:
+            leaves[2] = leaves[3] = None
+        return tuple(leaves)
+
     @staticmethod
     def _host_array(t):
         """A staging view as numpy; bfloat16 (no numpy dtype) as its
@@ -2003,8 +2100,8 @@ class ServingEngine:
         for i in range(0, len(pages), P):
             blk = [int(p) for p in pages[i:i + P]]
             n = len(blk)
-            k, v, ks, vs = gather_kv_pages(self._kp, self._vp, blk,
-                                           self._ks, self._vs)
+            kp, vp, ks, vs = self._pool_args()
+            k, v, ks, vs = gather_kv_pages(kp, vp, blk, ks, vs)
             hk, hv, hks, hvs = self._staging(n)
             # the stream orders these copies after any page-in still
             # reading the block
@@ -2058,8 +2155,9 @@ class ServingEngine:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(self.device))
                 self._stage_event = ev
-            scatter_kv_pages(self._kp, self._vp, [int(p) for p, _ in blk],
-                             dk, dv, self._ks, self._vs, dks, dvs)
+            kp, vp, ks, vs = self._pool_args()
+            scatter_kv_pages(kp, vp, [int(p) for p, _ in blk], dk, dv, ks,
+                             vs, dks, dvs)
 
     def _spill_node(self, keypath, page):
         """PrefixCache evict_hook: offer one evicted node's payload to
@@ -2295,7 +2393,7 @@ class ServingEngine:
         if (not pages or length < 1 or length > self.max_length
                 or len(pages) != min(P, -(-length // S))):
             return None
-        L, _, S_, H, D = self._kp.shape
+        L, S_, H, D = self._kv_shape
         bf16 = self._kp.dtype == torch.bfloat16
         want = np.dtype(np.int16) if bf16 \
             else torch.empty((), dtype=self._kp.dtype).numpy().dtype
@@ -2661,13 +2759,30 @@ class ServingEngine:
         nd = torch.where(active, grid[:, W + 3], 0)
         qn = torch.where(prefilling, chunk_len,
                          torch.where(active, 1 + nd, 0))
-        cache = PagedKVCache(self._kp, self._vp, d["table"], d["lengths"],
-                             page_lock=self._d_lock, spans=qn,
-                             k_scale=self._ks, v_scale=self._vs,
-                             attn_impl=self.attn_impl)
-        adapters = None if self.adapter_pool is None \
-            else self.adapter_pool.batch(d["aslot"])
-        logits, _ = self.model(toks_in, cache, adapters=adapters)
+        g = self._tp_group
+        if g is None:
+            cache = PagedKVCache(self._kp, self._vp, d["table"],
+                                 d["lengths"], page_lock=self._d_lock,
+                                 spans=qn, k_scale=self._ks,
+                                 v_scale=self._vs, attn_impl=self.attn_impl)
+            adapters = None if self.adapter_pool is None \
+                else self.adapter_pool.batch(d["aslot"])
+            logits, _ = self.model(toks_in, cache, adapters=adapters)
+        else:
+            # one cache per shard over its own pools; the page table,
+            # lengths, lock mask and spans are shared (placed on a
+            # shard's device only where it differs)
+            shared = zip(*(g.broadcast(x) for x in (
+                d["table"], d["lengths"], self._d_lock, qn)))
+            caches = [PagedKVCache(kp, vp, tbl, lens, page_lock=lock,
+                                   spans=spans, k_scale=ks, v_scale=vs,
+                                   attn_impl=self.attn_impl)
+                      for (kp, vp, ks, vs), (tbl, lens, lock, spans)
+                      in zip(self._pools, shared)]
+            adapters = None if self.adapter_pool is None \
+                else self.adapter_pool.shard_batches(d["aslot"], g)
+            logits = tp_forward(self._shards, g, toks_in, caches,
+                                adapters=adapters)
         # the finite guard over LIVE positions only: a slot whose logits
         # went non-finite (corrupted KV, numeric blowup) is flagged; the
         # host discards its tokens of this dispatch and re-prefills it

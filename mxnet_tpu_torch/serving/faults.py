@@ -206,7 +206,8 @@ class FaultPlan:
         page = cands[int(self._rng.integers(len(cands)))]
         if not engine._kp.dtype.is_floating_point:
             np.asarray(np.nan, np.int8)        # raises, as jnp does
-        engine._kp[:, page] = torch.nan
+        for kp, _, _, _ in engine._pools:    # every shard's heads
+            kp[:, page] = torch.nan
         self.counts["nan_logits"] += 1
 
     def hook(self, engine, phase="step", requests=()):

@@ -93,7 +93,7 @@ class _ProgramRecord:
     __slots__ = ("program", "flops", "bytes_accessed", "source",
                  "compiles", "compile_seconds", "dispatches",
                  "dispatch_seconds", "last_seconds", "last_compile_ts",
-                 "dtype", "steady_compiles", "children")
+                 "dtype", "steady_compiles", "shards", "children")
 
     def __init__(self, program):
         self.program = program
@@ -108,6 +108,7 @@ class _ProgramRecord:
         self.last_compile_ts = None
         self.dtype = None
         self.steady_compiles = 0
+        self.shards = 1            # tensor-parallel shards (chips)
         self.children = None       # cached labeled gauge/counter children
 
 
@@ -305,11 +306,14 @@ def _children(rec):
 
 
 def register_program(program, flops=None, bytes_accessed=None,
-                     dtype=None):
+                     dtype=None, shards=1):
     """Register (or refresh) a program's cost: `flops`/`bytes_accessed`
-    of ONE dispatch; `dtype` is its compute dtype (picks the peak MFU
-    compares against). Non-finite / non-positive values are treated as
-    unknown. Returns the record's snapshot."""
+    of ONE dispatch, whole-model figures; `dtype` is its compute dtype
+    (picks the peak MFU compares against); `shards` the tensor-parallel
+    shard count, by which the live MFU and bandwidth gauges divide (each
+    chip did 1/shards of the work in that time). Non-finite /
+    non-positive values are treated as unknown. Returns the record's
+    snapshot."""
     flops, bytes_accessed = _clean(flops), _clean(bytes_accessed)
     with _lock:
         rec = _record(program)
@@ -319,6 +323,7 @@ def register_program(program, flops=None, bytes_accessed=None,
             rec.bytes_accessed = bytes_accessed
         if dtype is not None:
             rec.dtype = str(dtype)
+        rec.shards = max(int(shards), 1)
         flops, bytes_accessed = rec.flops, rec.bytes_accessed
     ch = _children(rec)
     if flops is not None:
@@ -383,14 +388,17 @@ def note_dispatch(program, seconds, flops=None, bytes_accessed=None):
         rec.dispatch_seconds += seconds
         rec.last_seconds = seconds
         flops, nbytes = rec.flops, rec.bytes_accessed
+        sh = rec.shards
     ch = _children(rec)
     ch["dispatches"].inc()
     ch["dispatch_seconds"].inc(seconds)
+    # the registered cost is whole-model; the gauges compare against ONE
+    # chip's peak, so a tp-way program's figures divide by the shards
     if flops is not None:
         pf, pb, _ = peaks(rec.dtype)
         if pf:
-            ch["mfu"].set(flops / seconds / pf)
-        ch["achieved_flops"].set(flops / seconds)
+            ch["mfu"].set(flops / seconds / pf / sh)
+        ch["achieved_flops"].set(flops / seconds / sh)
         ch["program_flops"].set(flops)
         if nbytes is not None:
             ai = flops / nbytes
@@ -398,7 +406,7 @@ def note_dispatch(program, seconds, flops=None, bytes_accessed=None):
             if pf and pb:
                 ch["compute_bound"].set(1.0 if ai >= pf / pb else 0.0)
     if nbytes is not None:
-        ch["achieved_bw"].set(nbytes / seconds)
+        ch["achieved_bw"].set(nbytes / seconds / sh)
         ch["program_bytes"].set(nbytes)
     return rec
 
@@ -418,11 +426,12 @@ def _snap(rec):
         out["arithmetic_intensity"] = rec.flops / rec.bytes_accessed
     if rec.flops and rec.last_seconds:
         pf, pb, _ = peaks(rec.dtype)
+        sh = rec.shards
         if pf:
-            out["mfu"] = rec.flops / rec.last_seconds / pf
+            out["mfu"] = rec.flops / rec.last_seconds / pf / sh
         if rec.bytes_accessed and pb:
             out["bandwidth_util"] = (rec.bytes_accessed
-                                     / rec.last_seconds / pb)
+                                     / rec.last_seconds / pb / sh)
     return out
 
 

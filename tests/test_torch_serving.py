@@ -223,9 +223,20 @@ def test_prefill_chunk_budget_round_robins_concurrent_prompts(pair):
 @pytest.mark.parametrize("option,value", [("tp", 2),
                                           ("tp_devices", ["cuda:1"])])
 def test_unported_engine_options_raise(pair, option, value):
+    """The engine's last options once not ported, tp and tp_devices, now
+    behave as the reference's: tp=2 without a device list takes the
+    first two CUDA devices and raises without them; a device list at
+    tp=1 is not read (tests/test_torch_tp_serving.py holds the mode)."""
     _, net = pair
-    with pytest.raises(MXNetError, match="not ported"):
-        ServingEngine(net, device="cpu", **{option: value}, **ENGINE)
+    if option == "tp":
+        if torch.cuda.device_count() >= 2:
+            pytest.skip("the default device list has two cards here")
+        with pytest.raises(MXNetError, match="serving tp=2 needs 2 devices"):
+            ServingEngine(net, device="cpu", **{option: value}, **ENGINE)
+        return
+    eng = ServingEngine(net, device="cpu", **{option: value}, **ENGINE)
+    assert eng.stats["tp_shards"] == 1
+    assert eng._statusz()["sharding"] is None
 
 
 def test_engine_rejections(pair):
