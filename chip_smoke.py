@@ -334,6 +334,31 @@ no engine outlives its phase:
               "cuda_core" pair, bfloat16 the tensor-core pair) and
               nothing else; the kernel path's ms a pass (median of 3)
               and one profiled pass (busy share, time by kernel class).
+  7c. resnet50  ResNet-50 v1b training through parallel.TrainStep with
+              SGD; the path reaches no Pallas kernel in the reference
+              (convolutions by cuDNN through F.conv2d, BatchNorm and
+              pooling as plain torch ops). (a) float32 parity, card
+              against CPU, at bench.py bench_resnet50's CPU smoke
+              configuration (resnet50_v1b(classes=100), B = 8, 64x64,
+              TF32 off): Xavier weights drawn once on the CPU, one
+              eval-mode forward, two steps of SGD(0.01, 0.9, 1e-4); every
+              logit, loss, parameter and running statistic within the
+              larger of its fixed tolerance (1e-5 relative / 1e-4 of the
+              tensor's largest) and RESNET_SPREAD_FACTOR times the CPU's
+              own spread (its run on the images one ulp up). (b) one
+              training forward of resnet50_v1b(classes=1000) at B = 32,
+              224x224, bfloat16 against float32 from the same weights:
+              the losses (float32 from the logits) within
+              RESNET_BF16_LOSS_TOL. (c) bench_resnet50's configuration:
+              bfloat16 (net.cast's counterpart, model.to), B = 256,
+              224x224, Xavier, SGD(0.1, 0.9, 1e-4), seeded images and
+              labels: warm-up steps, then run_steps timed with a device
+              sync (ms a step, img/s, 3 x 2 x the multiply-adds of every
+              convolution and the Dense, MFU against 989 TFLOP/s, peak
+              memory), one step under the profiler (busy share, CUDA
+              launches, device ms by class: conv, batch_norm, pooling,
+              optimizer, other); then the float32 step at
+              RESNET_F32_BATCH. Every loss and running statistic finite.
   8. kernels  one line listing every ported kernel with its launches on
               its main path (phase 5's float32 serve for the CUDA-core
               span and the decode kernel, its bfloat16 serve for the
@@ -447,6 +472,29 @@ SPLIT_TARGETS = (1, 2, 8)
 BERT_TRAFFIC = dict(B=32, T=512, M=76)
 # phase 7b: GPT-2 774M's training forward and backward, batch and sequence
 GPT2_TRAIN = dict(B=2, T=1024)
+# phase 7c: ResNet-50 v1b training. (a) the float32 card-against-CPU
+# parity cell (bench.py bench_resnet50's CPU smoke configuration); (b)
+# bfloat16 against float32 at full size; (c) bench_resnet50's own
+# configuration (bfloat16, SGD(0.1, 0.9, 1e-4)) and the float32 step at
+# RESNET_F32_BATCH
+RESNET_PARITY = dict(B=8, S=64, classes=100, steps=2)
+RESNET_BF16 = dict(B=32, S=224, classes=1000)
+RESNET_BENCH = dict(B=256, S=224, classes=1000, warmup=3, steps=10)
+# B = 256 fits in float32 too: 34.1 GB peak (PERF.md section 6)
+RESNET_F32_BATCH = 256
+# (a)'s gates: a quantity computed in train() mode through the whole net
+# is determined in float32 only as far as the CPU's own spread, the
+# distance between its runs on x and on x * (1 + 2**-23) (a ReLU input
+# that rounding moves across zero routes a gradient term elsewhere; 53
+# layers of batch statistics amplify each rounding: PERF.md section 6).
+# The card may sit RESNET_SPREAD_FACTOR times that spread from the CPU,
+# or within the fixed tolerance (losses and logits 1e-5 relative,
+# parameters and statistics 1e-4 of their largest), whichever is larger
+RESNET_SPREAD_FACTOR = 8
+# (b): one training forward's loss (float32 from the logits), bfloat16
+# weights and images against float32, relative; it read 2.4e-3 on an
+# H100 (PERF.md section 6)
+RESNET_BF16_LOSS_TOL = 1e-2
 # phase 5d: the speculative engine options (BENCH_SERVING_SPEC.json's shape)
 SPEC = dict(speculative=True, spec_tokens=8)
 # the serve_verify cell: live rows of the verify dispatch of each slot (1 +
@@ -4589,6 +4637,302 @@ def phase_gpt2_train(torch, fa, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7c: ResNet-50 v1b training through TrainStep
+# ---------------------------------------------------------------------------
+
+def resnet_step_flops(torch, net, S):
+    """3 x 2 x the multiply-adds of every convolution and Dense at an
+    S x S input, read from the modules' shapes by one forward of one
+    image (forward, and a backward of twice the forward's work)."""
+    from mxnet_tpu_torch.nn import Conv2D, Dense
+    macs = []
+
+    def hook(mod, inp, out):
+        w = mod.weight
+        if isinstance(mod, Conv2D):          # each output element: I/g*kH*kW
+            macs.append(out[0].numel() * w[0].numel())
+        else:
+            macs.append(out[0].numel() * w.shape[1])
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (Conv2D, Dense))]
+    was = net.training
+    net.eval()
+    with torch.no_grad():
+        net(torch.zeros(1, 3, S, S, device=net.device,
+                        dtype=net.output.weight.dtype))
+    net.train(was)
+    for h in hooks:
+        h.remove()
+    return 6 * sum(macs), len(macs)
+
+
+RESNET_CLASSES = ("conv", "batch_norm", "pooling", "optimizer")
+
+
+def resnet_profile(torch, step, x, y, kernels_of=None):
+    """One training step under torch.profiler. Every kernel's device time
+    goes to a class: the forward ops of the port's convolution,
+    batch_norm and pooling run inside profiler ranges of those names
+    (ops.nn wrapped for the window), their backward ops are matched to
+    the forward op by autograd sequence number, the optimizer's update
+    runs in a range of its own; the rest (ReLU, residual adds, the
+    Dense, the loss, casts) is "other". Returns the busy share, CUDA
+    launches, device ms and kernel count by class, and the top
+    kernels. `kernels_of(event)` lists an event's (name, us) kernels
+    (default: its CUDA kernels)."""
+    if kernels_of is None:
+        def kernels_of(e):
+            return [(k.name, k.duration) for k in e.kernels]
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.ops import nn as ops
+    saved = {name: getattr(ops, name) for name in
+             ("convolution", "batch_norm", "pooling")}
+
+    def ranged(label, fn):
+        def wrapped(*a, **k):
+            with record_function("resnet/" + label):
+                return fn(*a, **k)
+        return wrapped
+    for name, fn in saved.items():
+        setattr(ops, name, ranged({"convolution": "conv"}.get(name, name),
+                                  fn))
+    update = step._update
+    step._update = ranged("optimizer", update)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss = step(x, y)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+        del step._update
+    events = prof.events()
+
+    def range_of(e):
+        while e is not None:
+            if e.name.startswith("resnet/"):
+                return e.name[len("resnet/"):]
+            e = e.cpu_parent
+        return None
+
+    def backward_root(e):
+        while e is not None:
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return e
+            e = e.cpu_parent
+        return None
+    by_seq = {}
+    for e in events:
+        if e.sequence_nr >= 0 and backward_root(e) is None:
+            label = range_of(e)
+            if label is not None:
+                by_seq.setdefault(e.sequence_nr, label)
+    ms = {c: 0.0 for c in RESNET_CLASSES + ("other",)}
+    count = {c: 0 for c in ms}
+    top = {}
+    launches = 0
+    for e in events:
+        if e.name.startswith(("cudaLaunch", "cuLaunch")):
+            launches += 1
+        kernels = kernels_of(e)
+        if not kernels:
+            continue
+        label = range_of(e)
+        if label is None:
+            root = backward_root(e)
+            label = by_seq.get(root.sequence_nr) if root is not None \
+                else None
+        label = label or "other"
+        for name, us in kernels:
+            ms[label] += us / 1e3
+            count[label] += 1
+            top[name] = top.get(name, 0.0) + us / 1e3
+    dev_ms = sum(ms.values())
+    if not dev_ms:
+        return {"wall_s": wall, "device_busy_share": "not measured",
+                "cuda_launches": launches, "loss": float(loss)}
+    return {"wall_s": wall, "device_ms": dev_ms,
+            "device_busy_share": dev_ms / (wall * 1e3),
+            "cuda_launches": launches, "loss": float(loss),
+            "device_ms_by_class": ms, "kernels_by_class": count,
+            "top_kernels": [{"name": k[:90], "ms": t} for k, t in
+                            sorted(top.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+def resnet_gate(got, want, want_ulp, fixed):
+    """|got - want| over |want|'s largest element, and its gate: the
+    larger of `fixed` and RESNET_SPREAD_FACTOR times the spread
+    |want_ulp - want| (same scale)."""
+    top = max(float(np.abs(want).max()), 1e-30)
+    d = float(np.abs(got - want).max()) / top
+    spread = float(np.abs(want_ulp - want).max()) / top
+    return d, spread, max(fixed, RESNET_SPREAD_FACTOR * spread)
+
+
+def resnet_parity(torch, vision, TrainStep, SGD, Loss):
+    """(a) resnet50_v1b(classes=100), B = 8, 64x64, float32: Xavier
+    weights drawn once on the CPU (seed 0) and copied to the card; one
+    eval-mode forward, then two TrainStep steps of SGD(0.01, 0.9, 1e-4)
+    on the same batch, on the card and twice on the CPU (x, and x one
+    ulp up: the spread). Every logit, loss, parameter and running
+    statistic gated by resnet_gate."""
+    c = RESNET_PARITY
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((c["B"], 3, c["S"], c["S"])).astype(np.float32)
+    y = rng.integers(0, c["classes"], (c["B"],)).astype(np.int32)
+    weights = {n: p.detach().clone() for n, p in vision.resnet50_v1b(
+        classes=c["classes"], device="cpu").named_parameters()}
+
+    def run(device, images):
+        net = vision.resnet50_v1b(classes=c["classes"], device=device)
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                p.copy_(weights[n])
+        xb = torch.from_numpy(images).to(device)
+        yb = torch.from_numpy(y).to(device)
+        with torch.no_grad():
+            logits = net(xb).cpu().numpy()
+        step = TrainStep(net, Loss(), SGD(learning_rate=0.01, momentum=0.9,
+                                          wd=1e-4))
+        losses = step.run_steps(xb, yb, steps=c["steps"]).cpu().numpy()
+        state = {n: p.detach().cpu().numpy()
+                 for n, p in net.named_parameters()}
+        return logits, losses, state
+    t0 = time.perf_counter()
+    cpu = run("cpu", x)
+    cpu_ulp = run("cpu", x * np.float32(1 + 2 ** -23))
+    cpu_s = time.perf_counter() - t0
+    card = run(DEV, x)
+    rows = {"eval_logits": resnet_gate(card[0], cpu[0], cpu_ulp[0], 1e-5)}
+    for i in range(c["steps"]):
+        rows[f"loss_{i}"] = resnet_gate(card[1][i:i + 1], cpu[1][i:i + 1],
+                                        cpu_ulp[1][i:i + 1], 1e-5)
+    for n, w in cpu[2].items():
+        rows[n] = resnet_gate(card[2][n], w, cpu_ulp[2][n], 1e-4)
+    over = sorted(n for n, (d, _, g) in rows.items() if d > g)
+    finite = all(np.isfinite(v).all() for v in card[2].values())
+    ratio = [d / max(s, 1e-30) for d, s, _ in rows.values()]
+    worst = max(rows, key=lambda n: rows[n][0] / rows[n][2])
+    out = {"config": dict(c, model="resnet50_v1b", optimizer="SGD(0.01, "
+                          "momentum 0.9, wd 1e-4)", tf32=False),
+           "losses_card": card[1].tolist(), "losses_cpu": cpu[1].tolist(),
+           "losses_cpu_ulp": cpu_ulp[1].tolist(),
+           "eval_logits": rows["eval_logits"],
+           "losses": {k: v for k, v in rows.items()
+                      if k.startswith("loss_")},
+           "tensors": len(cpu[2]), "worst": worst,
+           "worst_dist_spread_gate": rows[worst],
+           "largest_dist": max(d for d, _, _ in rows.values()),
+           "median_dist_over_spread": float(np.median(ratio)),
+           "spread_factor": RESNET_SPREAD_FACTOR, "over_gate": over,
+           "cpu_seconds_two_runs": cpu_s}
+    require(finite, "resnet50 parity: non-finite parameters on the card")
+    require(not over, f"resnet50 parity: card against CPU over the gate "
+            f"for {over[:8]} ({len(over)}): worst {worst} {rows[worst]}")
+    return out
+
+
+def phase_resnet50(torch, card):
+    """ResNet-50 v1b training through the port's TrainStep: (a) float32
+    parity of the card against the CPU; (b) a bfloat16 training
+    forward's loss against float32 at full size; (c) bench_resnet50's
+    configuration timed, profiled and counted, and the float32 step."""
+    from mxnet_tpu_torch.loss import SoftmaxCrossEntropyLoss as Loss
+    from mxnet_tpu_torch.models import vision
+    from mxnet_tpu_torch.optimizer import SGD
+    from mxnet_tpu_torch.parallel import TrainStep
+    out = {"phase": "resnet50", "card": card,
+           "cudnn_benchmark": bool(torch.backends.cudnn.benchmark),
+           "layout": "NCHW"}
+    out["parity_f32"] = resnet_parity(torch, vision, TrainStep, SGD, Loss)
+    release_device(torch)
+
+    # (b) one training forward in bfloat16 and in float32, same weights
+    c = RESNET_BF16
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    x = torch.randn(c["B"], 3, c["S"], c["S"], device=DEV, generator=gen)
+    y = torch.randint(0, c["classes"], (c["B"],), device=DEV, generator=gen,
+                      dtype=torch.int32)
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        net = vision.resnet50_v1b(classes=c["classes"], device=DEV).to(dtype)
+        net.train()
+        with torch.no_grad():
+            logits = net(x.to(dtype))
+            losses[str(dtype)[6:]] = float(Loss()(logits.float(), y).mean())
+        del net, logits
+    rel = abs(losses["bfloat16"] - losses["float32"]) \
+        / abs(losses["float32"])
+    out["bf16_vs_f32"] = dict(c, losses=losses, loss_rel_diff=rel,
+                              tol=RESNET_BF16_LOSS_TOL)
+    require(rel <= RESNET_BF16_LOSS_TOL, f"resnet50 bfloat16 loss "
+            f"{losses['bfloat16']} against float32 {losses['float32']}: "
+            f"{rel} relative, over {RESNET_BF16_LOSS_TOL}")
+    del x, y
+    release_device(torch)
+
+    # (c) bench_resnet50: bfloat16, SGD(0.1, 0.9, 1e-4), B = 256
+    c = RESNET_BENCH
+    out["bench"] = {"card": card, "config": dict(
+        c, model="resnet50_v1b", dtype="bfloat16", init="Xavier(seed 0)",
+        optimizer="SGD(0.1, momentum 0.9, wd 1e-4)")}
+    for dtype, B in ((torch.bfloat16, c["B"]),
+                     (torch.float32, RESNET_F32_BATCH)):
+        res = {"batch": B}
+        net = vision.resnet50_v1b(classes=c["classes"], device=DEV).to(dtype)
+        flops, layers = resnet_step_flops(torch, net, c["S"])
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        x = torch.randn(B, 3, c["S"], c["S"], device=DEV,
+                        generator=gen).to(dtype)
+        y = torch.randint(0, c["classes"], (B,), device=DEV, generator=gen,
+                          dtype=torch.int32)
+        step = TrainStep(net, Loss(), SGD(learning_rate=0.1, momentum=0.9,
+                                          wd=1e-4))
+        torch.cuda.reset_peak_memory_stats()
+        warm = step.run_steps(x, y, steps=c["warmup"])
+        steps = c["steps"] if dtype == torch.bfloat16 else 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step.run_steps(x, y, steps=steps)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        losses = warm.tolist() + losses.tolist()
+        stats = [p for n, p in net.named_parameters()
+                 if n.endswith(("running_mean", "running_var"))]
+        require(len(stats) == 106, "resnet50: running statistics missing")
+        res.update({
+            "losses": losses, "ms_per_step": dt * 1e3,
+            "img_per_s": B / dt, "step_flops": flops * B,
+            "flops_note": f"3 x 2 x multiply-adds of the {layers - 1} "
+                          f"convolutions and the Dense at {c['S']}x{c['S']}; "
+                          "bench.py's analytic fallback 3 x 3.8e9 x B "
+                          "counts each multiply-add once",
+            "bench_fallback_flops": 3 * 3.8e9 * B, "mac_layers": layers,
+            "achieved_tflops": flops * B / dt / 1e12,
+            "mfu": flops * B / dt / PEAK_FLOPS["bfloat16"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        require(all(np.isfinite(losses)), f"resnet50 {dtype}: non-finite "
+                f"losses {losses}")
+        require(all(bool(torch.isfinite(p).all()) for p in stats),
+                f"resnet50 {dtype}: non-finite running statistics")
+        if dtype == torch.bfloat16:
+            res["trace"] = resnet_profile(torch, step, x, y)
+            require(np.isfinite(res["trace"]["loss"]), "resnet50: non-finite "
+                    f"loss {res['trace']['loss']} in the profiled step")
+            out["bench"]["bfloat16"] = res
+        else:
+            out["bench"]["float32"] = res
+        del step, net, x, y
+        release_device(torch)
+    emit(out)
+    return out
+
+
 def kernel_entry(name, source, launches, f32, b16, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches,
@@ -4814,6 +5158,7 @@ def main():
     fused = timed("fused", phase_fused, torch, F, fa)
     bert = timed("bert", phase_bert, torch, fa, card)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
+    timed("resnet50", phase_resnet50, torch, card)
 
     kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust,
                            http, router, fleet, tp, card)

@@ -9,9 +9,11 @@ never jax.
 Ported so far: GPT-2 continuous-batching serving over a ragged paged KV
 cache (`serving.ServingEngine`, `models.GPT2ForCausalLM`,
 `models.PagedKVCache`, `ops.ragged_span_attention`,
-`ops.ragged_decode_attention`), and the single-device BERT MLM training
+`ops.ragged_decode_attention`), the single-device BERT MLM training
 step (`models.BertForMaskedLM`, `loss.SoftmaxCrossEntropyLoss`,
-`optimizer.AdamW`, `parallel.TrainStep`, `ops.fused_attention`).
+`optimizer.AdamW`, `parallel.TrainStep`, `ops.fused_attention`), and
+ResNet training (`models.vision`, `nn.Conv2D`, `nn.BatchNorm`,
+`optimizer.SGD`, `initializer.Xavier`).
 ROADMAP.md lists what is still to come.
 """
 from .base import MXNetError, resolve_device

@@ -12,8 +12,9 @@ decoder has no weight of its own in either package and stays tied.
 
 `init_params(model, seed, std)` draws weights from N(0, std) with a
 generator seeded on the model's own device (gamma 1; beta, biases and
-BERT's `decoder_bias` 0, as the reference's `init="zeros"`), so a
-full-width model is made on the card without a host copy.
+BERT's `decoder_bias` 0, as the reference's `init="zeros"`; BatchNorm's
+running_mean 0 and running_var 1, as `Block.initialize` gives them), so
+a full-width model is made on the card without a host copy.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ def load_jax_params(model, arrays):
 
 
 def init_params(model, seed=0, std=0.02):
-    """Seeded N(0, std) weights in parameter-name order; LayerNorm gamma
-    1, beta, biases and decoder_bias 0."""
+    """Seeded N(0, std) weights in parameter-name order; gamma and
+    running_var 1, beta, biases, decoder_bias and running_mean 0."""
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -53,9 +54,9 @@ def init_params(model, seed=0, std=0.02):
         for name in sorted(params):
             p = params[name]
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "gamma":
+            if leaf in ("gamma", "running_var"):
                 p.fill_(1.0)
-            elif leaf in ("beta", "bias", "decoder_bias"):
+            elif leaf in ("beta", "bias", "decoder_bias", "running_mean"):
                 p.zero_()
             else:
                 p.normal_(0.0, std, generator=gen)

@@ -1,8 +1,13 @@
-"""Layers (counterpart of mxnet_tpu.gluon.nn: the basic layers and the
-transformer blocks)."""
-from .layers import Dense, Dropout, Embedding, LayerNorm
+"""Layers (counterpart of mxnet_tpu.gluon.nn: the basic layers, the 2-D
+convolution and pooling layers, and the transformer blocks)."""
+from .conv_layers import AvgPool2D, Conv2D, GlobalAvgPool2D, MaxPool2D
+from .layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                     Flatten, HybridSequential, LayerNorm)
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm", "MultiHeadAttention",
-           "PositionwiseFFN", "TransformerEncoder", "TransformerEncoderLayer"]
+__all__ = ["Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense",
+           "Dropout", "Embedding", "Flatten", "GlobalAvgPool2D",
+           "HybridSequential", "LayerNorm", "MaxPool2D",
+           "MultiHeadAttention", "PositionwiseFFN", "TransformerEncoder",
+           "TransformerEncoderLayer"]

@@ -1,15 +1,22 @@
 """Basic layers as torch modules.
 
-Counterparts of mxnet_tpu/gluon/nn/basic_layers.py `Dense`, `LayerNorm`,
-`Embedding` and `Dropout`, with the reference's parameter names
-(weight/bias, gamma/beta) so that a structure path such as
-`backbone.layer0.attn.query.weight` names the same tensor in both
-packages. Parameters are trainable and allocated uninitialised on the
-given device; models/convert.py fills them (seeded random, or from the
-JAX package). Inference paths (the serving engine) run under
-torch.no_grad.
+Counterparts of mxnet_tpu/gluon/nn/basic_layers.py `Dense`,
+`HybridSequential`, `BatchNorm`, `LayerNorm`, `Embedding`, `Dropout` and
+`Flatten`, and of `Activation` (mxnet_tpu/gluon/nn/activations.py), with the
+reference's parameter names (weight/bias, gamma/beta, running_mean/
+running_var) so that a structure path such as
+`backbone.layer0.attn.query.weight` or `features.4.0.body.1.running_var`
+names the same tensor in both packages. Parameters are allocated
+uninitialised on the given device; models/convert.py or
+initializer.initialize fills them (seeded random, or from the JAX
+package). BatchNorm's running statistics are parameters that do not
+require grad (the reference's grad_req "null"), so the optimizer of
+parallel.TrainStep never sees them. Inference paths (the serving engine)
+run under torch.no_grad.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -17,11 +24,21 @@ from torch import nn
 from ..base import MXNetError
 from ..ops import nn as _ops
 
-__all__ = ["Dense", "LayerNorm", "Embedding", "Dropout"]
+__all__ = ["Dense", "BatchNorm", "LayerNorm", "Embedding", "Dropout",
+           "Flatten", "Activation", "HybridSequential"]
 
 
-def _param(*shape, device, dtype):
-    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
+def _param(*shape, device, dtype, requires_grad=True):
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
+                        requires_grad=requires_grad)
+
+
+@functools.lru_cache(maxsize=16)
+def _in_dtype(value, dtype):
+    """`value` rounded to `dtype`: the reference multiplies an array by a
+    Python float as a weakly typed scalar of the array's own dtype (0.9
+    is 0.8984375 against a bfloat16 array)."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 class Dense(nn.Module):
@@ -57,6 +74,58 @@ class Dense(nn.Module):
         if self.codes is not None:
             return _ops.fully_connected(x, self.codes, b, scale=self.scale)
         return _ops.fully_connected(x, self.weight, b)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over `axis` with running statistics (parity:
+    gluon.nn.BatchNorm). In train() mode (and not `use_global_stats`)
+    the batch's statistics normalise and the running ones are updated
+    in place, outside autograd: new = old * momentum + batch * (1 -
+    momentum), in the statistics' dtype, as the reference's
+    `_update_stats`. In eval() mode the running statistics normalise.
+    scale=False fixes gamma at 1 and center=False leaves beta at its
+    value; neither then requires grad."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, *, in_channels,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        kw = dict(device=device, dtype=dtype)
+        self.gamma = _param(in_channels, requires_grad=scale, **kw)
+        self.beta = _param(in_channels, requires_grad=center, **kw)
+        self.running_mean = _param(in_channels, requires_grad=False, **kw)
+        self.running_var = _param(in_channels, requires_grad=False, **kw)
+
+    def forward(self, x):
+        out = _ops.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._epsilon, momentum=self._momentum,
+            fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, training=self.training,
+            axis=self._axis)
+        if not isinstance(out, tuple):
+            return out
+        y, mean, var = out
+        self._update_stats(mean, var)
+        return y
+
+    def _update_stats(self, mean, var):
+        m = self._momentum
+        with torch.no_grad():
+            for stat, batch in ((self.running_mean, mean),
+                                (self.running_var, var)):
+                stat.mul_(_in_dtype(m, stat.dtype)).add_(
+                    batch.detach() * _in_dtype(1 - m, stat.dtype))
+
+    def extra_repr(self):
+        return (f"axis={self._axis}, eps={self._epsilon}, "
+                f"momentum={self._momentum}, "
+                f"in_channels={self.gamma.shape[0]}")
 
 
 class LayerNorm(nn.Module):
@@ -97,3 +166,34 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         return _ops.dropout(x, self.rate) if self.training else x
+
+
+class Flatten(nn.Module):
+    """(B, ...) -> (B, -1) (parity: gluon.nn.Flatten)."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Activation(nn.Module):
+    """ops.nn.activation as a layer (parity: gluon.nn.Activation)."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self._act = activation
+
+    def forward(self, x):
+        return _ops.activation(x, self._act)
+
+    def extra_repr(self):
+        return self._act
+
+
+class HybridSequential(nn.Sequential):
+    """Children run in order and are named 0, 1, ... as the reference's
+    (parity: gluon.nn.HybridSequential; `add` appends)."""
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.append(b)
+        return self

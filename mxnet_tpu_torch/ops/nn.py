@@ -1,10 +1,12 @@
 """Neural-network ops on tensors.
 
 Counterparts of mxnet_tpu/ops/nn.py `FullyConnected` (weight (out, in)),
-`LayerNorm`, the `gelu_tanh` activation, `gelu`, `Dropout` and
-`dot_product_attention`. The matrix products go to torch.matmul, as the
-JAX package leaves them to XLA; attention goes to the fused kernel
-(ops/fused_attention.py) where it takes the call.
+`Convolution` (2-D), `BatchNorm`, `LayerNorm`, `Activation`, `gelu`,
+`Dropout`, `Pooling` (2-D) and `dot_product_attention`. The matrix
+products go to torch.matmul and the convolutions to F.conv2d, as the JAX
+package leaves them to XLA (no Pallas body); attention goes to the fused
+kernel (ops/fused_attention.py) where it takes the call. BatchNorm and
+pooling are plain torch ops that reproduce the reference's arithmetic.
 
 The port has no autograd training scope: where the reference applies
 dropout only under `autograd.record(train_mode=True)`, the caller here
@@ -22,7 +24,8 @@ from .. import rng as _rng
 from ..base import MXNetError, not_ported
 from . import fused_attention as _fa
 
-__all__ = ["fully_connected", "layer_norm", "activation", "gelu", "dropout",
+__all__ = ["fully_connected", "convolution", "batch_norm", "layer_norm",
+           "activation", "gelu", "dropout", "pooling",
            "dot_product_attention"]
 
 
@@ -50,6 +53,72 @@ def fully_connected(x, weight, bias=None, scale=None):
     return y if bias is None else y + bias
 
 
+def _tup(v, n, fill=0):
+    """An int/tuple/None window parameter as an n-tuple. As in the
+    reference, an absent or all-zero stride/dilate means the default
+    when `fill` is nonzero."""
+    if v is None:
+        return (fill,) * n
+    v = (v,) * n if isinstance(v, int) else tuple(int(i) for i in v)
+    if fill and v and all(i == 0 for i in v):
+        return (fill,) * n
+    return v
+
+
+def convolution(x, weight, bias=None, stride=None, pad=None, dilate=None,
+                groups=1):
+    """2-D convolution, NCHW input and OIHW weight (O, I/groups, kH, kW),
+    symmetric padding, then the bias per output channel (parity:
+    src/operator/nn/convolution.cc). The 1-D and 3-D forms and
+    Deconvolution are not ported."""
+    if weight.dim() != 4:
+        raise not_ported(f"{weight.dim() - 2}-D Convolution")
+    y = F.conv2d(x, weight, None, _tup(stride, 2, fill=1), _tup(pad, 2),
+                 _tup(dilate, 2, fill=1), groups)
+    return y if bias is None else y + bias.reshape(1, -1, 1, 1)
+
+
+def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               training=False, axis=1):
+    """Batch normalisation with the reference's arithmetic (parity:
+    src/operator/nn/batch_norm.cc through mxnet_tpu's BatchNorm op).
+
+    In training (and not `use_global_stats`) the statistics are those of
+    the batch, taken in float32 over every axis but `axis`: for bfloat16
+    input the variance is one pass, max(E[x^2] - E[x]^2, 0), else two
+    passes; it is biased in both. Otherwise the moving statistics
+    normalise. The per-channel a = g * rsqrt(var + eps) and
+    b = beta - g * rsqrt(var + eps) * mean are computed in float32, cast
+    to x's dtype, and y = x * a + b in that dtype (g is 1 under
+    `fix_gamma`). Returns y, or in training (y, mean, var) with the
+    statistics cast to the moving statistics' dtype; the caller updates
+    those (new = old * momentum + batch * (1 - momentum)), as the
+    reference's layer does — `momentum` is not read here."""
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    bshape = tuple(x.shape[axis] if i == axis else 1 for i in range(x.dim()))
+    g32 = torch.ones_like(gamma, dtype=torch.float32) if fix_gamma \
+        else gamma.float()
+    training = training and not use_global_stats
+    if training:
+        x32 = x.float()
+        mean = x32.mean(dim=red)
+        if x.dtype == torch.bfloat16:
+            var = ((x32 * x32).mean(dim=red) - mean * mean).clamp_min(0.0)
+        else:
+            var = (x32 - mean.reshape(bshape)).square().mean(dim=red)
+    else:
+        mean = moving_mean.float()
+        var = moving_var.float()
+    scale = g32 * torch.rsqrt(var + eps)
+    a = scale.to(x.dtype)
+    b = (beta.float() - scale * mean).to(x.dtype)
+    y = x * a.reshape(bshape) + b.reshape(bshape)
+    if training:
+        return y, mean.to(moving_mean.dtype), var.to(moving_var.dtype)
+    return y
+
+
 def layer_norm(x, gamma, beta, eps=1e-5):
     """LayerNorm over the last axis. Normalises in float32 and casts
     back to x's dtype BEFORE gamma/beta, as the JAX op does — in
@@ -61,12 +130,15 @@ def layer_norm(x, gamma, beta, eps=1e-5):
     return y * gamma + beta
 
 
-_ACTS = {"gelu": F.gelu,
+_ACTS = {"relu": F.relu,
+         "gelu": F.gelu,
          "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
          "tanh": torch.tanh}
 
 
 def activation(x, act_type):
+    """Parity: src/operator/nn/activation.cc (the reference's `_act`;
+    its other act_types are not ported)."""
     fn = _ACTS.get(act_type)
     if fn is None:
         raise MXNetError(f"unknown act_type {act_type}")
@@ -88,6 +160,60 @@ def dropout(x, p):
                    generator=_rng.generator(x.device))
     return torch.where(u < 1.0 - p, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
+
+
+def _full_pad(size, kernel, stride, pad):
+    """Extra right padding of the "full" (ceil) pooling convention."""
+    extra = []
+    for n, k, s, p in zip(size, kernel, stride, pad):
+        out = math.ceil((n + 2 * p - k) / s) + 1
+        extra.append(max(0, (out - 1) * s + k - (n + 2 * p)))
+    return extra
+
+
+def pooling(x, kernel=None, pool_type="max", global_pool=False, stride=None,
+            pad=None, pooling_convention="valid", count_include_pad=True):
+    """2-D max or avg pooling of NCHW input (parity:
+    src/operator/nn/pooling.cc through lax.reduce_window): max pads with
+    -inf, avg divides by the window's size or, without
+    `count_include_pad`, by its elements inside the input.
+    `pooling_convention="full"` widens the right padding so the output
+    size rounds up. A global pool reduces H and W with keepdims; its
+    bfloat16 mean accumulates in float32, as jnp.mean does. The "sum"
+    and "lp" pool types are not ported."""
+    if x.dim() != 4:
+        raise not_ported(f"{x.dim() - 2}-D Pooling")
+    if pool_type in ("sum", "lp"):
+        raise not_ported(f"pool_type {pool_type!r}")
+    if pool_type not in ("max", "avg"):
+        raise MXNetError(f"unknown pool_type {pool_type}")
+    if global_pool:
+        if pool_type == "max":
+            return x.amax(dim=(2, 3), keepdim=True)
+        return x.mean(dim=(2, 3), keepdim=True,
+                      dtype=torch.float32).to(x.dtype)
+    if pooling_convention not in ("valid", "full"):
+        raise MXNetError(f"unknown pooling_convention {pooling_convention}")
+    kernel, stride, pad = _tup(kernel, 2), _tup(stride, 2, fill=1), \
+        _tup(pad, 2)
+    extra = _full_pad(x.shape[2:], kernel, stride, pad) \
+        if pooling_convention == "full" else [0, 0]
+    if not any(extra) and all(2 * p <= k for p, k in zip(pad, kernel)):
+        # torch pads symmetrically up to half the window
+        if pool_type == "max":
+            return F.max_pool2d(x, kernel, stride, pad)
+        return F.avg_pool2d(x, kernel, stride, pad,
+                            count_include_pad=count_include_pad)
+    # explicit padding: (left, right, top, bottom)
+    widths = (pad[1], pad[1] + extra[1], pad[0], pad[0] + extra[0])
+    if pool_type == "max":
+        return F.max_pool2d(F.pad(x, widths, value=-math.inf), kernel,
+                            stride)
+    s = F.avg_pool2d(F.pad(x, widths), kernel, stride, divisor_override=1)
+    if count_include_pad:
+        return s / float(math.prod(kernel))
+    ones = F.pad(torch.ones_like(x[:1, :1]), widths)
+    return s / F.avg_pool2d(ones, kernel, stride, divisor_override=1)
 
 
 _ATTN_IMPLS = ("auto", "fused", "torch", "xla")

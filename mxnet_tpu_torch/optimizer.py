@@ -1,8 +1,8 @@
 """Optimizers: the update the training step applies.
 
 Counterpart of mxnet_tpu/optimizer/optimizer.py `Optimizer` (rescale_grad,
-clip_gradient, lr/wd, num_update) and `AdamW` (always bias-corrected),
-through the functional interface `parallel.TrainStep` uses:
+clip_gradient, lr/wd, num_update), `SGD` (with and without momentum) and
+`AdamW` (always bias-corrected), through the functional interface `parallel.TrainStep` uses:
 `init_state_arrays` / `apply_arrays` and the multi-precision layout
 `init_state_arrays_mp` / `apply_arrays_mp` (a float32 master copy first
 in the state of every bfloat16/float16 weight; float32 weights keep the
@@ -11,7 +11,8 @@ versions update the weight and its states IN PLACE and return them: the
 step owns its buffers, as the reference's step donates its own.
 
 Not ported yet: the eager `update()` path of the Trainer, learning-rate
-schedulers and every other optimizer (`create` raises for them).
+schedulers and every optimizer but SGD and AdamW (`create` raises for
+them).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from .base import not_ported
 
-__all__ = ["Optimizer", "AdamW", "create"]
+__all__ = ["Optimizer", "SGD", "AdamW", "create"]
 
 
 def _clip(g, clip_gradient):
@@ -83,6 +84,31 @@ class Optimizer:
         return f"{type(self).__name__}(lr={self.learning_rate})"
 
 
+class SGD(Optimizer):
+    """SGD with optional momentum (parity: the reference's sgd_update /
+    sgd_mom_update through `apply_arrays`): with momentum mu,
+    mom = mu * mom - lr * (g + wd * w), then w += mom; without it,
+    w -= lr * (g + wd * w)."""
+
+    fused_supported = True
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+
+    def init_state_arrays(self, w):
+        return (torch.zeros_like(w),) if self.momentum != 0.0 else ()
+
+    def apply_arrays(self, w, g, states, lr, wd, t):
+        g = _clip(g * self.rescale_grad, self.clip_gradient).to(w.dtype)
+        step = w.mul(wd).add_(g).mul_(lr)
+        if self.momentum == 0.0:
+            return w.sub_(step), ()
+        (mom,) = states
+        mom.mul_(self.momentum).sub_(step)
+        return w.add_(mom), (mom,)
+
+
 class AdamW(Optimizer):
     """AdamW with decoupled weight decay scaled by the learning rate
     (parity: the reference's adamw; `eta` is the schedule multiplier)."""
@@ -111,8 +137,13 @@ class AdamW(Optimizer):
         return w, (m, v)
 
 
+_REGISTRY = {"sgd": SGD, "adamw": AdamW}
+
+
 def create(name, **kwargs):
-    """The optimizer registered under `name` (only "adamw" is ported)."""
-    if name.lower() == "adamw":
-        return AdamW(**kwargs)
-    raise not_ported(f"optimizer {name!r}")
+    """The optimizer registered under `name` ("sgd" and "adamw" are
+    ported)."""
+    cls = _REGISTRY.get(name.lower())
+    if cls is None:
+        raise not_ported(f"optimizer {name!r}")
+    return cls(**kwargs)

@@ -16,7 +16,13 @@ model):
     (attributes of the torch Parameter, default 1), which updates the
     parameters and states IN PLACE — the reference's donated buffers. A
     parameter the forward did not reach gets a zero gradient, as under
-    jax.grad.
+    jax.grad;
+  * parameters that do not require grad (BatchNorm's running statistics,
+    a fixed gamma; the reference's grad_req "null") are the step's
+    non-trainable state: the optimizer never sees them, and the layers
+    that own them update them inside the train()-mode forward, once a
+    step (the reference returns them from the step program as aux
+    values and writes them back).
 
 The parameters of `net` are the step's own (no copies), so
 `sync_params()` has nothing to do. Not ported yet: `mesh`,

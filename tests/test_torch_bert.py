@@ -33,7 +33,7 @@ from mxnet_tpu_torch.models import (BertConfig, BertForMaskedLM,  # noqa: E402
 from mxnet_tpu_torch.nn import TransformerEncoderLayer  # noqa: E402
 from mxnet_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from mxnet_tpu_torch.ops import nn as port_nn  # noqa: E402
-from mxnet_tpu_torch.optimizer import AdamW, create  # noqa: E402
+from mxnet_tpu_torch.optimizer import SGD, AdamW, create  # noqa: E402
 from mxnet_tpu_torch.parallel import TrainStep  # noqa: E402
 
 KW = dict(vocab_size=1000, units=128, hidden_size=512, num_layers=2,
@@ -285,8 +285,9 @@ def test_adamw_bf16_master_matches_jax():
 
 def test_unported_optimizers_raise():
     assert isinstance(create("adamw", learning_rate=0.1), AdamW)
+    assert isinstance(create("sgd", learning_rate=0.1), SGD)
     with pytest.raises(MXNetError, match="not ported"):
-        create("sgd")
+        create("lamb")
     with pytest.raises(MXNetError, match="not ported"):
         AdamW().update(0, None, None, None)
 
