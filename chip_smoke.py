@@ -52,30 +52,31 @@ no engine outlives its phase:
               same inputs, the bound, the kernel under DEC_SPLIT_TARGETS,
               and whether it agrees bit for bit with the span kernel at
               Sq=1.
-  5. gpt2     GPT-2 774M at full width (36 layers, 1280 units, 20
-              heads, vocab 50257, 1024 positions; seeded random
-              weights) served by ServingEngine(num_slots=8,
+  5. gpt2     GPT-2 774M at full width (1280 units, 20 heads, vocab
+              50257, 1024 positions; seeded random weights) cut to its
+              first 12 of 36 layers (SERVE_LAYERS, as in every serving
+              phase 5-5l) served by ServingEngine(num_slots=8,
               max_length=1024, page_size=64): 8 greedy requests, prompts
               U[16, 128], 32 new tokens each, float32, once through the
               kernels and once through the plain versions (attn_impl=
               "torch"). Streams must agree (a divergence is allowed only
               where the plain path's top-2 logit gap is below 1e-4); the
-              CUDA-core span kernel must have run 36 times per dispatch
+              CUDA-core span kernel must have run 12 times per dispatch
               (the tensor-core one never). One ragged
               single-token forward on the served cache drives the decode
               kernel (logits within 1e-4 of the plain path). Then the
               kernel path serves the same traffic in bfloat16, timed (the
-              tensor-core span kernel 36 times a dispatch, the CUDA-core
+              tensor-core span kernel 12 times a dispatch, the CUDA-core
               one never), and the bfloat16 plain path once: with d the
               largest |kernel - plain| first-token logit, first tokens
               agree wherever the plain top-2 gap exceeds 2*d.
               The float32 and bfloat16 kernel paths each serve once more
-              with dispatches 10-29 under torch.profiler (SERVE_TRACE):
+              with dispatches 10-17 under torch.profiler (SERVE_TRACE):
               device busy share, top kernels and the span kernel's
-              device ms over those 20 dispatches.
+              device ms over those 8 dispatches.
   5b. gpt2_int8  the same model and traffic on int8 KV pages
               (kv_dtype="int8", chunk_tokens 64): float32 through the
-              kernels (the int8 span kernel exactly 36 times a dispatch,
+              kernels (the int8 span kernel exactly 12 times a dispatch,
               the float ragged kernels never) and through the plain
               versions (streams agree under the 1e-4 top-2 rule, the gap
               read on the int8 path's own write schedule); against phase
@@ -87,8 +88,8 @@ no engine outlives its phase:
               the CPU's bytes on the card; one single-token forward on
               the served cache through the span kernel (logits within
               1e-4 of the plain path); then bfloat16 on int8 pages, timed
-              (the int8 tensor-core span kernel 36 times a dispatch) and
-              profiled (dispatches 10-29), and KV bytes per token of each
+              (the int8 tensor-core span kernel 12 times a dispatch) and
+              profiled (dispatches 10-17), and KV bytes per token of each
               page dtype.
   5c. prefix  the 774M model in float32 on the kernel path, float and
               int8 pages, the prefix cache off and on: every prompt is a
@@ -106,7 +107,7 @@ no engine outlives its phase:
               U[4, 8] times (numpy seed 2), 64 new tokens. float32 and
               bfloat16 on float pages, float32 on int8 pages. The kernel
               path with speculation on (the span kernel of the dtype
-              exactly 36 times a dispatch, its plain version never) against
+              exactly 12 times a dispatch, its plain version never) against
               the same with speculation off (streams equal, float pages)
               and against the plain path with speculation on (float32 and
               int8: a divergence only where the plain path's own top-2 gap
@@ -145,7 +146,7 @@ no engine outlives its phase:
               stream equals the never-evicted engine's
               (prefix_cache_pages=64, no tier); at least 8 pages spilled
               and 8 paged in; both audits clean after every step; the
-              dtype's span family 36 times a dispatch, its plain version
+              dtype's span family 12 times a dispatch, its plain version
               never. ms per dispatch and per serve against the tier off
               at 8 cache pages (it recomputes what was evicted); prompt
               tokens paged in, attached and recomputed; ms and GB/s of
@@ -186,7 +187,7 @@ no engine outlives its phase:
               cancelled(stream_overflow)); once every request is in and
               first tokens are out, begin_drain(): a new POST gets 503
               with Retry-After and the frontend's /readyz flips to 503,
-              in-flight streams finish. The dtype's span family runs 36
+              in-flight streams finish. The dtype's span family runs 12
               times a dispatch, its plain version never. Then /metrics
               and /statusz (8 finished), /requests (every phase sum <=
               its TTFT), /trace, /compilez (the kernel libraries loaded,
@@ -218,7 +219,7 @@ no engine outlives its phase:
               dispatches' time: hedges = won + wasted; (d)
               ServingFrontend over two replicas, 8 SSE clients, the
               owner of a request with 3 tokens killed mid-stream. In
-              every case: the dtype's span family 36 times a dispatch
+              every case: the dtype's span family 12 times a dispatch
               summed over the replicas and nothing else, its plain
               version never, clean page audits, and /memz listing only
               the case's engines. Dispatches a replica, requests
@@ -236,7 +237,7 @@ no engine outlives its phase:
               = requests, every payload landed, no handoff_fallback, no
               prefill on the decode worker); the float32 pair again with
               ship_payload off (the decode worker replays). Each: the
-              dtype's span family 36 times a dispatch summed over the
+              dtype's span family 12 times a dispatch summed over the
               workers and nothing else, its plain version never,
               steady_state_compiles 0, clean audits; handoff ms (median,
               max), exact wire bytes a blob, routed ms a dispatch
@@ -267,10 +268,10 @@ no engine outlives its phase:
               layer-0 codes and scales of one prefill chunk written at
               both shard counts are the same bytes.
               bfloat16 at tp=2: first tokens agree where tp=1's gap
-              exceeds twice the measured tp=2 / tp=1 logit distance. Each tp serve launches its span family 36 x
+              exceeds twice the measured tp=2 / tp=1 logit distance. Each tp serve launches its span family 12 x
               dispatches x tp times and nothing else, its plain version
               never. One single-token lockstep forward at tp=2 on the
-              served cache drives the decode kernel (72 launches,
+              served cache drives the decode kernel (24 launches,
               logits within 1e-4 of the plain versions'); one float32
               handoff from the tp=2 engine lands in a tp=1 engine and
               finishes with no re-prefill; ServingEngine(tp=2) with the
@@ -359,6 +360,68 @@ no engine outlives its phase:
               launches, device ms by class: conv, batch_norm, pooling,
               optimizer, other); then the float32 step at
               RESNET_F32_BATCH. Every loss and running statistic finite.
+  7d. nmt_train  Transformer-base NMT (nmt_base_config: 6 + 6 layers,
+              512 units, 8 heads, 2048 hidden, vocab 32000 / 32000,
+              dropout 0.1; seeded random weights), teacher forcing through
+              TrainStep + Adam(2e-4), n_net_inputs=3, on NMT_TRAIN's batch
+              (64 pairs, source and target lengths U[32, 64] padded to 64,
+              source valid lengths, the target's token mask as the loss's
+              sample weight): the fused pair alone at the model's three
+              call shapes (encoder and cross under the sources' key
+              padding, decoder causal; B 64, H 8, T 64, D 64, BTHD),
+              float32 and bfloat16, output and gradients against the
+              plain version (fused_case); the model's kernel path against
+              its plain path from the same weights and dropout stream:
+              losses (each pass on its own ReLUs) float32 1e-5 and
+              bfloat16 1e-4 relative; gradients with the plain pass on
+              the kernel pass's ReLU masks (relu_replay, flips at most
+              NMT_RELU_FLIP_FRAC / NMT_RELU_FLIP_FRAC_BF16 of its
+              elements), float32 1e-4 of each layer's largest, bfloat16
+              phase 7's rule (BF16_MODEL_GRAD_TOL of the layer's largest
+              float32 gradient, or the plain path's own bfloat16 error
+              where larger); then timed steps, float32 and bfloat16
+              (float32 masters): ms a step, target tokens/s, MFU (3 x 2 x
+              the multiply-adds of every Dense and attention product at
+              the batch's shapes over 989 TFLOP/s), peak memory, the fused
+              pair of the dtype's family 18 times a step each (6 encoder,
+              6 decoder causal, 6 cross; BTHD) and nothing else; one
+              bfloat16 step profiled (busy share, CUDA launches).
+  7e. nmt_translate  the same model translating 16 sources (lengths
+              U[16, 64] padded to 64) by beam search (beam 5, 128 steps,
+              alpha 0.6), float32 and bfloat16, kernels against plain
+              (beam_gate: the same candidates every step and the same
+              beams, or a first difference at a near tie of the plain
+              path's totals, twice the measured drift in bfloat16 with
+              the drift at most NMT_BF16_DRIFT_CAP and the first step's
+              totals within BF16_REL_TOL; scores 1e-4 relative in
+              float32, NMT_BF16_SCORE_TOL in bfloat16); the fused forward
+              6 times for the encoder (BTHD) and 12 a step (6 BHTD: the cached
+              self-attention, one query row over the cache's 128 keys;
+              6 BTHD: the cross-attention, one row over the source) and
+              nothing else; ms a translate, decode steps a second. Kernel
+              cells (lockstep_cell: kernel against plain, kernel, plain
+              and SDPA ms on the same views, the bound): the decode
+              self-attention at B * beam = 80, H 8, 128 keys of the
+              contiguous cache, and the cross-attention over 64 source
+              keys padded from the sources' valid lengths.
+  7f. gpt2_generate  GPT-2 774M (seeded random weights) through
+              GPT2ForCausalLM.generate on bench.py bench_gpt2_decode's
+              traffic (B 8, prompt 128, 128 greedy tokens), float32 and
+              bfloat16: kernels over a lockstep paged cache (pages of 64)
+              and over the contiguous cache, plain versions over pages;
+              the prompt's forward takes the plain softmax attention (its
+              (1, 1, 128, 256) mask is not key padding), each
+              single-token forward the family's fused forward once a layer
+              in BHTD (36 x 128 a generate) and nothing else. Streams
+              (stream_gate): kernel against plain and paged against
+              contiguous equal, except at a first differing token where
+              the other path's top-2 gap is below 1e-4 (float32) or twice
+              the measured logit difference there (bfloat16; that
+              difference, and that of the first single-token logits, at
+              most GPT2_BF16_LOGIT_CAP). Tokens/s
+              and ms a token of a warm paged generate (bench_gpt2_decode's
+              reading); the decode cell: B 8, H 20, one query row
+              over the paged cache's 256 keys.
   8. kernels  one line listing every ported kernel with its launches on
               its main path (phase 5's float32 serve for the CUDA-core
               span and the decode kernel, its bfloat16 serve for the
@@ -368,7 +431,9 @@ no engine outlives its phase:
               fused entry also with its launches in phase 7b; each span
               entry with its serve_verify cell and its launches in phases
               5d, 5g, 5h, 5i, 5j, 5k and 5l, the decode entry with its
-              launches in 5l), errors, times, bound and library times.
+              launches in 5l; each fused entry with its launches in
+              phases 7d-7f, the forward entries with the lockstep cells of
+              7e and 7f), errors, times, bound and library times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
 """
@@ -406,10 +471,11 @@ INT8_BF16_REL_TOL = 2e-3
 # one slot, one head, D = 64, page 16, one query row, make_pool seed):
 # (keys, seed)
 INT8_ROUNDING_CASE = (1, 0)
-# bfloat16 BERT-base, kernel path against plain path, one forward and
-# backward from the same weights and dropout stream (readings in PERF.md
-# section 6): each gradient's difference over its layer's largest
-# float32 gradient may reach this, or the plain path's own bfloat16
+# bfloat16 BERT-base (phase 7) and Transformer-base NMT (phase 7d), kernel
+# path against plain path, one forward and backward from the same
+# weights and dropout stream (readings in PERF.md section 6): each
+# gradient's difference over its layer's largest float32 gradient may
+# reach this, or the plain path's own bfloat16
 # error against float32 where that is larger (a gradient summed over
 # every token, such as the token-type embedding's, cancels and keeps few
 # bits in bfloat16); the loss, taken in float32 from the logits, agrees
@@ -441,7 +507,12 @@ REPLACES[SPAN_TC] = REPLACES[SPAN]
 REPLACES[INT8_TC] = REPLACES[INT8]
 REPLACES["fused_attention_fwd_tc"] = REPLACES["fused_attention_fwd"]
 REPLACES["fused_attention_bwd_tc"] = REPLACES["fused_attention_bwd"]
-GPT2_LAYERS = 36
+GPT2_LAYERS = 36       # the 774M config's depth: gpt2_train, gpt2_generate
+# the serving phases (5-5l) run the 774M model at full width cut to its
+# first 12 layers: their dispatches are host-bound, about 1.4 ms a layer,
+# and the whole script has to stay well inside its time limit
+SERVE_LAYERS = 12
+SERVE_CONFIG = f"gpt2_774m_config(num_layers={SERVE_LAYERS})"
 BERT_LAYERS = 12
 # phase 6 cells: (B, H, T, D, layout, causal, dropout); the BERT cells
 # take key padding from valid lengths U[3T/4, T] (numpy seed 0)
@@ -495,6 +566,50 @@ RESNET_SPREAD_FACTOR = 8
 # weights and images against float32, relative; it read 2.4e-3 on an
 # H100 (PERF.md section 6)
 RESNET_BF16_LOSS_TOL = 1e-2
+# phases 7d-7f: nmt_base_config's layers (encoder and decoder each)
+NMT_LAYERS = 6
+# 7d: 64 sentence pairs, source and target lengths U[32, 64] padded to 64
+# (about 4,096 target tokens: Sockeye 3's default word-based batch); the
+# timed TrainStep steps of each dtype
+NMT_TRAIN = dict(B=64, T=64, lo=32, steps=dict(float32=3, bfloat16=10))
+# 7e: 16 sources, lengths U[16, 64] padded to 64, beam 5, 128 steps
+NMT_TRANSLATE = dict(B=16, T=64, lo=16, beam=5, max_length=128, alpha=0.6)
+# 7e, bfloat16 beams that agree at every step: their final scores (sums of
+# 128 float32 log-probabilities of bfloat16 logits, over the length
+# penalty), kernel against plain, relative. The two paths' logits differ
+# by about one bfloat16 spacing (2**-8 of a logit near 1), which moves a
+# log-probability by up to ~4e-3 a step; over 128 steps that is at most
+# ~0.5 on totals of ~1,300 (random weights spread a step's log-probability
+# around -ln 32000), 4e-4 relative: 1e-3 leaves that margin
+NMT_BF16_SCORE_TOL = 1e-3
+# 7d: relu_replay's flipped elements over the ReLU elements of the pass,
+# at most: a pre-activation within rounding of zero flips now and then
+# (7 of 100,663,296 read on an H100, PERF.md section 6); more says that
+# the replay is hiding a forward that differs by more than rounding
+NMT_RELU_FLIP_FRAC = 1e-6
+# the same in bfloat16, where the two passes' pre-activations differ by a
+# few bfloat16 spacings and a ReLU flips wherever one lies that close to
+# zero: about 2.5 times the reading on an H100 (80,840 of 100,663,296,
+# 8.0e-4, PERF.md section 6); a forward that differs broadly flips a
+# large share of them
+NMT_RELU_FLIP_FRAC_BF16 = 2e-3
+# 7e, bfloat16: the drift that sets beam_gate's near-tie limit (the
+# largest |kernel - plain| total of a candidate both paths rank among
+# their best beam + 1, up to a row's first differing step) may reach this
+# at most, in log-probability: about 2.7 times the largest reading of a
+# sound run on an H100 (0.0934, PERF.md section 6)
+NMT_BF16_DRIFT_CAP = 0.25
+# 7f, bfloat16: the largest |kernel - plain| logit of a row, at its first
+# single-token forward and at its first differing token (where twice it
+# is stream_gate's near-tie limit), may reach this at most: about twice
+# the largest reading of a sound run on an H100 (0.0615 at the first
+# single-token logits, 2.0e-2 of the largest: 36 layers of bfloat16
+# rounding; 0.0469-0.0547 at the first differing tokens; PERF.md
+# section 6)
+GPT2_BF16_LOGIT_CAP = 0.125
+# 7f: bench.py bench_gpt2_decode's traffic: B = 8, prompt 128, 128 new
+# greedy tokens, pages of 64 (and the contiguous cache)
+GPT2_GENERATE = dict(B=8, prompt=128, new=128, page_size=64)
 # phase 5d: the speculative engine options (BENCH_SERVING_SPEC.json's shape)
 SPEC = dict(speculative=True, spec_tokens=8)
 # the serve_verify cell: live rows of the verify dispatch of each slot (1 +
@@ -1322,10 +1437,11 @@ def profiled(torch, run, top):
                             for d, k, c in rows[:top]]}
 
 
-# the serve profiles of phases 5 and 5b: dispatches 10-29 of the 38 a
+# the serve profiles of phases 5 and 5b: dispatches 10-17 of the 38 a
 # serve (every prompt has landed by then); a whole serve's trace cost
-# 40-80 s of the profiler's post-processing each
-SERVE_TRACE = (10, 20)
+# 40-80 s of the profiler's post-processing each, so the window is kept
+# short
+SERVE_TRACE = (10, 8)
 
 
 def trace_window(torch, eng, prompts, n_new, Request, skip, steps):
@@ -1358,8 +1474,8 @@ def float_logits(torch, model, tokens, impl="torch"):
     """The float path's next-token logits after `tokens` (one slot, the
     whole prefix as one span), in float32: plain (impl "torch") or
     through the kernels ("auto")."""
-    cache = model.make_cache(1, 1024, page_size=64, lengths=[0],
-                             attn_impl=impl)
+    cache = model.make_cache(1, 1024, paged=True, page_size=64,
+                             lengths=[0], attn_impl=impl)
     with torch.no_grad():
         logits, _ = model(torch.tensor([tokens], device=DEV), cache)
     return logits[0, -1].float()
@@ -1398,11 +1514,10 @@ def first_token_rule(torch, model, prompts, got, want, label):
 
 def phase_gpt2(torch, ra, card):
     from mxnet_tpu_torch.models import (GPT2ForCausalLM, PagedKVCache,
-                                        gpt2_774m_config, init_params)
+                                        init_params)
     from mxnet_tpu_torch.serving import Request, ServingEngine
 
-    cfg = gpt2_774m_config(dropout=0.0, attention_dropout=0.0)
-    require(cfg.num_layers == GPT2_LAYERS, "774M config changed")
+    cfg = serve_config()
     t0 = time.perf_counter()
     model = GPT2ForCausalLM(cfg, device=DEV)
     init_params(model, seed=0, std=0.02)
@@ -1413,7 +1528,7 @@ def phase_gpt2(torch, ra, card):
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                for n in plens]
     n_new = 32
-    out = {"phase": "gpt2", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2", "card": card, "config": SERVE_CONFIG,
            "layers": cfg.num_layers, "units": cfg.units,
            "heads": cfg.num_heads, "vocab": cfg.vocab_size,
            "prompt_lens": [int(n) for n in plens], "new_tokens": n_new,
@@ -1426,8 +1541,9 @@ def phase_gpt2(torch, ra, card):
     got, wall = serve(torch, eng, prompts, n_new, Request)
     dispatches = eng.stats["decode_dispatches"]
     span_launches = ra.LAUNCHES[SPAN]
-    require(span_launches == GPT2_LAYERS * dispatches,
-            f"span launches {span_launches} != 36 x {dispatches} dispatches")
+    require(span_launches == SERVE_LAYERS * dispatches,
+            f"span launches {span_launches} != {SERVE_LAYERS} x "
+            f"{dispatches} dispatches")
     require(ra.LAUNCHES[SPAN_TC] == 0, "float32 launched the tensor cores")
     require(all(len(t) == n_new for t in got), "short streams")
     require(all(0 <= t < cfg.vocab_size for s in got for t in s),
@@ -1446,7 +1562,7 @@ def phase_gpt2(torch, ra, card):
         with torch.no_grad():
             logits[impl] = model(last, cache)[0].float()
     launches = dict(ra.LAUNCHES)
-    require(launches["ragged_decode_attention"] == GPT2_LAYERS,
+    require(launches["ragged_decode_attention"] == SERVE_LAYERS,
             f"decode launches {launches['ragged_decode_attention']}")
     dlog = (logits["auto"] - logits["torch"]).abs().max().item()
     require(dlog <= 1e-4, f"decode forward logits differ by {dlog}")
@@ -1496,7 +1612,7 @@ def phase_gpt2(torch, ra, card):
     got16, wall = serve(torch, eng, prompts, n_new, Request)
     d16 = eng.stats["decode_dispatches"]
     launches16 = dict(ra.LAUNCHES)
-    require(launches16[SPAN_TC] == GPT2_LAYERS * d16 and launches16[SPAN]
+    require(launches16[SPAN_TC] == SERVE_LAYERS * d16 and launches16[SPAN]
             == 0, f"bf16 span launches {launches16} for {d16} dispatches")
     out["launches_bf16"] = launches16
     out["page_bytes"]["bfloat16"] = eng.page_pool.page_bytes
@@ -1532,12 +1648,20 @@ def phase_gpt2(torch, ra, card):
     return out
 
 
+def serve_config():
+    """GPT-2 774M's config at full width, cut to SERVE_LAYERS layers."""
+    from mxnet_tpu_torch.models import gpt2_774m_config
+    require(gpt2_774m_config().num_layers == GPT2_LAYERS,
+            "774M config changed")
+    return gpt2_774m_config(dropout=0.0, attention_dropout=0.0,
+                            num_layers=SERVE_LAYERS)
+
+
 def gpt2_774m(torch):
-    """GPT-2 774M at full width with seeded random weights, float32."""
-    from mxnet_tpu_torch.models import (GPT2ForCausalLM, gpt2_774m_config,
-                                        init_params)
-    cfg = gpt2_774m_config(dropout=0.0, attention_dropout=0.0)
-    require(cfg.num_layers == GPT2_LAYERS, "774M config changed")
+    """GPT-2 774M at full width, SERVE_LAYERS deep, with seeded random
+    weights, float32."""
+    from mxnet_tpu_torch.models import GPT2ForCausalLM, init_params
+    cfg = serve_config()
     model = GPT2ForCausalLM(cfg, device=DEV)
     init_params(model, seed=0, std=0.02)
     return model, cfg
@@ -1548,8 +1672,8 @@ def int8_logits(torch, model, prompt, emitted, history):
     on one slot replaying the engine's write schedule: the prompt in its
     recorded chunks (`history`, Request.kv_history), then each emitted
     token as a one-row write (int8 numerics depend on the chunking)."""
-    cache = model.make_cache(1, 1024, page_size=64, lengths=[0],
-                             attn_impl="torch", kv_dtype="int8")
+    cache = model.make_cache(1, 1024, paged=True, page_size=64,
+                             lengths=[0], attn_impl="torch", kv_dtype="int8")
     cuts = np.cumsum([0] + list(history))
     feeds = [prompt[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
     feeds += [[t] for t in emitted]
@@ -1611,7 +1735,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     require([int(n) for n in plens] == gpt2["prompt_lens"],
             "phase gpt2 and gpt2_int8 traffic differ")
     n_new = 32
-    out = {"phase": "gpt2_int8", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_int8", "card": card, "config": SERVE_CONFIG,
            "kv_dtype": "int8", "prompt_lens": gpt2["prompt_lens"],
            "new_tokens": n_new}
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64,
@@ -1623,8 +1747,9 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     got, wall = serve(torch, eng, prompts, n_new, Request)
     launches = dict(ra.LAUNCHES)
     dispatches = eng.stats["decode_dispatches"]
-    require(launches[INT8] == GPT2_LAYERS * dispatches,
-            f"int8 span launches {launches[INT8]} != 36 x {dispatches}")
+    require(launches[INT8] == SERVE_LAYERS * dispatches,
+            f"int8 span launches {launches[INT8]} != {SERVE_LAYERS} x "
+            f"{dispatches}")
     require(launches[SPAN] == 0 and launches[SPAN_TC] == 0
             and launches[INT8_TC] == 0
             and launches["ragged_decode_attention"] == 0,
@@ -1648,7 +1773,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
         with torch.no_grad():
             logits[impl] = model(last, cache)[0].float()
         if impl == "auto":
-            require(ra.LAUNCHES[INT8] - launches[INT8] == GPT2_LAYERS,
+            require(ra.LAUNCHES[INT8] - launches[INT8] == SERVE_LAYERS,
                     "the single-token int8 forward missed the span kernel")
     del saved, cache
     dlog = (logits["auto"] - logits["torch"]).abs().max().item()
@@ -1672,7 +1797,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     want, wall = serve(torch, eng, prompts, n_new, Request, plain_reqs)
     out["float32_plain"] = {"wall_s": wall, "ms_per_dispatch": wall
                             / eng.stats["decode_dispatches"] * 1e3}
-    require(ra.LAUNCHES[INT8] == launches[INT8] + GPT2_LAYERS,
+    require(ra.LAUNCHES[INT8] == launches[INT8] + SERVE_LAYERS,
             "the plain path launched a kernel")
     del eng
     release_device(torch)
@@ -1733,7 +1858,7 @@ def phase_gpt2_int8(torch, ra, card, gpt2):
     got16, wall = serve(torch, eng, prompts, n_new, Request)
     d16 = eng.stats["decode_dispatches"]
     launches16 = dict(ra.LAUNCHES)
-    require(launches16[INT8_TC] == GPT2_LAYERS * d16 and launches16[INT8]
+    require(launches16[INT8_TC] == SERVE_LAYERS * d16 and launches16[INT8]
             == 0, f"bf16 int8 span launches {launches16} for {d16}")
     out["launches_bf16"] = launches16
     require(all(len(t) == n_new for t in got16), "short bf16 int8 streams")
@@ -1769,7 +1894,7 @@ def phase_prefix(torch, ra, card):
     # chunks end, and a page-aligned prefix hit starts on that grid
     ekw = dict(num_slots=8, max_length=1024, page_size=S, chunk_tokens=S,
                prefill_chunk_budget=8 * S)
-    out = {"phase": "prefix", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "prefix", "card": card, "config": SERVE_CONFIG,
            "prefix_tokens": n_pre, "tail_lens": [len(t) for t in tails],
            "new_tokens": n_new}
     f32_pool_bytes = None
@@ -1810,7 +1935,7 @@ def phase_prefix(torch, ra, card):
             audit = eng.audit_pages()
             require(audit == [], f"prefix {kv} on={on}: audit {audit}")
             key = INT8 if kv == "int8" else SPAN
-            require(ra.LAUNCHES[key] == GPT2_LAYERS
+            require(ra.LAUNCHES[key] == SERVE_LAYERS
                     * eng.stats["decode_dispatches"]
                     and ra.LAUNCHES[SPAN_TC] == ra.LAUNCHES[INT8_TC] == 0,
                     f"prefix {kv}: the span kernel missed dispatches")
@@ -1959,7 +2084,7 @@ def phase_gpt2_spec(torch, ra, card):
     prompts = spec_traffic(cfg.vocab_size)
     n_new = 64
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
-    out = {"phase": "gpt2_spec", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_spec", "card": card, "config": SERVE_CONFIG,
            "engine": dict(ekw, **SPEC), "prompt_lens": list(map(len, prompts)),
            "new_tokens": n_new}
     for label, dtype, kv in (("float32", torch.float32, None),
@@ -1983,7 +2108,7 @@ def phase_gpt2_spec(torch, ra, card):
             launches = dict(ra.LAUNCHES)
         st = eng.stats
         d = st["decode_dispatches"]
-        require(launches[key] == GPT2_LAYERS * d and sum(launches.values())
+        require(launches[key] == SERVE_LAYERS * d and sum(launches.values())
                 == launches[key], f"spec {label}: launches {launches} for "
                 f"{d} dispatches")
         require(plain_calls.calls == 0, f"spec {label}: the plain span "
@@ -2048,7 +2173,7 @@ def phase_gpt2_w8(torch, ra, card, gpt2):
             "phase gpt2 and gpt2_w8 traffic differ")
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64)
-    out = {"phase": "gpt2_w8", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_w8", "card": card, "config": SERVE_CONFIG,
            "weight_dtype": "int8", "prompt_lens": gpt2["prompt_lens"],
            "new_tokens": n_new}
     # the w8 main path: the kernels; counts read here. The engine
@@ -2058,7 +2183,7 @@ def phase_gpt2_w8(torch, ra, card, gpt2):
     ra.reset_launches()
     got, wall = serve(torch, eng, prompts, n_new, Request)
     d = eng.stats["decode_dispatches"]
-    require(ra.LAUNCHES[SPAN] == GPT2_LAYERS * d, f"w8 span launches "
+    require(ra.LAUNCHES[SPAN] == SERVE_LAYERS * d, f"w8 span launches "
             f"{ra.LAUNCHES[SPAN]} for {d} dispatches")
     require(all(len(t) == n_new for t in got), "w8: short streams")
     out["launches"] = dict(ra.LAUNCHES)
@@ -2129,7 +2254,7 @@ def phase_gpt2_lora(torch, ra, card, gpt2):
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64,
                prefill_chunk_budget=8 * 64, retry_backoff_s=0.0)
-    out = {"phase": "gpt2_lora", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_lora", "card": card, "config": SERVE_CONFIG,
            "pool": dict(slots=4, max_rank=8), "wear": LORA_WEAR,
            "prompt_lens": gpt2["prompt_lens"], "new_tokens": n_new}
     adapters = {i: random_lora(cfg, rank=r, seed=i)
@@ -2161,7 +2286,7 @@ def phase_gpt2_lora(torch, ra, card, gpt2):
         got = [r.output_tokens for r in reqs]
         st = eng.stats
         d = st["decode_dispatches"]
-        require(ra.LAUNCHES[SPAN] == GPT2_LAYERS * d, f"lora span launches "
+        require(ra.LAUNCHES[SPAN] == SERVE_LAYERS * d, f"lora span launches "
                 f"{ra.LAUNCHES[SPAN]} for {d} dispatches")
         require(all(len(t) == n_new for t in got), "lora: short streams")
         require(eng.audit_pages() == [], "lora: page or adapter audit")
@@ -2306,7 +2431,7 @@ def phase_gpt2_tier(torch, ra, card, model, cfg):
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64,
                prefix_cache=True)
-    out = {"phase": "gpt2_tier", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_tier", "card": card, "config": SERVE_CONFIG,
            "engine": dict(ekw, prefix_cache_pages=TIER["prefix_cache_pages"],
                           host_kv_bytes=f"{TIER['host_pages']} pages"),
            "prompt_lens": [list(map(len, r)) for r in rounds],
@@ -2338,7 +2463,7 @@ def phase_gpt2_tier(torch, ra, card, model, cfg):
             launches = dict(ra.LAUNCHES)
         st = eng.stats
         d = st["decode_dispatches"]
-        require(launches[key] == GPT2_LAYERS * d and sum(launches.values())
+        require(launches[key] == SERVE_LAYERS * d and sum(launches.values())
                 == launches[key], f"tier {label}: launches {launches} for "
                 f"{d} dispatches")
         require(plain_calls.calls == 0, f"tier {label}: the plain span "
@@ -2502,7 +2627,7 @@ def phase_gpt2_robust(torch, ra, card, model, cfg):
 
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
     out = {"phase": "gpt2_robust", "card": card,
-           "config": "gpt2_774m_config", "engine": ekw}
+           "config": SERVE_CONFIG, "engine": ekw}
 
     # chaos: every fault kind, poison in both phases, float32 pages
     prompts = robust_traffic(cfg.vocab_size)
@@ -2525,7 +2650,7 @@ def phase_gpt2_robust(torch, ra, card, model, cfg):
     st = eng.stats
     d = st["decode_dispatches"]
     counts = dict(plan.counts)
-    require(launches[SPAN] == GPT2_LAYERS * d and sum(launches.values())
+    require(launches[SPAN] == SERVE_LAYERS * d and sum(launches.values())
             == launches[SPAN], f"chaos: launches {launches} for {d} "
             "dispatches")
     require(plain_calls.calls == 0, "chaos: the plain span version ran")
@@ -2607,7 +2732,7 @@ def phase_gpt2_robust(torch, ra, card, model, cfg):
         launches = dict(ra.LAUNCHES)
         st = eng.stats
         key = INT8 if kv else SPAN
-        require(launches[key] == GPT2_LAYERS * st["decode_dispatches"]
+        require(launches[key] == SERVE_LAYERS * st["decode_dispatches"]
                 and sum(launches.values()) == launches[key],
                 f"preempt {label}: launches {launches}")
         require(bad == [], f"preempt {label}: audits {bad[:3]}")
@@ -3059,7 +3184,7 @@ def phase_gpt2_http(torch, ra, card, model, cfg):
     extra = [rng.integers(0, cfg.vocab_size, 64).tolist() for _ in range(2)]
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
-    out = {"phase": "gpt2_http", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_http", "card": card, "config": SERVE_CONFIG,
            "engine": ekw, "prompt_lens": list(map(len, prompts)),
            "new_tokens": n_new}
     dump_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3086,7 +3211,7 @@ def phase_gpt2_http(torch, ra, card, model, cfg):
                                      extra, telemetry)
                     launches = dict(ra.LAUNCHES)
                 d = eng.stats["decode_dispatches"]
-                require(launches[key] == GPT2_LAYERS * d
+                require(launches[key] == SERVE_LAYERS * d
                         and sum(launches.values()) == launches[key],
                         f"http {label}: launches {launches} for {d} "
                         "dispatches")
@@ -3187,7 +3312,7 @@ def router_drive(torch, router, reqs, kill_after=None, ReplicaFaultPlan=None):
 def router_gates(label, router, engines, done, want, launches, key,
                  plain_calls):
     """Every case's gates: each stream equals the single engine's, every
-    request finished, the dtype's span family ran 36 times a dispatch
+    request finished, the dtype's span family ran once a layer a dispatch
     summed over the replicas (nothing else), its plain version never,
     the page audits are clean. Returns the case's readings."""
     require(sorted(done) == sorted(want),
@@ -3199,7 +3324,7 @@ def router_gates(label, router, engines, done, want, launches, key,
             f"engine's for {bad[:4]} (statuses "
             f"{[done[b].status for b in bad[:4]]})")
     per = [e.stats["decode_dispatches"] for e in engines]
-    require(launches.get(key, 0) == GPT2_LAYERS * sum(per)
+    require(launches.get(key, 0) == SERVE_LAYERS * sum(per)
             and sum(launches.values()) == launches.get(key, 0),
             f"router {label}: launches {launches} for {per} dispatches")
     require(plain_calls.calls == 0, f"router {label}: the plain span "
@@ -3286,7 +3411,7 @@ def phase_gpt2_router(torch, ra, card, model, cfg):
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
     out = {"phase": "gpt2_router", "card": card,
-           "config": "gpt2_774m_config", "engine": ekw,
+           "config": SERVE_CONFIG, "engine": ekw,
            "prompt_lens": {"greedy": list(map(len, greedy)),
                            "sampled": list(map(len, sampled))},
            "new_tokens": n_new, "sampled": ROUTER_SAMPLED}
@@ -3674,7 +3799,7 @@ def phase_gpt2_fleet(torch, ra, card, model, cfg):
     # replays on)
     ekw8 = dict(ekw, kv_dtype="int8", prefill_chunk_budget=8 * 64)
     out = {"phase": "gpt2_fleet", "card": card,
-           "config": "gpt2_774m_config", "engine": ekw,
+           "config": SERVE_CONFIG, "engine": ekw,
            "prompt_lens": {"greedy": list(map(len, greedy)),
                            "sampled": list(map(len, sampled))},
            "new_tokens": n_new, "sampled": ROUTER_SAMPLED}
@@ -3730,7 +3855,7 @@ def phase_gpt2_fleet(torch, ra, card, model, cfg):
             fleet_streams(label, {k[len(label):]: v
                                   for k, v in done.items()}, want)
             per = [w.engine.stats["decode_dispatches"] for w in ws]
-            require(launches.get(key, 0) == GPT2_LAYERS * sum(per)
+            require(launches.get(key, 0) == SERVE_LAYERS * sum(per)
                     and sum(launches.values()) == launches.get(key, 0),
                     f"fleet {label}: launches {launches} for {per} "
                     "dispatches")
@@ -4016,14 +4141,14 @@ def column_slice_bits(torch):
 
 def tp_serve(torch, ra, eng, prompts, n_new, Request, key, label):
     """Serve through a tp engine with the span family `key` counted: it
-    must launch 36 x dispatches x tp times and nothing else, its plain
-    version never. Returns (streams, serve_stats, launches)."""
+    must launch SERVE_LAYERS x dispatches x tp times and nothing else,
+    its plain version never. Returns (streams, serve_stats, launches)."""
     with counting(ra, "_ragged_span_reference") as plain:
         ra.reset_launches()
         got, wall = serve(torch, eng, prompts, n_new, Request)
         launches = dict(ra.LAUNCHES)
     st = serve_stats(eng, wall, got)
-    want = GPT2_LAYERS * st["dispatches"] * eng._tp
+    want = SERVE_LAYERS * st["dispatches"] * eng._tp
     require(launches[key] == want and sum(launches.values()) == want,
             f"{label}: launches {launches}, want {key} {want}")
     require(plain.calls == 0, f"{label}: the plain span version ran "
@@ -4051,7 +4176,7 @@ def int8_pair_logits(torch, model, eng, prompt, emitted, history):
     lockstep), each on one slot replaying the engine's write schedule
     (int8_logits' feeds). Returns (tp=1, tp) float32 logits."""
     from mxnet_tpu_torch.models.gpt2 import tp_forward
-    c1 = model.make_cache(1, 1024, page_size=64, lengths=[0],
+    c1 = model.make_cache(1, 1024, paged=True, page_size=64, lengths=[0],
                           attn_impl="torch", kv_dtype="int8")
     cs = tp_caches(torch, eng, 1, kv_dtype="int8")
     cuts = np.cumsum([0] + list(history))
@@ -4081,8 +4206,9 @@ def int8_layer0_check(torch, model, eng, prompts):
                          dtype=torch.int32, device=DEV)
     for i, p in enumerate(prompts):
         ids[i, :len(p[:W])] = torch.tensor(p[:W], device=DEV)
-    c1 = model.make_cache(B, 1024, page_size=64, lengths=np.zeros(B),
-                          attn_impl="torch", kv_dtype="int8")
+    c1 = model.make_cache(B, 1024, paged=True, page_size=64,
+                          lengths=np.zeros(B), attn_impl="torch",
+                          kv_dtype="int8")
     cs = tp_caches(torch, eng, B, kv_dtype="int8")
     for c in [c1] + cs:
         c.spans = spans
@@ -4120,7 +4246,7 @@ def phase_gpt2_tp(torch, ra, card, gpt2):
             "phase gpt2 and gpt2_tp traffic differ")
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
-    out = {"phase": "gpt2_tp", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_tp", "card": card, "config": SERVE_CONFIG,
            "engine": ekw, "tp_devices": f"[{DEV!r}] * tp",
            "prompt_lens": gpt2["prompt_lens"], "new_tokens": n_new}
 
@@ -4182,7 +4308,7 @@ def phase_gpt2_tp(torch, ra, card, gpt2):
                 logits[impl] = tp_forward(eng._shards, eng._tp_group, last,
                                           caches).float()
             dec = ra.LAUNCHES["ragged_decode_attention"]
-            require(dec == GPT2_LAYERS * tp and sum(ra.LAUNCHES.values())
+            require(dec == SERVE_LAYERS * tp and sum(ra.LAUNCHES.values())
                     == dec, f"tp decode launches {dict(ra.LAUNCHES)}")
             dlog = (logits["auto"] - logits["torch"]).abs().max().item()
             require(dlog <= 1e-4, f"tp decode forward logits differ by "
@@ -4387,22 +4513,6 @@ def phase_bert(torch, fa, card):
         g = {n: p.grad for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
         return float(loss.detach()), g
-
-    def layer_top(g):
-        """The largest gradient magnitude of each layer (a Dense's weight
-        and bias together): the attention key biases' true gradient is 0
-        (a key bias shifts every score of a query alike), so on their own
-        both paths hold only noise."""
-        top = {}
-        for n, x in g.items():
-            owner = n.rsplit(".", 1)[0]
-            top[owner] = max(top.get(owner, 0.0), x.abs().max().item())
-        return top
-
-    def grad_rel(g_a, g_b, top):
-        """Each parameter's largest |g_a - g_b| over its layer's `top`."""
-        return {n: (g_a[n].float() - g.float()).abs().max().item()
-                / (top[n.rsplit(".", 1)[0]] or 1.0) for n, g in g_b.items()}
 
     def train(model, steps):
         rng.seed(0)        # the same dropout stream on every path
@@ -4933,6 +5043,774 @@ def phase_resnet50(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 7d-7f: Transformer NMT training and beam search, GPT-2 generate
+# ---------------------------------------------------------------------------
+
+def set_attention_impl(model, impl):
+    """Every attention module of `model` on `impl` ("auto": the kernels,
+    "torch": their plain versions); the weights are untouched."""
+    for m in model.modules():
+        if hasattr(m, "_impl"):
+            m._impl = impl
+
+
+class fused_calls:
+    """Count fused_attention's kernel calls (impl "auto" on DEV) by
+    layout and query rows while in the block, e.g. "BHTD_tq1",
+    "BTHD_tq64"; the launch counters stay the wrappers' own."""
+
+    def __init__(self, fa):
+        self.fa, self.calls = fa, {}
+
+    def __enter__(self):
+        self.fn = self.fa.fused_attention
+
+        def wrapped(q, k, v, *args, layout="BHTD", impl="auto", **kw):
+            if impl == "auto" and str(q.device).startswith(DEV):
+                key = f"{layout}_tq{q.shape[2 if layout == 'BHTD' else 1]}"
+                self.calls[key] = self.calls.get(key, 0) + 1
+            return self.fn(q, k, v, *args, layout=layout, impl=impl, **kw)
+        self.fa.fused_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.fused_attention = self.fn
+
+
+class beam_steps:
+    """While in the block, every torch.sort over (rows, `width`)
+    candidate totals (a beam search step's sort over beam x vocabulary)
+    keeps its best `keep` totals and their flat indices (parent * V +
+    token) in `steps`, one pair a step."""
+
+    def __init__(self, torch, width, keep):
+        self.torch, self.width, self.keep = torch, width, keep
+
+    def __enter__(self):
+        self.fn, self.steps = self.torch.sort, []
+
+        def wrapped(x, *args, **kw):
+            res = self.fn(x, *args, **kw)
+            if x.dim() == 2 and x.shape[1] == self.width:
+                self.steps.append((res[0][:, :self.keep],
+                                   res[1][:, :self.keep]))
+            return res
+        self.torch.sort = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.sort = self.fn
+
+
+def lockstep_cell(torch, F, fa, q, k, v, mask, layout, lens, label):
+    """One forward call of the decode path's shape, kernel against plain
+    (float32 1e-5 absolute, bfloat16 BF16_REL_TOL of the largest plain
+    value), one launch of the family kernel_route names, the same bits
+    twice; then kernel, plain and F.scaled_dot_product_attention times on
+    the same views (the cache's, with its mask), and the bound of the
+    live keys' work."""
+    f32 = q.dtype == torch.float32
+    route = fa.kernel_route(q, k, v, layout)
+    require(fa.supported(q, k, mask, layout=layout),
+            f"{label}: supported() refuses the decode call")
+
+    def run(impl):
+        return fa.fused_attention(q, k, v, mask=mask, layout=layout,
+                                  impl=impl)
+    fa.reset_launches()
+    got = run("auto")
+    launches = dict(fa.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    want[FAMILY_KEYS[route][0]] = 1
+    require(launches == want, f"{label}: launches {launches}")
+    require(torch.equal(got, run("auto")), f"{label}: two runs differ")
+    err, rel = check_close(got, run("torch"), f32, label)
+    B, H, Tq, Tk, D = fa._geometry(q, k, layout)
+    nbytes, flops = fused_work(B, H, Tq, Tk, D, q.element_size(), False,
+                               lens)[0]
+    b_ms, b_by = bound(nbytes, flops, "float32" if f32 else "bfloat16")
+    # SDPA takes (B, H, T, D): the same tensors, BTHD ones transposed
+    bhtd = [x.transpose(1, 2) if layout == "BTHD" else x for x in (q, k, v)]
+    am = mask if mask.dim() == 4 else mask[:, None, None, :]
+    out = {"shape": dict(B=B, H=H, Tq=Tq, Tk=Tk, D=D, layout=layout),
+           "route": route, "max_abs_err": err, "rel_err": rel,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    with torch.no_grad():
+        out["ms"] = time_ms(torch, lambda: run("auto"))
+        out["plain_ms"] = time_ms(torch, lambda: run("torch"))
+        out["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(*bhtd,
+                                                          attn_mask=am))
+    out["ms_over_library"] = out["ms"] / out["library_ms"]
+    return out
+
+
+def decode_views(torch, B, H, T, D, dtype, paged, seed):
+    """The lockstep decode call's operands at its last step: a cache
+    (contiguous, or paged over a permuted table of 64-key pages) holding
+    T - 1 gaussian rows, the step's row written at T - 1; q the (B, H, 1,
+    D) head split of a (B, 1, C) projection, K/V the layer's whole (B, H,
+    T, D) views and the (1, 1, 1, T) key mask, as the models build
+    them."""
+    from mxnet_tpu_torch.models import KVCache, PagedKVCache
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    if paged:
+        S = GPT2_GENERATE["page_size"]
+        table = torch.randperm(B * T // S, generator=gen, device=DEV)
+        cache = PagedKVCache.create(1, B, H, T, D, dtype=dtype, page_size=S,
+                                    page_table=table.reshape(B, T // S),
+                                    device=DEV)
+    else:
+        cache = KVCache.create(1, B, H, T, D, dtype=dtype, device=DEV)
+    cache.write_prompt(0, randn(B, H, T - 1, D), randn(B, H, T - 1, D))
+    cache = cache.advance(T - 1)
+    k, v, cache = cache.write(0, randn(B, H, 1, D), randn(B, H, 1, D))
+    q = randn(B, 1, H * D).view(B, 1, H, D).transpose(1, 2)
+    mask = cache.key_mask(extra=1)[None, None, None, :]
+    return q, k, v, mask
+
+
+def layer_top(g):
+    """The largest gradient magnitude of each layer (a Dense's weight and
+    bias together): the attention key biases' true gradient is 0 (a key
+    bias shifts every score of a query alike), so on their own both paths
+    hold only noise."""
+    top = {}
+    for n, x in g.items():
+        owner = n.rsplit(".", 1)[0]
+        top[owner] = max(top.get(owner, 0.0), x.abs().max().item())
+    return top
+
+
+def grad_rel(g_a, g_b, top):
+    """Each parameter's largest |g_a - g_b| over its layer's `top`."""
+    return {n: (g_a[n].float() - g.float()).abs().max().item()
+            / (top[n.rsplit(".", 1)[0]] or 1.0) for n, g in g_b.items()}
+
+
+class relu_replay:
+    """While in the block, the first pass through ops.nn.activation's
+    ReLUs records each call's mask (input > 0) and the second applies
+    those masks instead of its own (x * mask: the same forward but at a
+    pre-activation within rounding of zero, the same derivative), and
+    counts the elements whose own sign differs (`flips`). A ReLU is
+    discontinuous in its derivative: a pre-activation that the kernel's
+    and the plain path's roundings put on two sides of zero moves one
+    token's whole contribution to its layer's weight gradients (about
+    1.4% of the layer's largest at nmt_train's batch), which says nothing
+    of the attention kernels under test."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.ops import nn as ops
+        self.ops, self.fn = ops, ops.activation
+        self.masks, self.flips, self.elements = [], 0, 0
+        self.replay = None
+
+        def wrapped(x, act_type):
+            if act_type != "relu":
+                return self.fn(x, act_type)
+            if self.replay is None:
+                self.masks.append(x.detach() > 0)
+                return self.fn(x, act_type)
+            m = self.masks[self.replay]
+            self.replay += 1
+            self.flips += int((m != (x.detach() > 0)).sum())
+            self.elements += m.numel()
+            return x * m.to(x.dtype)
+        ops.activation = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.activation = self.fn
+
+
+def nmt_batch(torch, cfg, B, T, lo, seed=0):
+    """Sentence pairs with source and target lengths U[lo, T] (numpy
+    `seed`), padded to T with pad_id: (src, target input = bos + body,
+    src valid lengths, target output = body + eos, the target's (B, T)
+    float32 token mask as the loss's sample weight), and the live target
+    tokens."""
+    rng = np.random.default_rng(seed)
+    sl, tl = rng.integers(lo, T + 1, B), rng.integers(lo, T + 1, B)
+    src = np.full((B, T), cfg.pad_id)
+    tgt = np.full((B, T + 1), cfg.pad_id)
+    for b in range(B):
+        src[b, :sl[b]] = rng.integers(4, cfg.src_vocab_size, sl[b])
+        tgt[b, 0] = cfg.bos_id
+        tgt[b, 1:tl[b]] = rng.integers(4, cfg.tgt_vocab_size, tl[b] - 1)
+        tgt[b, tl[b]] = cfg.eos_id
+    weight = np.arange(T)[None, :] < tl[:, None]
+
+    def dev(a, dt=torch.int32):
+        return torch.tensor(a, dtype=dt, device=DEV)
+    return (dev(src), dev(tgt[:, :T]), dev(sl), dev(tgt[:, 1:]),
+            dev(weight, torch.float32)), int(tl.sum())
+
+
+def nmt_step_flops(cfg, B, Ts, Tt):
+    """3 x 2 x the multiply-adds of every Dense and attention product of
+    a training step at these (padded) shapes: per encoder layer the four
+    projections, the FFN and Q·Kᵀ, P·V over Ts x Ts; per decoder layer
+    the same over Tt x Tt (causal counted whole), the cross-attention's
+    q / proj over Tt rows, k / v over Ts rows and its Tt x Ts products;
+    the tied output layer over the vocabulary."""
+    U, Hd, V = cfg.units, cfg.hidden_size, cfg.tgt_vocab_size
+    enc = 4 * Ts * U * U + 2 * Ts * U * Hd + 2 * Ts * Ts * U
+    dec = (4 * Tt * U * U + 2 * Tt * Tt * U + 2 * Tt * U * U
+           + 2 * Ts * U * U + 2 * Tt * Ts * U + 2 * Tt * U * Hd)
+    macs = B * (cfg.enc_layers * enc + cfg.dec_layers * dec + Tt * U * V)
+    return 6 * macs
+
+
+def phase_nmt_train(torch, F, fa, card):
+    """Transformer-base NMT (nmt_base_config: 6 + 6 layers, 512 units, 8
+    heads, 2048 hidden, vocab 32000 / 32000, dropout 0.1; seeded random
+    weights) trained with teacher forcing through TrainStep + Adam(2e-4)
+    on NMT_TRAIN's batch. First the fused pair alone at the three calls'
+    shapes (fused_case, float32 and bfloat16: output and the three
+    gradients against the plain version): encoder self-attention and
+    cross-attention under the sources' key padding, decoder
+    self-attention causal, B 64, H 8, T 64, D 64, BTHD. Then the model's
+    kernel path against its plain path, from the same weights and
+    dropout stream: the loss on one forward of each path, each on its
+    own ReLUs (float32 1e-5 relative, bfloat16 BF16_MODEL_LOSS_TOL); the
+    gradients on one forward and backward of each, the plain pass on the
+    kernel pass's ReLU masks (relu_replay, whose flips may reach
+    NMT_RELU_FLIP_FRAC of its elements in float32 and
+    NMT_RELU_FLIP_FRAC_BF16 in bfloat16): float32 1e-4 of the layer's
+    largest gradient, bfloat16 phase bert's rule (BF16_MODEL_GRAD_TOL of
+    the layer's largest float32 gradient, or the plain path's own
+    bfloat16 error where larger). Then timed TrainStep
+    steps in each dtype (float32 weights; bfloat16 weights with float32
+    masters), each launching its family's fused pair 18 times a step
+    (6 encoder, 6 decoder causal, 6 cross) and nothing else; one
+    bfloat16 step profiled."""
+    from mxnet_tpu_torch import rng
+    from mxnet_tpu_torch.loss import SoftmaxCrossEntropyLoss as Loss
+    from mxnet_tpu_torch.models import TransformerNMT, nmt_base_config
+    from mxnet_tpu_torch.optimizer import Adam
+    from mxnet_tpu_torch.parallel import TrainStep
+    c = NMT_TRAIN
+    cfg = nmt_base_config()
+    require((cfg.enc_layers, cfg.dec_layers, cfg.units, cfg.num_heads,
+             cfg.hidden_size, cfg.tgt_vocab_size, cfg.dropout)
+            == (NMT_LAYERS, NMT_LAYERS, 512, 8, 2048, 32000, 0.1),
+            "nmt base config changed")
+    batch, tgt_tokens = nmt_batch(torch, cfg, c["B"], c["T"], c["lo"])
+    B, T = batch[0].shape
+    flops = nmt_step_flops(cfg, B, T, T)
+    per_step = 3 * NMT_LAYERS
+    out = {"phase": "nmt_train", "card": card, "config": "nmt_base_config",
+           "layers": [cfg.enc_layers, cfg.dec_layers], "units": cfg.units,
+           "heads": cfg.num_heads, "hidden": cfg.hidden_size,
+           "vocab": [cfg.src_vocab_size, cfg.tgt_vocab_size],
+           "dropout": cfg.dropout, "batch": B, "padded_to": T,
+           "target_tokens": tgt_tokens,
+           "source_tokens": int(batch[2].sum()), "step_flops": flops,
+           "optimizer": "Adam(2e-4)"}
+
+    def loss_of(model, grad):
+        """The masked teacher-forcing loss (float32 from the logits) in
+        train() mode, dropout from a fixed generator; with `grad` its
+        backward and every parameter's gradient (then cleared)."""
+        model.train()
+        try:
+            with rng.generator_scope(rng.step_generator(0, 1, DEV)), \
+                    torch.set_grad_enabled(grad):
+                loss = Loss()(model(*batch[:3]).float(), batch[3],
+                              batch[4]).mean()
+                if grad:
+                    loss.backward()
+        finally:
+            model.eval()
+        g = {n: p.grad for n, p in model.named_parameters()} if grad \
+            else None
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), g
+
+    def paths(model, family, grad, relu=None):
+        """loss_of through the kernels (each fused forward, and backward
+        with `grad`, launched per_step times, nothing else) and through
+        the plain versions (nothing launched); with a relu_replay, the
+        plain pass takes the kernel pass's ReLU masks."""
+        res = {}
+        for impl in ("auto", "torch"):
+            set_attention_impl(model, impl)
+            fa.reset_launches()
+            if relu is not None and impl == "torch":
+                relu.replay = 0
+            res[impl] = loss_of(model, grad)
+            launches = dict(fa.LAUNCHES)
+            fwd, bwd = FAMILY_KEYS[family]
+            want = dict.fromkeys(launches, 0)
+            if impl == "auto":
+                want[fwd] = per_step
+                want[bwd] = per_step if grad else 0
+            require(launches == want, f"nmt_train {family} impl={impl}: "
+                    f"launches {launches}, not {want}")
+        set_attention_impl(model, "auto")
+        return res["auto"], res["torch"]
+
+    def steps_timed(model, dtype, family, steps):
+        rng.seed(0)
+        step = TrainStep(model, Loss(), Adam(learning_rate=2e-4),
+                         n_net_inputs=3)
+        torch.cuda.reset_peak_memory_stats()
+        step(*batch)                                     # warm-up
+        fa.reset_launches()
+        with fused_calls(fa) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step(*batch) for _ in range(steps)]
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / steps
+        launches = dict(fa.LAUNCHES)
+        want = {k: (per_step * steps if k in FAMILY_KEYS[family] else 0)
+                for k in launches}
+        require(launches == want, f"nmt_train {dtype} steps launched "
+                f"{launches}, not {per_step} x {steps} of the {family} pair")
+        losses = [float(x) for x in losses]
+        require(all(np.isfinite(losses)), f"nmt_train {dtype}: non-finite "
+                f"losses {losses}")
+        return step, {
+            "card": card, "steps": steps, "losses": losses,
+            "ms_per_step": dt * 1e3, "target_tokens_per_s": tgt_tokens / dt,
+            "padded_tokens_per_s": B * T / dt,
+            "achieved_tflops": flops / dt / 1e12,
+            "mfu": flops / dt / PEAK_FLOPS["bfloat16"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "launches_per_step": {k: n / steps for k, n in launches.items()
+                                  if n},
+            "fused_calls_per_step": {k: n / steps
+                                     for k, n in calls.calls.items()}}
+
+    # the fused pair alone at the model's three call shapes, each dtype
+    H, D = cfg.num_heads, cfg.units // cfg.num_heads
+    src_lens = [int(n) for n in batch[2].cpu()]
+    out["kernel_cells"] = cells = {}
+    for i, (label, causal, lens) in enumerate((
+            ("encoder", False, src_lens), ("decoder_causal", True, None),
+            ("cross", False, src_lens))):
+        cells[label] = {"shape": dict(B=B, H=H, Tq=T, Tk=T, D=D,
+                                      layout="BTHD", causal=causal,
+                                      key_padding=lens is not None)}
+        for dtype, family in ((torch.float32, "cuda_core"),
+                              (torch.bfloat16, "tensor_core")):
+            r = fused_case(torch, F, fa, B, H, T, T, D, "BTHD", causal,
+                           cfg.attention_dropout, lens, dtype, seed=60 + i,
+                           timed=False)
+            require(r["route"] == family, f"nmt_train {label} {dtype}: "
+                    f"routed to {r['route']}")
+            cells[label][str(dtype)[6:]] = r
+
+    # float32: the loss on one forward of each path (each on its own
+    # ReLUs); the gradients on a forward and backward of each, the plain
+    # pass on the kernel pass's ReLU masks; then timed steps
+    model = TransformerNMT(cfg, device=DEV)        # init_params seed 0
+    (lk, _), (lp, _) = paths(model, "cuda_core", False)
+    with relu_replay() as relu:
+        (_, gk), (lp_replay, g32) = paths(model, "cuda_core", True, relu)
+    top32 = layer_top(g32)
+    rel = grad_rel(gk, g32, top32)
+    del gk
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(lk - lp) / abs(lp)
+    flip_limit = NMT_RELU_FLIP_FRAC * relu.elements
+    out["float32_parity"] = {
+        "loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
+        "loss_tol": 1e-5, "loss_plain_replayed": lp_replay,
+        "grad_worst": rel[worst], "grad_worst_param": worst,
+        "grad_tol": 1e-4, "params": len(rel), "relu_flips": relu.flips,
+        "relu_elements": relu.elements, "relu_flip_limit": flip_limit}
+    require(np.isfinite(lk) and loss_rel <= 1e-5, f"nmt_train float32 "
+            f"losses {lk} and {lp} differ by {loss_rel} relative")
+    require(relu.flips <= flip_limit, f"nmt_train float32: {relu.flips} "
+            f"of {relu.elements} ReLU elements flipped, over {flip_limit}")
+    require(rel[worst] <= 1e-4, f"nmt_train float32 gradient of {worst} "
+            f"differs by {rel[worst]} of its layer's largest gradient")
+    out["float32"] = steps_timed(model, "float32", "cuda_core",
+                                 c["steps"]["float32"])[1]
+    del model
+    release_device(torch)
+
+    # bfloat16 weights (the float32 init rounded) with float32 masters:
+    # the loss as in float32; one forward and backward of each path, the
+    # plain pass on the kernel pass's ReLU masks, phase bert's rule
+    model = TransformerNMT(cfg, device=DEV).to(torch.bfloat16)
+    (lk, _), (lp, _) = paths(model, "tensor_core", False)
+    with relu_replay() as relu:
+        (_, g16k), (_, g16p) = paths(model, "tensor_core", True, relu)
+    flip_limit = NMT_RELU_FLIP_FRAC_BF16 * relu.elements
+    diff = grad_rel(g16k, g16p, top32)
+    own = grad_rel(g16p, g32, top32)      # the plain path's bf16 error
+    del g16k, g16p, g32
+    limit = {n: max(BF16_MODEL_GRAD_TOL, own[n]) for n in diff}
+    worst = max(diff, key=lambda n: diff[n] / limit[n])
+    loss_rel = abs(lk - lp) / abs(lp)
+    out["bfloat16_parity"] = {
+        "loss_kernel": lk, "loss_plain": lp, "loss_rel_diff": loss_rel,
+        "loss_tol": BF16_MODEL_LOSS_TOL, "grad_worst": diff[worst],
+        "grad_worst_param": worst, "grad_worst_limit": limit[worst],
+        "grad_largest": max(diff.values()),
+        "grad_largest_param": max(diff, key=diff.get),
+        "plain_own_error_largest": max(own.values()),
+        "over_tol_by_own_error": sorted(n for n in diff
+                                        if own[n] > BF16_MODEL_GRAD_TOL),
+        "grad_tol": BF16_MODEL_GRAD_TOL, "params": len(diff),
+        "relu_flips": relu.flips, "relu_elements": relu.elements,
+        "relu_flip_limit": flip_limit}
+    require(np.isfinite(lk) and loss_rel <= BF16_MODEL_LOSS_TOL,
+            f"nmt_train bfloat16 losses {lk} and {lp} differ by {loss_rel}")
+    require(relu.flips <= flip_limit, f"nmt_train bfloat16: {relu.flips} "
+            f"of {relu.elements} ReLU elements flipped, over {flip_limit}")
+    require(diff[worst] <= limit[worst], f"nmt_train bfloat16 gradient of "
+            f"{worst} differs by {diff[worst]} of its layer's largest "
+            f"float32 gradient, over {limit[worst]}")
+    step, res = steps_timed(model, "bfloat16", "tensor_core",
+                            c["steps"]["bfloat16"])
+    require(res["losses"][-1] < res["losses"][0], f"nmt_train bfloat16: "
+            f"the loss did not fall: {res['losses']}")
+    res["trace"] = trace_step(torch, step, batch)
+    out["bfloat16"] = res
+    emit(out)
+    return out
+
+
+def beam_gate(torch, runs, K, f32, label):
+    """The kernel path's beams against the plain path's. Per source
+    sentence: the first step whose chosen candidates (parent, token)
+    differ; none, and the final beams must be equal token for token
+    (scores within 1e-4 relative in float32, NMT_BF16_SCORE_TOL in
+    bfloat16), unless a near tie of the plain path's final scores
+    reorders them. At a first differing step the plain path's best K + 1
+    totals must hold two neighbours within the near-tie limit: 1e-4 in
+    float32; in bfloat16 twice the drift, the largest |kernel - plain|
+    total over the candidates both paths rank among their best K + 1 at
+    that step or before, where the drift may reach NMT_BF16_DRIFT_CAP at
+    most. In bfloat16 the first step's totals (the same bos and memory
+    in both runs) hold first to BF16_REL_TOL of the row's largest plain
+    one. `runs[impl]["steps"]` are beam_steps' (totals, indices) pairs.
+    Returns the readings."""
+    def host(run):
+        return ([(a.float().cpu().numpy(), i.cpu().numpy())
+                 for a, i in run["steps"]],
+                run["toks"].cpu().numpy(), run["scores"].cpu().numpy())
+    rec_k, tk, sk = host(runs["auto"])
+    rec_p, tp, sp = host(runs["torch"])
+    score_tol = 1e-4 if f32 else NMT_BF16_SCORE_TOL
+    rows, score_rel = [], []
+    first_rel = drift_max = 0.0
+    for b in range(tk.shape[0]):
+        drift = 0.0
+        first = None
+        for t, ((ak, ik), (ap, ip)) in enumerate(zip(rec_k, rec_p)):
+            common = {int(x): y for x, y in zip(ip[b], ap[b])}
+            d = max((abs(float(y) - float(common[int(x)]))
+                     for x, y in zip(ik[b], ak[b]) if int(x) in common),
+                    default=0.0)
+            drift = max(drift, d)
+            if t == 0:
+                first_rel = max(first_rel, d / float(np.abs(ap[b]).max()))
+            if not np.array_equal(ik[b, :K], ip[b, :K]):
+                first = t
+                break
+        drift_max = max(drift_max, drift)
+        if not f32:
+            require(drift <= NMT_BF16_DRIFT_CAP, f"{label}: row {b} drifts "
+                    f"{drift} in its totals, over {NMT_BF16_DRIFT_CAP}")
+        limit = 1e-4 if f32 else 2 * drift
+        if first is None:
+            if np.array_equal(tk[b], tp[b]):
+                score_rel.append(float(np.max(np.abs(sk[b] - sp[b])
+                                              / np.abs(sp[b]))))
+                continue
+            gap = float(np.min(np.abs(np.diff(sp[b]))))
+            rows.append({"row": b, "step": None, "final_reorder": True,
+                         "plain_gap": gap, "limit": limit})
+        else:
+            tot = rec_p[first][0][b]
+            gap = float(np.min(tot[:-1] - tot[1:]))
+            rows.append({"row": b, "step": first, "plain_gap": gap,
+                         "drift": drift, "limit": limit})
+        require(gap <= limit, f"{label}: row {b} diverges at step "
+                f"{first} where the plain path's nearest candidates are "
+                f"{gap} apart, over the near-tie limit {limit}")
+    if not f32:
+        require(first_rel <= BF16_REL_TOL, f"{label}: the first step's "
+                f"totals differ by {first_rel} of the largest, over "
+                f"{BF16_REL_TOL}")
+    if score_rel:
+        require(max(score_rel) <= score_tol, f"{label}: scores differ by "
+                f"{max(score_rel)} relative, over {score_tol}")
+    return {"rows_equal": len(score_rel), "rows": tk.shape[0],
+            "divergences": rows,
+            "score_rel_diff": max(score_rel) if score_rel else None,
+            "score_tol": score_tol, "first_step_rel_diff": first_rel,
+            "first_step_tol": None if f32 else BF16_REL_TOL,
+            "drift_max": drift_max,
+            "drift_cap": None if f32 else NMT_BF16_DRIFT_CAP}
+
+
+def phase_nmt_translate(torch, F, fa, card):
+    """nmt_base_config's model (seeded random weights) translating
+    NMT_TRANSLATE's 16 sources (lengths U[16, 64], padded to 64, with
+    valid lengths) by beam search (beam 5, 128 steps, alpha 0.6), float32
+    then bfloat16, through the kernels and through the plain versions
+    (beam_gate). The kernel path launches its family's fused forward 6
+    times for the encoder (BTHD) and 12 a step: the decoder's cached
+    self-attention (BHTD, one query row over the cache's 128 keys) and
+    its cross-attention (BTHD, one row over the source); nothing else.
+    ms a translate and decode steps a second. Kernel cells of the decode
+    calls: the self-attention at B * beam = 80, H 8, over 128 keys of the
+    contiguous cache, and the cross-attention over 64 padded source keys
+    (lockstep_cell)."""
+    from mxnet_tpu_torch.models import TransformerNMT, nmt_base_config
+    c = NMT_TRANSLATE
+    cfg = nmt_base_config()
+    B, T, K, L = c["B"], c["T"], c["beam"], c["max_length"]
+    gen = np.random.default_rng(1)
+    vl = gen.integers(c["lo"], T + 1, B)
+    src = np.full((B, T), cfg.pad_id)
+    for b in range(B):
+        src[b, :vl[b]] = gen.integers(4, cfg.src_vocab_size, vl[b])
+    src = torch.tensor(src, dtype=torch.int32, device=DEV)
+    vl_t = torch.tensor(vl, dtype=torch.int32, device=DEV)
+    out = {"phase": "nmt_translate", "card": card,
+           "config": "nmt_base_config", "sources": B, "padded_to": T,
+           "valid_lengths": [int(n) for n in vl], "beam": K,
+           "max_length": L, "alpha": c["alpha"]}
+    model = TransformerNMT(cfg, device=DEV)
+    per_step = {"BHTD_tq1": NMT_LAYERS * L, "BTHD_tq1": NMT_LAYERS * L,
+                f"BTHD_tq{T}": NMT_LAYERS}
+
+    def translate():
+        return model.translate(src, vl_t, beam_size=K, max_length=L,
+                               alpha=c["alpha"])
+    for dtype, family in (("float32", "cuda_core"),
+                          ("bfloat16", "tensor_core")):
+        if dtype == "bfloat16":
+            model.to(torch.bfloat16)
+        runs = {}
+        # the plain run first warms the dtype's kernels, so that the
+        # kernel run is the timed one
+        for impl in ("torch", "auto"):
+            set_attention_impl(model, impl)
+            fa.reset_launches()
+            with fused_calls(fa) as calls, beam_steps(
+                    torch, K * cfg.tgt_vocab_size, K + 1) as steps:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks, scores = translate()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = dict(fa.LAUNCHES)
+            want = dict.fromkeys(launches, 0)
+            if impl == "auto":
+                want[FAMILY_KEYS[family][0]] = sum(per_step.values())
+            require(launches == want and calls.calls == (
+                per_step if impl == "auto" else {}),
+                f"nmt_translate {dtype} impl={impl}: launches {launches}, "
+                f"calls {calls.calls}")
+            require(tuple(toks.shape) == (B, K, L)
+                    and bool(torch.isfinite(scores).all())
+                    and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+                    f"nmt_translate {dtype} impl={impl}: bad output")
+            require(len(steps.steps) == L, f"nmt_translate {dtype} "
+                    f"impl={impl}: {len(steps.steps)} beam steps, not {L}")
+            runs[impl] = {"toks": toks, "scores": scores,
+                          "steps": steps.steps,
+                          "wall_s": wall, "launches": launches,
+                          "calls": dict(calls.calls)}
+        ms = runs["auto"]["wall_s"] * 1e3
+        res = {"gate": beam_gate(torch, runs, K, dtype == "float32",
+                                 f"nmt_translate {dtype}"),
+               "launches": runs["auto"]["launches"],
+               "calls": runs["auto"]["calls"],
+               "plain_ms_per_translate": runs["torch"]["wall_s"] * 1e3}
+        res.update(card=card, ms_per_translate=ms,
+                   decode_steps_per_s=L / ms * 1e3,
+                   sentences_per_s=B / ms * 1e3)
+        out[dtype] = res
+        del runs
+        release_device(torch)
+    # the decode calls' kernel cells, each dtype
+    del model
+    release_device(torch)
+    H, D = cfg.num_heads, cfg.units // cfg.num_heads
+    lens = [int(n) for n in np.repeat(vl, K)]
+    cells = {"nmt_self": {}, "nmt_cross": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v, mask = decode_views(torch, B * K, H, L, D, dtype, False, 7)
+        cells["nmt_self"][name] = lockstep_cell(
+            torch, F, fa, q, k, v, mask, "BHTD", [L] * (B * K),
+            f"nmt_self {name}")
+        g = torch.Generator(device=DEV).manual_seed(8)
+        q = torch.randn(B * K, 1, H, D, generator=g, device=DEV).to(dtype)
+        k, v = (torch.randn(B * K, T, H * D, generator=g, device=DEV)
+                .to(dtype).view(B * K, T, H, D) for _ in range(2))
+        mask = torch.arange(T, device=DEV)[None, :] < torch.tensor(
+            lens, device=DEV)[:, None]
+        cells["nmt_cross"][name] = lockstep_cell(
+            torch, F, fa, q, k, v, mask, "BTHD", lens, f"nmt_cross {name}")
+        del q, k, v, mask
+    out["cells"] = cells
+    emit(out)
+    return out
+
+
+def stream_gate(got, want, logits_got, logits_want, f32, label):
+    """Greedy streams (B, n) equal, except where a row first differs at a
+    token whose `want` logits' top-2 gap is below the limit: 1e-4 in
+    float32 (phase gpt2's rule); in bfloat16 twice d, the largest
+    |got - want| logit of that row at that token, where d may reach
+    GPT2_BF16_LOGIT_CAP at most. In bfloat16 the first logits of the
+    single-token forwards (logits_*[1]: the same prompt and first token
+    in both runs) hold first to GPT2_BF16_LOGIT_CAP too. logits_*[i] are
+    the (B, V) float32 logits token i was chosen from. Returns the
+    readings."""
+    rows, first_abs, first_rel, d_max = [], 0.0, 0.0, 0.0
+    for b in range(got.shape[0]):
+        if got[b, 0] == want[b, 0]:
+            lw = logits_want[1][b]
+            e = float((logits_got[1][b] - lw).abs().max())
+            first_abs = max(first_abs, e)
+            first_rel = max(first_rel, e / float(lw.abs().max()))
+        diff = np.nonzero(got[b] != want[b])[0]
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        lw, lg = logits_want[j][b], logits_got[j][b]
+        top = lw.topk(2).values
+        gap = float(top[0] - top[1])
+        d = float((lg - lw).abs().max())
+        d_max = max(d_max, d)
+        limit = 1e-4 if f32 else 2 * d
+        rows.append({"row": b, "token": j, "top2_gap": gap,
+                     "max_abs_logit_diff": d, "limit": limit})
+        if not f32:
+            require(d <= GPT2_BF16_LOGIT_CAP, f"{label}: row {b}'s logits "
+                    f"differ by {d} at token {j}, over "
+                    f"{GPT2_BF16_LOGIT_CAP}")
+        require(gap < limit, f"{label}: row {b} diverges at token {j} "
+                f"where the other path's top-2 gap is {gap}, over {limit}")
+    if not f32:
+        require(first_abs <= GPT2_BF16_LOGIT_CAP, f"{label}: the first "
+                f"single-token logits differ by {first_abs}, over "
+                f"{GPT2_BF16_LOGIT_CAP}")
+    return {"divergences": rows, "first_logits_max_abs_diff": first_abs,
+            "first_logits_rel_diff": first_rel, "logit_diff_max": d_max,
+            "logit_diff_cap": None if f32 else GPT2_BF16_LOGIT_CAP}
+
+
+def phase_gpt2_generate(torch, F, fa, card):
+    """GPT-2 774M (seeded random weights) generating bench.py
+    bench_gpt2_decode's traffic (GPT2_GENERATE: B = 8, prompt 128, 128
+    greedy tokens) with GPT2ForCausalLM.generate, float32 then bfloat16:
+    through the kernels over a lockstep paged cache (pages of 64: the
+    bench's route) and over the contiguous cache, and through the plain
+    versions over pages. The prompt's forward takes the plain softmax
+    attention ((1, 1, 128, 256) mask, no kernel, as in the reference);
+    each single-token forward launches the family's fused forward once a
+    layer in BHTD, 36 x 128 a generate, and nothing else. Gates
+    (stream_gate): kernel against plain, paged against contiguous.
+    Tokens/s and ms a token (bench_gpt2_decode's: the whole generate over
+    the new tokens), and the decode call's kernel cell: B 8, H 20, one
+    query row over the paged cache's 256 keys."""
+    from mxnet_tpu_torch.models import (GPT2ForCausalLM, gpt2_774m_config,
+                                        init_params)
+    c = GPT2_GENERATE
+    cfg = gpt2_774m_config(dropout=0.0, attention_dropout=0.0)
+    require(cfg.num_layers == GPT2_LAYERS, "774M config changed")
+    model = init_params(GPT2ForCausalLM(cfg, device=DEV), seed=0, std=0.02)
+    B, T0, n, S = c["B"], c["prompt"], c["new"], c["page_size"]
+    ids = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T0)), dtype=torch.int32, device=DEV)
+    out = {"phase": "gpt2_generate", "card": card,
+           "config": "gpt2_774m_config", "batch": B, "prompt": T0,
+           "new_tokens": n, "page_size": S, "decoding": "greedy"}
+    want_calls = {"BHTD_tq1": GPT2_LAYERS * n}
+    for dtype, family in (("float32", "cuda_core"),
+                          ("bfloat16", "tensor_core")):
+        if dtype == "bfloat16":
+            model.to(torch.bfloat16)
+        runs = {}
+        # the plain run first warms the dtype's GEMMs, so that the
+        # kernel path's paged run (the bench's route) is the timed one
+        for label, impl, paged in (("plain_paged", "torch", True),
+                                   ("kernel_paged", "auto", True),
+                                   ("kernel_contiguous", "auto", False)):
+            set_attention_impl(model, impl)
+            logits = []
+            handle = model.register_forward_hook(
+                lambda m, a, o: logits.append(o[0][:, -1].float()))
+            fa.reset_launches()
+            try:
+                with fused_calls(fa) as calls:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    toks = model.generate(ids, n, paged=paged, page_size=S)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                handle.remove()
+            launches = dict(fa.LAUNCHES)
+            want = dict.fromkeys(launches, 0)
+            if impl == "auto":
+                want[FAMILY_KEYS[family][0]] = GPT2_LAYERS * n
+            require(launches == want and calls.calls == (
+                want_calls if impl == "auto" else {}),
+                f"gpt2_generate {dtype} {label}: launches {launches}, calls "
+                f"{calls.calls}")
+            require(tuple(toks.shape) == (B, n) and len(logits) == n + 1
+                    and all(bool(torch.isfinite(x).all()) for x in logits),
+                    f"gpt2_generate {dtype} {label}: bad output")
+            runs[label] = {"toks": toks.cpu().numpy(), "logits": logits,
+                           "wall_s": wall, "launches": launches,
+                           "calls": dict(calls.calls)}
+        f32 = dtype == "float32"
+        k, p = runs["kernel_paged"], runs["plain_paged"]
+        res = {"kernel_vs_plain": stream_gate(
+                   k["toks"], p["toks"], k["logits"], p["logits"], f32,
+                   f"gpt2_generate {dtype} kernel against plain"),
+               "paged_vs_contiguous": stream_gate(
+                   k["toks"], runs["kernel_contiguous"]["toks"], k["logits"],
+                   runs["kernel_contiguous"]["logits"], f32,
+                   f"gpt2_generate {dtype} paged against contiguous"),
+               "tokens_equal": {lbl: int((r["toks"] == k["toks"]).sum())
+                                for lbl, r in runs.items()},
+               "tokens": B * n, "launches": k["launches"],
+               "calls": k["calls"],
+               "wall_s_by_run": {lbl: r["wall_s"]
+                                 for lbl, r in runs.items()}}
+        # bench_gpt2_decode's reading: the warm paged generate, whole
+        dt = k["wall_s"]
+        res.update(card=card, wall_s=dt, tokens_per_s=B * n / dt,
+                   ms_per_token=dt / n * 1e3)
+        del runs, k, p
+        out[dtype] = res
+        release_device(torch)
+    del model
+    release_device(torch)
+    H, D = cfg.num_heads, cfg.units // cfg.num_heads
+    out["cells"] = {"gpt2_774m": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v, mask = decode_views(torch, B, H, T0 + n, D, dtype, True, 9)
+        out["cells"]["gpt2_774m"][name] = lockstep_cell(
+            torch, F, fa, q, k, v, mask, "BHTD", [T0 + n] * B,
+            f"gpt2_774m decode {name}")
+        del q, k, v, mask
+    emit(out)
+    return out
+
+
 def kernel_entry(name, source, launches, f32, b16, card, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": launches,
@@ -5015,14 +5893,20 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
                   gpt2_int8["launches_bf16"][INT8_TC], None)]
 
 
-def fused_entries(fused, launches, launches16, gpt2_train, card):
+def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
+                  nmt_translate, generate, card):
     """The fused kernels' four kernels-line entries at the BERT-base BTHD
     cell (the main path's shape), the BHTD and GPT-2 cells beside: the
     CUDA-core pair (float32, with the split-TF32 bound beside; bfloat16
     times at the unaligned D = 40 cell; launches from phase 7's float32
     kernel steps) and the tensor-core pair (bfloat16; launches from phase
     7's bfloat16 steps); each with its launches in phase 7b's GPT-2
-    774M training pass of its dtype."""
+    774M training pass of its dtype, phase 7d's timed NMT steps, and (the
+    forwards) phase 7e's translate and phase 7f's paged generate through
+    the kernels, and the forwards' lockstep cells of the dtype: NMT's
+    decode self-attention (BHTD, one query row over 128 keys), its
+    cross-attention (BTHD, one row over 64 padded source keys) and GPT-2
+    774M's decode (BHTD, one row over 256 paged keys)."""
     main = fused["bert_bthd"]
     f32, b16 = main["float32"], main["bfloat16"]
     cells = ("bert_bhtd", "gpt2_774m_causal")
@@ -5047,6 +5931,25 @@ def fused_entries(fused, launches, launches16, gpt2_train, card):
     def train(dtype, key):
         return gpt2_train[dtype]["kernel"]["launches"][key]
 
+    def lockstep(dtype, key):
+        """Launches and cells of phases 7d-7f for one entry."""
+        out = {"nmt_train_launches": nmt_train[dtype]["launches"][key]}
+        if "fwd" not in key:
+            return out
+        keys = ("ms", "plain_ms", "library_ms", "ms_over_library",
+                "bound_ms", "bound_by", "max_abs_err", "rel_err", "route")
+        cells = {**nmt_translate["cells"], **generate["cells"]}
+        out.update(
+            nmt_translate_launches=nmt_translate[dtype]["launches"][key],
+            gpt2_generate_launches=generate[dtype]["launches"][key],
+            lockstep_cells={c: {k: v[dtype][k] for k in keys}
+                            for c, v in cells.items()})
+        for c in cells.values():
+            require(c[dtype]["route"] == ("cuda_core" if dtype == "float32"
+                                          else "tensor_core"),
+                    f"{key}: a lockstep cell ran on another route")
+        return out
+
     def tc_entry(name, r, n, cells_):
         return {"name": name, "route": "cuda", "source": FUSED_TC_SOURCE,
                 "replaces": REPLACES[name], "launches": n,
@@ -5069,7 +5972,8 @@ def fused_entries(fused, launches, launches16, gpt2_train, card):
                      gpt2_train_launches=train("float32",
                                                "fused_attention_fwd"),
                      other_cells=other("float32", "ms", "library_ms",
-                                       "bound_ms")),
+                                       "bound_ms"),
+                     **lockstep("float32", "fused_attention_fwd")),
         kernel_entry("fused_attention_bwd", FUSED_SOURCE,
                      launches["fused_attention_bwd"], bwd_view(f32),
                      bwd_view(d40), card,
@@ -5081,18 +5985,21 @@ def fused_entries(fused, launches, launches16, gpt2_train, card):
                      gpt2_train_launches=train("float32",
                                                "fused_attention_bwd"),
                      other_cells=other("float32", "bwd_ms",
-                                       "library_bwd_ms", "bwd_bound_ms")),
+                                       "library_bwd_ms", "bwd_bound_ms"),
+                     **lockstep("float32", "fused_attention_bwd")),
         dict(tc_entry("fused_attention_fwd_tc", b16,
                       launches16["fused_attention_fwd_tc"],
                       other("bfloat16", "ms", "library_ms", "bound_ms")),
              gpt2_train_launches=train("bfloat16",
-                                       "fused_attention_fwd_tc")),
+                                       "fused_attention_fwd_tc"),
+             **lockstep("bfloat16", "fused_attention_fwd_tc")),
         dict(tc_entry("fused_attention_bwd_tc", bwd_view(b16),
                       launches16["fused_attention_bwd_tc"],
                       other("bfloat16", "bwd_ms", "library_bwd_ms",
                             "bwd_bound_ms")),
              gpt2_train_launches=train("bfloat16",
-                                       "fused_attention_bwd_tc"))]
+                                       "fused_attention_bwd_tc"),
+             **lockstep("bfloat16", "fused_attention_bwd_tc"))]
 
 
 def main():
@@ -5159,6 +6066,11 @@ def main():
     bert = timed("bert", phase_bert, torch, fa, card)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
     timed("resnet50", phase_resnet50, torch, card)
+    nmt_train = timed("nmt_train", phase_nmt_train, torch, F, fa, card)
+    nmt_translate = timed("nmt_translate", phase_nmt_translate, torch, F,
+                          fa, card)
+    generate = timed("gpt2_generate", phase_gpt2_generate, torch, F, fa,
+                     card)
 
     kernels = span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust,
                            http, router, fleet, tp, card)
@@ -5170,7 +6082,8 @@ def main():
         span_sq1_ms=decode["float32"]["span_sq1_ms"],
         span_sq1_ms_bf16=decode["bfloat16"]["span_sq1_ms"]))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
-                             gpt2_train, card)
+                             gpt2_train, nmt_train, nmt_translate, generate,
+                             card)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds, "card": card})
     emit({"kernels": kernels})

@@ -1,4 +1,5 @@
-"""Models (counterpart of mxnet_tpu.models: GPT-2 serving, BERT MLM)."""
+"""Models (counterpart of mxnet_tpu.models: GPT-2 serving and generation,
+BERT MLM, Transformer NMT)."""
 from .bert import (BertConfig, BertForMaskedLM, BertModel, bert_base_config,
                    bert_large_config)
 from .convert import init_params, load_jax_params
@@ -7,10 +8,12 @@ from .gpt2 import (AdapterBatch, GPT2Config, GPT2ForCausalLM, GPT2Model,
                    gpt2_xl_config)
 from .kv_cache import (KVCache, PagedKVCache, gather_kv_pages,
                        scatter_kv_pages)
+from .nmt import NMTConfig, TransformerNMT, nmt_base_config
 
 __all__ = ["AdapterBatch", "BertConfig", "BertForMaskedLM", "BertModel", "GPT2Config",
-           "GPT2ForCausalLM", "GPT2Model", "KVCache", "PagedKVCache",
-           "bert_base_config", "bert_large_config",
+           "GPT2ForCausalLM", "GPT2Model", "KVCache", "NMTConfig",
+           "PagedKVCache", "TransformerNMT", "bert_base_config",
+           "bert_large_config",
            "gpt2_774m_config", "gpt2_medium_config", "gpt2_small_config",
            "gpt2_xl_config", "init_params", "load_jax_params",
-           "gather_kv_pages", "scatter_kv_pages"]
+           "gather_kv_pages", "nmt_base_config", "scatter_kv_pages"]

@@ -1,4 +1,5 @@
-"""GPT-2 for training and for serving over a ragged paged KV cache.
+"""GPT-2 for training, lockstep generation and serving over a ragged
+paged KV cache.
 
 Counterpart of mxnet_tpu/models/gpt2.py. Module and parameter names
 follow the reference (`backbone.layer3.attn.query.weight`,
@@ -34,8 +35,17 @@ Ported:
     the row-parallel bias added once after it. The reference's
     `_lora_delta` under tp is `lora_rank_part` + `lora_finish`.
     parallel/tp.py `shard_gpt2` builds the shards from a full model.
+  * the lockstep (static-cache) forward and `generate()`: a contiguous
+    KVCache or a scalar-length PagedKVCache. The chunk is written at the
+    cache's length (`write_prompt` for a prompt, `write` for one token)
+    and attends over the layer's whole (B, H, T_max, D) view under the
+    mask `valid & causal`, (1, 1, t, T_max), K and V cast to q's dtype,
+    in the (B, H, T, D) layout. One token's mask is key padding, so the
+    fused attention kernel takes it through its BHTD strides; a prompt's
+    is not, and takes the plain softmax attention, as the reference
+    leaves it to XLA.
 
-Not ported yet: the lockstep KVCache path and `generate()`.
+Not ported: `generate(mesh=...)`.
 """
 from __future__ import annotations
 
@@ -50,7 +60,7 @@ from ..ops import nn as _ops
 from ..ops.ragged_attention import (ragged_decode_attention,
                                     ragged_span_attention)
 from .convert import init_params
-from .kv_cache import PagedKVCache
+from .kv_cache import KVCache, PagedKVCache
 
 __all__ = ["GPT2Config", "GPT2Model", "GPT2ForCausalLM", "gpt2_small_config",
            "gpt2_medium_config", "gpt2_774m_config", "gpt2_xl_config",
@@ -182,8 +192,9 @@ def gpt2_xl_config(**kw):              # 1.5B
 
 
 class GPT2Attention(nn.Module):
-    """Causal self-attention: over the chunk itself (no cache, training)
-    or over a ragged paged KV cache. tp=(rank, size): shard `rank` of a
+    """Causal self-attention: over the chunk itself (no cache, training),
+    over a lockstep cache (generate) or over a ragged paged KV cache
+    (serving). tp=(rank, size): shard `rank` of a
     size-way head split (num_heads / size heads; query/key/value give
     units / size outputs, proj takes units / size inputs)."""
 
@@ -229,8 +240,29 @@ class GPT2Attention(nn.Module):
             out = out.reshape(b, t, h * d)
             return self._project(self.proj, 3, out, layer_idx,
                                  adapters), None
-        out, cache = self._attend(q, k, v, cache, layer_idx)
+        if cache.ragged:
+            out, cache = self._attend(q, k, v, cache, layer_idx)
+        else:
+            out, cache = self._attend_lockstep(q, k, v, cache, layer_idx)
         return self._project(self.proj, 3, out, layer_idx, adapters), cache
+
+    def _attend_lockstep(self, q, k, v, cache, layer_idx):
+        """Write the chunk's k/v (B, t, h, d) at the lockstep cache's
+        length and attend over the layer's whole buffer. Returns the
+        output (B, t, h * d) and the cache."""
+        b, t, h, d = q.shape
+        write = cache.write_prompt if t > 1 else cache.write
+        k_all, v_all, cache = write(layer_idx, k.transpose(1, 2),
+                                    v.transpose(1, 2))
+        valid = cache.key_mask(extra=t)                     # (T_max,)
+        q_pos = cache.length + torch.arange(t, device=q.device)
+        k_pos = torch.arange(k_all.shape[2], device=q.device)
+        causal = k_pos[None, :] <= q_pos[:, None]           # (t, T_max)
+        mask = (valid[None, :] & causal)[None, None]        # (1,1,t,T_max)
+        out = _ops.dot_product_attention(
+            q.transpose(1, 2), k_all.to(q.dtype), v_all.to(q.dtype), mask,
+            impl=self._impl)
+        return out.transpose(1, 2).reshape(b, t, h * d), cache
 
     def _attend(self, q, k, v, cache, layer_idx):
         """Write the chunk's k/v (B, t, h, d) into the ragged cache and
@@ -337,7 +369,11 @@ class GPT2Model(nn.Module):
         """Token plus position embeddings of the chunk (B, t)."""
         t = inputs.shape[1]
         positions = torch.arange(t, device=inputs.device)
-        if cache is not None:
+        if cache is not None and not cache.ragged:
+            # lockstep: every row's token j sits at length + j
+            positions = (cache.length + positions).clamp(
+                max=self.config.max_length - 1)
+        elif cache is not None:
             # per-slot positions: slot b's row j sits at length[b] + j.
             # Dead rows of a slot near capacity (and parked free slots)
             # run past the position table; jnp.take fills those with NaN,
@@ -350,8 +386,6 @@ class GPT2Model(nn.Module):
 
     def forward(self, inputs, cache=None, adapters=None):
         """(hidden states (B, t, C), cache advanced by t or None)."""
-        if cache is not None and not cache.ragged:
-            raise not_ported("the GPT-2 forward over a lockstep cache")
         if self.tp[1] > 1:
             raise MXNetError("a tensor-parallel shard runs only inside "
                              "tp_forward")
@@ -454,7 +488,8 @@ class GPT2ForCausalLM(nn.Module):
 
     def forward(self, inputs, cache=None, adapters=None):
         """inputs (B, t) int token ids; cache None (training: positions
-        0..t-1, causal attention over the chunk) or a ragged
+        0..t-1, causal attention over the chunk), a lockstep cache
+        (KVCache, or a scalar-length PagedKVCache) or a ragged
         PagedKVCache; adapters None or an AdapterBatch (each row's LoRA
         delta). Returns the logits (B, t, V) alone without a cache, as
         the reference does, else (logits, cache advanced by t)."""
@@ -462,17 +497,93 @@ class GPT2ForCausalLM(nn.Module):
         logits = _ops.fully_connected(h, self.backbone.word_embed.weight)
         return logits if cache is None else (logits, cache)
 
-    def make_cache(self, batch, max_length, paged=True, page_size=64,
+    def make_cache(self, batch, max_length, paged=False, page_size=64,
                    dtype=None, page_table=None, lengths=None,
                    attn_impl="auto", kv_dtype=None):
-        if not paged:
-            raise not_ported("the contiguous KVCache")
+        """A contiguous KVCache (paged=False, the reference's default) or
+        a PagedKVCache (lockstep without `lengths`, ragged with them), in
+        the model's dtype and on its device."""
         c = self.config
+        if kv_dtype is not None and not paged:
+            raise MXNetError("kv_dtype needs a paged cache")
+        dims = (c.num_layers, batch, c.num_heads, max_length,
+                c.units // c.num_heads)
+        if not paged:
+            return KVCache.create(*dims, dtype=dtype or self.dtype,
+                                  device=self.device)
         return PagedKVCache.create(
-            c.num_layers, batch, c.num_heads, max_length,
-            c.units // c.num_heads, dtype=dtype or self.dtype,
-            page_size=page_size, page_table=page_table, lengths=lengths,
-            attn_impl=attn_impl, kv_dtype=kv_dtype, device=self.device)
+            *dims, dtype=dtype or self.dtype, page_size=page_size,
+            page_table=page_table, lengths=lengths, attn_impl=attn_impl,
+            kv_dtype=kv_dtype, device=self.device)
 
-    def generate(self, *args, **kwargs):
-        raise not_ported("GPT2ForCausalLM.generate (lockstep decode)")
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens, do_sample=False,
+                 temperature=1.0, top_k=None, top_p=None,
+                 eos_token_id=None, seed=0, paged=False, page_size=64,
+                 mesh=None):
+        """Autoregressive generation over a lockstep cache: one prefill
+        forward of the prompt, then one single-token forward a step
+        (greedy, or temperature / top-k / top-p sampling). input_ids (B,
+        T0) ints; returns (B, max_new_tokens) int32 on the model's
+        device. The eos token itself is emitted, and every later position
+        of its row is eos; the loop ends early once every row has emitted
+        eos. paged=True decodes over a lockstep PagedKVCache of
+        `page_size` pages (capacity rounded up to whole pages), else over
+        a contiguous KVCache.
+
+        The reference compiles the decode into one lax.while_loop; here a
+        Python loop runs the same body, one forward a step (the step after
+        the last emitted token included, as the reference's body runs it).
+        Sampled tokens are drawn by Gumbel-max from a torch.Generator on
+        the model's device seeded with `seed`, so they are reproducible
+        for a seed but are not the reference's jax.random draws; greedy
+        decoding is the reference's, token for token."""
+        from ..serving.sampling import filtered_logits  # serving imports us
+        if mesh is not None:
+            raise not_ported("GPT2ForCausalLM.generate over a device mesh")
+        if top_p is not None and top_p >= 1.0:
+            top_p = None  # the full distribution: a true no-op
+        dev = self.device
+        ids = torch.as_tensor(input_ids, device=dev).long()
+        B, T0 = ids.shape
+        total = T0 + max_new_tokens
+        c = self.config
+        if total > c.max_length:
+            raise MXNetError(
+                f"prompt {T0} + {max_new_tokens} new > max_length "
+                f"{c.max_length}")
+        if paged:
+            total = -(-total // page_size) * page_size
+        gen = torch.Generator(device=dev).manual_seed(int(seed)) \
+            if do_sample else None
+        # filtered_logits' per-row knobs (top_k 0 and top_p 1: no filter)
+        knobs = [torch.full((B,), x, dtype=dt, device=dev) for x, dt in (
+            (temperature, torch.float32), (top_k or 0, torch.int64),
+            (1.0 if top_p is None else top_p, torch.float32))]
+
+        def select(logits):
+            logits = logits.float()
+            if not do_sample:
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+            filtered = filtered_logits(logits, *knobs)
+            u = torch.rand(filtered.shape, generator=gen, device=dev)
+            return torch.argmax(filtered - torch.log(-torch.log(u)),
+                                dim=-1).to(torch.int32)
+
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        cache = self.make_cache(B, total, paged=paged, page_size=page_size)
+        logits, cache = self(ids, cache)
+        tok = select(logits[:, -1])
+        out = torch.full((B, max_new_tokens), 0 if eos < 0 else eos,
+                         dtype=torch.int32, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for i in range(max_new_tokens):
+            # rows that emitted eos keep padding with it; the early exit
+            # reads `done` back only when an eos can end a row
+            if eos >= 0 and bool(done.all()):
+                break
+            out[:, i] = torch.where(done, eos, tok)
+            logits, cache = self(tok[:, None], cache)
+            done = done | (tok == eos)
+            tok = select(logits[:, -1])
+        return out

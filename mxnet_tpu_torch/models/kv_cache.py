@@ -1,11 +1,21 @@
-"""Paged KV cache, ragged mode: the serving engine's cache.
+"""KV caches: the contiguous lockstep cache and the paged cache.
 
-Counterpart of mxnet_tpu/models/kv_cache.py `PagedKVCache`. A static
-page pool (L, num_pages, page_size, H, D) per k and v, a per-slot page
-table (B, pages_per_slot), and a (B,) vector of live lengths, one per
-slot (the ragged mode of continuous batching). Writes go through
-`write_decode` (each slot appends at its own length) and attention reads
-the pools directly through ops.ragged_attention.
+Counterpart of mxnet_tpu/models/kv_cache.py `KVCache` and
+`PagedKVCache`.
+
+`KVCache` is the contiguous lockstep cache of fixed-batch decode
+(GPT2ForCausalLM.generate, TransformerNMT's beam search): k/v (L, B, H,
+T_max, D) and one scalar length. Its writes land in place and return the
+layer's whole (B, H, T_max, D) views.
+
+`PagedKVCache` keeps a static page pool (L, num_pages, page_size, H, D)
+per k and v and a per-slot page table (B, pages_per_slot). Its `length`
+is a scalar (lockstep mode: every row at the same length, generate's
+paged cache, whose `write` / `write_prompt` return the gathered (B, H,
+T_max, D) views) or a (B,) vector of live lengths, one per slot (the
+ragged mode of continuous batching: writes go through `write_decode`,
+each slot appending at its own length, and attention reads the pools
+directly through ops.ragged_attention).
 
 Quantized pages (`kv_dtype="int8"`): int8 code pools plus float32
 per-(layer, page, head) scale leaves `k_scale`/`v_scale`. Writes quantize
@@ -35,15 +45,15 @@ program. Here the index holds the live page ids only: in the port id
 num_pages is the trash page, a real row, and eager torch has no program
 to keep.
 
-Not ported yet (they raise): the lockstep (scalar length) write and
-write_prompt, and the contiguous KVCache.
+Lengths stay 0-d / 1-d int32 tensors on the cache's device, as the
+reference's, so no write or mask reads a length back to the host.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..base import MXNetError, not_ported, resolve_device
+from ..base import MXNetError, resolve_device
 
 __all__ = ["KVCache", "PagedKVCache", "gather_kv_pages",
            "scatter_kv_pages"]
@@ -124,14 +134,59 @@ def scatter_kv_pages(k_pages, v_pages, idx, k_val, v_val, k_scale=None,
 
 
 class KVCache:
-    """The reference's contiguous lockstep cache: not ported yet."""
+    """Contiguous lockstep cache: k/v of shape (L, B, H, T_max, D) and a
+    0-d int32 `length`, the tokens written so far."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("KVCache (the contiguous lockstep cache)")
+    ragged = False  # contiguous caches are always lockstep
+
+    def __init__(self, k, v, length):
+        self.k = k
+        self.v = v
+        self.length = length
 
     @classmethod
-    def create(cls, *args, **kwargs):
-        raise not_ported("KVCache (the contiguous lockstep cache)")
+    def create(cls, num_layers, batch, num_heads, max_length, head_dim,
+               dtype=torch.float32, device=None):
+        dev = resolve_device(device)
+        shape = (num_layers, batch, num_heads, max_length, head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros((), dtype=torch.int32, device=dev))
+
+    @property
+    def max_length(self):
+        return self.k.shape[3]
+
+    def write(self, layer, k_new, v_new):
+        """Write k_new/v_new (B, H, t, D) at offset `length`, in place.
+        As lax.dynamic_update_slice, the offset is clamped so that the t
+        rows fit. Returns the layer's FULL (B, H, T_max, D) views and the
+        cache itself."""
+        t = k_new.shape[2]
+        start = self.length.long().clamp(max=self.max_length - t)
+        idx = start + torch.arange(t, device=self.k.device)
+        k_l, v_l = self.k[layer], self.v[layer]
+        k_l.index_copy_(2, idx, k_new.to(k_l.dtype))
+        v_l.index_copy_(2, idx, v_new.to(v_l.dtype))
+        return k_l, v_l, self
+
+    # prefill is the same write (t = prompt length)
+    write_prompt = write
+
+    def advance(self, n):
+        return KVCache(self.k, self.v, self.length + n)
+
+    def reorder(self, rows):
+        """A cache whose batch row i is this cache's row rows[i] (beam
+        search's reorder by parent): new buffers, the same length."""
+        return KVCache(self.k.index_select(1, rows),
+                       self.v.index_select(1, rows), self.length)
+
+    def key_mask(self, extra=0):
+        """(T_max,) bool: True for written positions (+ `extra` being
+        written this step)."""
+        pos = torch.arange(self.max_length, device=self.k.device)
+        return pos < (self.length + extra)
 
 
 class PagedKVCache:
@@ -164,11 +219,11 @@ class PagedKVCache:
                dtype=torch.float32, page_size=64, num_pages=None,
                page_table=None, lengths=None, attn_impl="auto",
                kv_dtype=None, device=None):
+        """lengths None: a lockstep cache (one scalar length, 0); else
+        a ragged one with these (B,) lengths."""
         if kv_dtype not in (None, "int8", torch.int8):
             raise MXNetError(
                 f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
-        if lengths is None:
-            raise not_ported("the lockstep (scalar length) PagedKVCache")
         dev = resolve_device(device)
         if max_length % page_size:
             raise MXNetError(
@@ -200,6 +255,8 @@ class PagedKVCache:
         return cls(torch.zeros(shape, dtype=store, device=dev),
                    torch.zeros(shape, dtype=store, device=dev),
                    torch.as_tensor(tbl, dtype=torch.int32, device=dev),
+                   torch.zeros((), dtype=torch.int32, device=dev)
+                   if lengths is None else
                    torch.as_tensor(_host(lengths), dtype=torch.int32,
                                    device=dev),
                    k_scale=scales[0], v_scale=scales[1],
@@ -259,19 +316,19 @@ class PagedKVCache:
     def write_decode(self, layer, k_new, v_new):
         """Each slot appends its rows at its OWN length: k_new/v_new
         (B, H, t, D), row j of slot b lands at position length[b] + j
-        through the page table. Writes past capacity, rows past `spans`
+        through the page table (a lockstep cache's scalar length stands
+        for every slot). Writes past capacity, rows past `spans`
         and writes into pages under `page_lock` are dropped (sent to the
         trash page). A quantized cache stores int8 codes and raises each
         written page's scales with a scatter-max (never lowering one).
         Updates the pools in place; returns self."""
-        if not self.ragged:
-            raise not_ported("the lockstep (scalar length) cache write")
         B, _, t, _ = k_new.shape
         S = self.page_size
         P = self.page_table.shape[1]
         N = self.num_pages
         dev = self.k_pages.device
-        pos = self.length[:, None].long() + torch.arange(t, device=dev)
+        pos = self.length.long().reshape(-1, 1).expand(B, 1) \
+            + torch.arange(t, device=dev)
         page_idx = torch.div(pos, S, rounding_mode="floor")
         slot = pos - page_idx * S
         safe = torch.gather(self.page_table.long(), 1,
@@ -306,11 +363,41 @@ class PagedKVCache:
         vp[pages, slot] = v_t.to(vp.dtype)
         return self
 
-    def write(self, *args, **kwargs):
-        raise not_ported("PagedKVCache.write (the lockstep decode write)")
+    def _gather(self, pages, layer, scale=None):
+        """The layer's (B, H, T_max, D) view through the page table: a
+        fresh gather (num_pages, S, H, D)[table] -> (B, T_max, H, D),
+        transposed. int8 pools come back dequantized in float32 with
+        each (page, head)'s scale."""
+        table = self.page_table.long()
+        g = pages[layer][table]
+        if scale is not None:
+            g = g.float() * scale[layer][table][:, :, None, :, None]
+        B, P, S, H, D = g.shape
+        return g.reshape(B, P * S, H, D).transpose(1, 2)
 
-    def write_prompt(self, *args, **kwargs):
-        raise not_ported("PagedKVCache.write_prompt (the lockstep prefill)")
+    def _views(self, layer):
+        return (self._gather(self.k_pages, layer, self.k_scale),
+                self._gather(self.v_pages, layer, self.v_scale), self)
+
+    def write(self, layer, k_new, v_new):
+        """Lockstep decode write: k_new/v_new (B, H, 1, D) appended at
+        `length` (write_decode's scatter; a quantized cache keeps its
+        scale bookkeeping there). Returns the gathered (B, H, T_max, D)
+        views (dequantized float32 for int8 pools) and the cache. A write
+        past capacity is dropped, where the reference's lands on the
+        last page; generate never makes one."""
+        return self.write_decode(layer, k_new, v_new)._views(layer)
+
+    def write_prompt(self, layer, k, v):
+        """Prefill write of a whole (B, H, T, D) chunk at position
+        `length` (any offset, through the page table), then the gathered
+        views, as write(). Lockstep (scalar-length) caches only; ragged
+        slots prefill through the serving engine's write_decode."""
+        if self.ragged:
+            raise MXNetError("write_prompt needs a lockstep cache "
+                             "(scalar length); ragged slots prefill "
+                             "individually (serving.ServingEngine)")
+        return self.write_decode(layer, k, v)._views(layer)
 
     def advance(self, n):
         return PagedKVCache(self.k_pages, self.v_pages, self.page_table,
@@ -319,7 +406,10 @@ class PagedKVCache:
                             v_scale=self.v_scale, attn_impl=self.attn_impl)
 
     def key_mask(self, extra=0):
-        """(B, max_length) bool: True for written positions (+ `extra`
-        being written this step)."""
+        """Validity over key positions (+ `extra` being written this
+        step): (max_length,) in lockstep mode, (B, max_length) in ragged
+        mode."""
         pos = torch.arange(self.max_length, device=self.length.device)
-        return pos[None, :] < (self.length + extra)[:, None]
+        if self.ragged:
+            return pos[None, :] < (self.length + extra)[:, None]
+        return pos < (self.length + extra)

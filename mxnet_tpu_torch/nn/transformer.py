@@ -42,16 +42,20 @@ class MultiHeadAttention(nn.Module):
         self.value = Dense(units, units, **kw)
         self.proj = Dense(units, units, **kw)
 
-    def _split(self, x):
+    def _split(self, x, bthd=False):
+        """Head split of (B, T, C): a (B, H, T, D) view by default (the
+        layout cache-decode paths such as models/nmt.py index), the
+        (B, T, H, D) reshape itself with bthd=True."""
         b, t, _ = x.shape
         h = self._num_heads
-        return x.view(b, t, h, self._units // h)
+        x = x.view(b, t, h, self._units // h)
+        return x if bthd else x.transpose(1, 2)
 
     def forward(self, x, mask=None, kv=None):
         kv = x if kv is None else kv
-        q = self._split(self.query(x))
-        k = self._split(self.key(kv))
-        v = self._split(self.value(kv))
+        q = self._split(self.query(x), bthd=True)
+        k = self._split(self.key(kv), bthd=True)
+        v = self._split(self.value(kv), bthd=True)
         out = _ops.dot_product_attention(
             q, k, v, mask, causal=self._causal,
             dropout_p=self._dropout if self.training else 0.0,

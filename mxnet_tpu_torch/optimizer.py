@@ -1,8 +1,10 @@
 """Optimizers: the update the training step applies.
 
 Counterpart of mxnet_tpu/optimizer/optimizer.py `Optimizer` (rescale_grad,
-clip_gradient, lr/wd, num_update), `SGD` (with and without momentum) and
-`AdamW` (always bias-corrected), through the functional interface `parallel.TrainStep` uses:
+clip_gradient, lr/wd, num_update), `SGD` (with and without momentum),
+`Adam` (L2 decay in the gradient, bias correction folded into the step
+size) and `AdamW` (always bias-corrected), through the functional
+interface `parallel.TrainStep` uses:
 `init_state_arrays` / `apply_arrays` and the multi-precision layout
 `init_state_arrays_mp` / `apply_arrays_mp` (a float32 master copy first
 in the state of every bfloat16/float16 weight; float32 weights keep the
@@ -11,8 +13,8 @@ versions update the weight and its states IN PLACE and return them: the
 step owns its buffers, as the reference's step donates its own.
 
 Not ported yet: the eager `update()` path of the Trainer, learning-rate
-schedulers and every optimizer but SGD and AdamW (`create` raises for
-them).
+schedulers and every optimizer but SGD, Adam and AdamW (`create` raises
+for them).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 
 from .base import not_ported
 
-__all__ = ["Optimizer", "SGD", "AdamW", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "create"]
 
 
 def _clip(g, clip_gradient):
@@ -109,6 +111,46 @@ class SGD(Optimizer):
         return w.add_(mom), (mom,)
 
 
+@functools.lru_cache(maxsize=64)
+def _adam_step_size(lr, beta1, beta2, t):
+    """lr * sqrt(1 - beta2**t) / (1 - beta1**t) in float32, the order the
+    reference's traced step evaluates it."""
+    f, tf = np.float32, np.float32(t)
+    return float(f(lr) * np.sqrt(f(1) - f(beta2) ** tf)
+                 / (f(1) - f(beta1) ** tf))
+
+
+class Adam(Optimizer):
+    """Adam (parity: the reference's adam_update through `apply_arrays`):
+    g += wd * w (L2 decay in the gradient), m = b1*m + (1-b1)*g, v =
+    b2*v + (1-b2)*g², w -= lr_t * m / (sqrt(v) + eps) with the bias
+    correction in lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t), float32. m
+    and v keep the weight's dtype; the decayed gradient and the step are
+    taken in float32 (the reference's lr and wd are float32 arrays) and
+    cast to it."""
+
+    fused_supported = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=False, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def init_state_arrays(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def apply_arrays(self, w, g, states, lr, wd, t):
+        m, v = states
+        b1, b2 = self.beta1, self.beta2
+        lr_t = _adam_step_size(float(lr), b1, b2, int(t))
+        g = _clip(g * self.rescale_grad, self.clip_gradient).to(w.dtype)
+        g = (g + w.float() * wd).to(w.dtype)
+        m.mul_(b1).add_(g * (1 - b1))
+        v.mul_(b2).add_(g.square() * (1 - b2))
+        w.sub_(m.float() * lr_t / (v.sqrt() + self.epsilon))
+        return w, (m, v)
+
+
 class AdamW(Optimizer):
     """AdamW with decoupled weight decay scaled by the learning rate
     (parity: the reference's adamw; `eta` is the schedule multiplier)."""
@@ -137,12 +179,12 @@ class AdamW(Optimizer):
         return w, (m, v)
 
 
-_REGISTRY = {"sgd": SGD, "adamw": AdamW}
+_REGISTRY = {"sgd": SGD, "adam": Adam, "adamw": AdamW}
 
 
 def create(name, **kwargs):
-    """The optimizer registered under `name` ("sgd" and "adamw" are
-    ported)."""
+    """The optimizer registered under `name` ("sgd", "adam" and "adamw"
+    are ported)."""
     cls = _REGISTRY.get(name.lower())
     if cls is None:
         raise not_ported(f"optimizer {name!r}")

@@ -139,8 +139,11 @@ def test_cache_create_refuses_bad_geometry_and_unported_modes():
     with pytest.raises(MXNetError):
         PagedKVCache.create(1, 2, 1, 8, 2, page_size=4, lengths=[0, 0],
                             page_table=[[0, 1], [2, 9]], device="cpu")
-    with pytest.raises(MXNetError, match="not ported"):
-        PagedKVCache.create(1, 2, 1, 8, 2, page_size=4, device="cpu")
+    # the lockstep (scalar length) cache is ported
+    # (tests/test_torch_generate.py)
+    lockstep = PagedKVCache.create(1, 2, 1, 8, 2, page_size=4, device="cpu")
+    assert not lockstep.ragged and lockstep.length.shape == ()
+    assert lockstep.key_mask(extra=1).tolist() == [True] + [False] * 7
     # int8 pages are ported (tests/test_torch_quant_kv.py); any other
     # kv_dtype is refused, as by the reference
     with pytest.raises(MXNetError, match="kv_dtype"):
@@ -329,23 +332,29 @@ def test_slot_near_capacity_clamps_dead_positions(pair):
 
 
 def test_unported_paths_raise(pair):
+    """The lockstep paths once refused here (make_cache(paged=False),
+    generate, the lockstep forward and the lockstep writes) are ported:
+    each call now works (their oracles: tests/test_torch_generate.py).
+    generate over a device mesh still raises."""
     _, _, net = pair
     ids = torch.zeros((1, 3), dtype=torch.int64)
-    # the cache=None training forward is ported
-    # (tests/test_torch_gpt2_train.py); the lockstep paths are not
+    assert isinstance(net.make_cache(1, 64, paged=False), KVCache)
+    out = net.generate(ids, 4)
+    assert out.shape == (1, 4) and out.dtype == torch.int32
     with pytest.raises(MXNetError, match="not ported"):
-        net.make_cache(1, 64, paged=False)
-    with pytest.raises(MXNetError, match="not ported"):
-        net.generate(ids, 4)
+        net.generate(ids, 4, mesh=object())
     lockstep = PagedKVCache(torch.zeros(2, 9, 8, 2, 16),
                             torch.zeros(2, 9, 8, 2, 16),
-                            torch.zeros((1, 8), dtype=torch.int32),
+                            torch.arange(8, dtype=torch.int32)[None],
                             torch.zeros((), dtype=torch.int32))
-    with pytest.raises(MXNetError, match="not ported"):
-        net(ids, lockstep)
-    with pytest.raises(MXNetError, match="not ported"):
-        lockstep.write(0, None, None)
-    with pytest.raises(MXNetError, match="not ported"):
-        lockstep.write_prompt(0, None, None)
-    with pytest.raises(MXNetError, match="not ported"):
-        KVCache.create(2, 1, 2, 64, 16)
+    with torch.no_grad():
+        logits, cache = net(ids, lockstep)
+    assert logits.shape == (1, 3, KW["vocab_size"])
+    assert int(cache.length) == 3
+    kv = torch.ones(1, 2, 1, 16)
+    k_all, _, _ = cache.write(0, kv, kv)
+    assert k_all.shape == (1, 2, 64, 16) and bool((k_all[:, :, 3] == 1).all())
+    k_all, _, _ = cache.write_prompt(1, 2 * kv, 2 * kv)
+    assert bool((k_all[:, :, 3] == 2).all())
+    assert KVCache.create(2, 1, 2, 64, 16, device="cpu").k.shape == \
+        (2, 1, 2, 64, 16)

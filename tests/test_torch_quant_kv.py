@@ -432,7 +432,8 @@ def test_int8_cache_create_and_make_cache(pair):
     assert c.advance(1).k_scale is c.k_scale
     assert not PagedKVCache.create(1, 2, 2, 32, 16, page_size=8,
                                    lengths=[0, 0], device="cpu").quantized
-    m = net.make_cache(2, 64, page_size=8, lengths=[0, 0], kv_dtype="int8")
+    m = net.make_cache(2, 64, paged=True, page_size=8, lengths=[0, 0],
+                       kv_dtype="int8")
     assert m.quantized and m.k_pages.shape[0] == KW["num_layers"]
     with pytest.raises(MXNetError):
         PagedKVCache.create(1, 1, 2, 16, 4, page_size=8, lengths=[0],
@@ -582,7 +583,7 @@ def test_engine_int8_tracks_float32_where_the_margin_is_decisive(pair,
     match = sum(a.output_tokens == b.output_tokens for a, b in zip(fp, q8))
     assert match >= len(fp) // 2
     for i, p in enumerate(prompts):
-        cache = net.make_cache(1, 64, page_size=8, lengths=[0])
+        cache = net.make_cache(1, 64, paged=True, page_size=8, lengths=[0])
         with torch.no_grad():
             lg = net(torch.tensor([p]), cache)[0][0, -1].numpy()
         top2 = np.sort(lg)[-2:]
