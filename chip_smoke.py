@@ -360,6 +360,48 @@ no engine outlives its phase:
               launches, device ms by class: conv, batch_norm, pooling,
               optimizer, other); then the float32 step at
               RESNET_F32_BATCH. Every loss and running statistic finite.
+  7c2. ssd512  SSD-512 (ssd_512_resnet50_v1_voc: ResNet-50 v1b stages
+              1-4, three extra blocks, 20 classes; Xavier, seed 0)
+              through the port's multibox ops, TrainStep + SGD and
+              SSD.detect, whose NMS runs on the hand-written kernel
+              (csrc/nms.cu: a mask kernel and a one-warp scan). (a)
+              float32 parity, card against CPU (TF32 off), on
+              examples/train_ssd.py's two images and labels at 128x128
+              (356 anchors), weights drawn once on the CPU: anchors
+              byte-equal; multibox_target's class targets and masks
+              equal, box targets within 2 ulps (log-size columns);
+              eval predictions within 1e-5 of their largest and the loss
+              within 1e-5; detect's rows, class ids equal, scores and
+              boxes within 1e-5; three steps of SGD(5e-4, 0.9), every
+              loss, parameter and running statistic within the larger of
+              its fixed tolerance and RESNET_SPREAD_FACTOR times the CPU's
+              own spread (runs on the images one ulp up and half an ulp
+              down), at most SSD_FLIPPED_TENSORS within
+              SSD_FLIP_FACTOR / RESNET_SPREAD_FACTOR times their gate
+              instead, the median ratio at most 2. (b) 512x512
+              (5,624 anchors), B = 32, seeded images and 1-8 boxes an
+              image over the 20 classes (targets by multibox_target on
+              the card), GluonCV train_ssd.py's SGD(1e-3, 0.9, wd 5e-4),
+              float32 (TF32 off) and then bfloat16 from the same
+              weights: 3 warm-up and 5 timed steps each (ms a step,
+              img/s, MFU by resnet_step_flops' count, peak memory,
+              finite losses and statistics); the first step's bfloat16
+              loss within RESNET_BF16_LOSS_TOL of float32's; one
+              bfloat16 step profiled as phase resnet50's. (c)
+              SSD.detect at B = 32 (nms 0.45, threshold 0.01, topk 400)
+              with the NMS kernel launched exactly once, the arguments
+              it passes to multibox_detection and nms_keep captured:
+              multibox_detection's plain version on them gives rows
+              identical to detect's; nms_keep's keep masks identical;
+              the kernel's and the plain version's ms, the bound
+              (nms_work: flags read and keep written for every row, box
+              and id read for each valid row; NMS_ROW_FLOPS for each
+              valid row, NMS_PAIR_FLOPS for each pair of valid rows), no
+              library NMS (torchvision is absent); the mAP on the
+              synthetic labels (no gate); and
+              NMS_EDGES (N = 1, 63, 64, 65, 200, 5,624, NaN boxes and
+              ids, every row invalid, an IoU exactly at the threshold,
+              force_suppress) with identical keep masks.
   7d. nmt_train  Transformer-base NMT (nmt_base_config: 6 + 6 layers,
               512 units, 8 heads, 2048 hidden, vocab 32000 / 32000,
               dropout 0.1; seeded random weights), teacher forcing through
@@ -433,7 +475,8 @@ no engine outlives its phase:
               5d, 5g, 5h, 5i, 5j, 5k and 5l, the decode entry with its
               launches in 5l; each fused entry with its launches in
               phases 7d-7f, the forward entries with the lockstep cells of
-              7e and 7f), errors, times, bound and library times.
+              7e and 7f; the NMS kernel with its launches in phase 7c2's
+              detect), errors, times, bound and library times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
 """
@@ -566,6 +609,42 @@ RESNET_SPREAD_FACTOR = 8
 # weights and images against float32, relative; it read 2.4e-3 on an
 # H100 (PERF.md section 6)
 RESNET_BF16_LOSS_TOL = 1e-2
+# phase 7c2: SSD-512 (ssd_512_resnet50_v1_voc, 20 classes). (a) card
+# against CPU in float32 (TF32 off) on examples/train_ssd.py's two images
+# and labels at 128x128 (356 anchors) and its SGD(5e-4, momentum 0.9);
+# (b) the full configuration: bfloat16, 512x512 (5,624 anchors), B = 32,
+# seeded images and 1-8 boxes an image over the 20 classes (padded to 8
+# rows with -1), GluonCV scripts/detection/ssd/train_ssd.py's SGD(1e-3,
+# momentum 0.9, wd 5e-4); (c) SSD.detect at B = 32 with
+# train_ssd.py's validation settings (nms 0.45, threshold 0.01, topk 400)
+SSD_PARITY = dict(B=2, S=128, steps=3, lr=5e-4)
+SSD_BENCH = dict(B=32, S=512, max_boxes=8, classes=20, warmup=3, steps=5)
+SSD_DETECT = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+# (a)'s train()-mode gates, as tests/test_torch_ssd.py's: the CPU's own
+# spread is its largest distance over runs on the images one ulp up and
+# half an ulp down; each loss, parameter and running statistic within the
+# larger of its fixed tolerance and RESNET_SPREAD_FACTOR times that
+# spread, except at most SSD_FLIPPED_TENSORS (a ReLU input that rounding
+# moves across zero routes a gradient term of the layers before it),
+# which stay within SSD_FLIP_FACTOR / RESNET_SPREAD_FACTOR times their
+# gate; the median ratio of distance to spread at most 2.
+# At B = 2 the extra blocks' BatchNorms normalise two values a channel on
+# 1x1 maps, so after three steps the CPU's own spread is large (CPU
+# readings in tests/test_torch_ssd.py)
+SSD_ULPS = (1 + 2 ** -23, 1 - 2 ** -24)
+SSD_FLIPPED_TENSORS = 2
+SSD_FLIP_FACTOR = 64
+NMS_SOURCE = "mxnet_tpu_torch/csrc/nms.cu"
+REPLACES["nms"] = ("mxnet_tpu/ops/detection.py:59 _nms_single (XLA "
+                   "fori_loop; no Pallas body)")
+# the NMS bound's operation count: for each pair of valid rows, 4
+# max/min, 2 differences and 2 max(., 0) for the intersection's sides,
+# its product, a sum and a difference for the union, its test against 0,
+# a quotient and the test against the threshold (the class-id test is
+# left out, so the bound stays a lower one); for each valid row, its
+# area once (2 differences, 2 max(., 0), a product)
+NMS_PAIR_FLOPS = 14
+NMS_ROW_FLOPS = 5
 # phases 7d-7f: nmt_base_config's layers (encoder and decoder each)
 NMT_LAYERS = 6
 # 7d: 64 sentence pairs, source and target lengths U[32, 64] padded to 64
@@ -4754,7 +4833,8 @@ def phase_gpt2_train(torch, fa, card):
 def resnet_step_flops(torch, net, S):
     """3 x 2 x the multiply-adds of every convolution and Dense at an
     S x S input, read from the modules' shapes by one forward of one
-    image (forward, and a backward of twice the forward's work)."""
+    image (forward, and a backward of twice the forward's work). Any
+    convolutional net of the zoo (ResNet, SSD)."""
     from mxnet_tpu_torch.nn import Conv2D, Dense
     macs = []
 
@@ -4768,9 +4848,9 @@ def resnet_step_flops(torch, net, S):
              if isinstance(m, (Conv2D, Dense))]
     was = net.training
     net.eval()
+    w = next(net.parameters())
     with torch.no_grad():
-        net(torch.zeros(1, 3, S, S, device=net.device,
-                        dtype=net.output.weight.dtype))
+        net(torch.zeros(1, 3, S, S, device=w.device, dtype=w.dtype))
     net.train(was)
     for h in hooks:
         h.remove()
@@ -4780,10 +4860,11 @@ def resnet_step_flops(torch, net, S):
 RESNET_CLASSES = ("conv", "batch_norm", "pooling", "optimizer")
 
 
-def resnet_profile(torch, step, x, y, kernels_of=None):
-    """One training step under torch.profiler. Every kernel's device time
-    goes to a class: the forward ops of the port's convolution,
-    batch_norm and pooling run inside profiler ranges of those names
+def resnet_profile(torch, step, batch, kernels_of=None):
+    """One training step, step(*batch), under torch.profiler. Every
+    kernel's device time goes to a class: the forward ops of the port's
+    convolution, batch_norm and pooling run inside profiler ranges of
+    those names
     (ops.nn wrapped for the window), their backward ops are matched to
     the forward op by autograd sequence number, the optimizer's update
     runs in a range of its own; the rest (ReLU, residual adds, the
@@ -4814,7 +4895,7 @@ def resnet_profile(torch, step, x, y, kernels_of=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            loss = step(x, y)
+            loss = step(*batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -4874,13 +4955,14 @@ def resnet_profile(torch, step, x, y, kernels_of=None):
                             sorted(top.items(), key=lambda kv: -kv[1])[:10]]}
 
 
-def resnet_gate(got, want, want_ulp, fixed):
-    """|got - want| over |want|'s largest element, and its gate: the
-    larger of `fixed` and RESNET_SPREAD_FACTOR times the spread
-    |want_ulp - want| (same scale)."""
+def resnet_gate(got, want, want_ulps, fixed):
+    """(distance, spread, gate): |got - want| and the spread, the largest
+    |want_ulp - want| over the perturbed runs `want_ulps`, each over
+    |want|'s largest element; the gate is the larger of `fixed` and
+    RESNET_SPREAD_FACTOR times the spread."""
     top = max(float(np.abs(want).max()), 1e-30)
     d = float(np.abs(got - want).max()) / top
-    spread = float(np.abs(want_ulp - want).max()) / top
+    spread = max(float(np.abs(w - want).max()) for w in want_ulps) / top
     return d, spread, max(fixed, RESNET_SPREAD_FACTOR * spread)
 
 
@@ -4918,12 +5000,13 @@ def resnet_parity(torch, vision, TrainStep, SGD, Loss):
     cpu_ulp = run("cpu", x * np.float32(1 + 2 ** -23))
     cpu_s = time.perf_counter() - t0
     card = run(DEV, x)
-    rows = {"eval_logits": resnet_gate(card[0], cpu[0], cpu_ulp[0], 1e-5)}
+    rows = {"eval_logits": resnet_gate(card[0], cpu[0], [cpu_ulp[0]],
+                                       1e-5)}
     for i in range(c["steps"]):
         rows[f"loss_{i}"] = resnet_gate(card[1][i:i + 1], cpu[1][i:i + 1],
-                                        cpu_ulp[1][i:i + 1], 1e-5)
+                                        [cpu_ulp[1][i:i + 1]], 1e-5)
     for n, w in cpu[2].items():
-        rows[n] = resnet_gate(card[2][n], w, cpu_ulp[2][n], 1e-4)
+        rows[n] = resnet_gate(card[2][n], w, [cpu_ulp[2][n]], 1e-4)
     over = sorted(n for n, (d, _, g) in rows.items() if d > g)
     finite = all(np.isfinite(v).all() for v in card[2].values())
     ratio = [d / max(s, 1e-30) for d, s, _ in rows.values()]
@@ -5031,7 +5114,7 @@ def phase_resnet50(torch, card):
         require(all(bool(torch.isfinite(p).all()) for p in stats),
                 f"resnet50 {dtype}: non-finite running statistics")
         if dtype == torch.bfloat16:
-            res["trace"] = resnet_profile(torch, step, x, y)
+            res["trace"] = resnet_profile(torch, step, (x, y))
             require(np.isfinite(res["trace"]["loss"]), "resnet50: non-finite "
                     f"loss {res['trace']['loss']} in the profiled step")
             out["bench"]["bfloat16"] = res
@@ -5039,6 +5122,386 @@ def phase_resnet50(torch, card):
             out["bench"]["float32"] = res
         del step, net, x, y
         release_device(torch)
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7c2: SSD-512 training and detection
+# ---------------------------------------------------------------------------
+
+def ssd_example_labels():
+    """examples/train_ssd.py's labels: two images, up to two boxes."""
+    labels = np.full((2, 2, 5), -1.0, np.float32)
+    labels[0, 0] = [5, 0.2, 0.3, 0.6, 0.8]
+    labels[1, 0] = [2, 0.5, 0.5, 0.9, 0.85]
+    labels[1, 1] = [7, 0.05, 0.05, 0.3, 0.3]
+    return labels
+
+
+def ssd_synthetic_labels(B, max_boxes, classes, seed=0):
+    """(B, max_boxes, 5) rows [class, x1, y1, x2, y2] in [0, 1]: 1 to
+    max_boxes boxes an image (sides 0.1-0.5), the rest -1."""
+    r = np.random.default_rng(seed)
+    labels = np.full((B, max_boxes, 5), -1.0, np.float32)
+    for b in range(B):
+        n = int(r.integers(1, max_boxes + 1))
+        wh = r.uniform(0.1, 0.5, (n, 2))
+        xy = r.uniform(0.0, 1.0 - wh)
+        labels[b, :n, 0] = r.integers(0, classes, n)
+        labels[b, :n, 1:3] = xy
+        labels[b, :n, 3:5] = xy + wh
+    return labels
+
+
+def ssd_loss_class(SSDMultiBoxLoss):
+    """The loss TrainStep calls with the net's three outputs (anchors
+    unused) and the targets, as examples/train_ssd.py's _Loss."""
+    class Loss(SSDMultiBoxLoss):
+        def forward(self, cls_p, box_p, anchors, ct, bt, bm):
+            return super().forward(cls_p, box_p, ct, bt, bm)
+    return Loss
+
+
+def ssd_parity(torch, vision, det, TrainStep, SGD, Loss):
+    """(a) ssd_512_resnet50_v1_voc, float32, examples/train_ssd.py's two
+    images and labels at SSD_PARITY's size: Xavier weights drawn once on
+    the CPU and copied to the card. Eval mode: anchors byte-equal;
+    targets (multibox_target on each device): class targets and masks
+    equal, box targets within 2 ulps (the log-size columns: CUDA's logf
+    and the CPU's log differ in the last place); predictions within 1e-5
+    of their largest; the loss within 1e-5 relative; detect (the card's
+    NMS kernel, the CPU's plain version) keeps the same rows with the
+    same class ids, scores and boxes within 1e-5. Then three TrainStep
+    steps on each device (the CPU also on the perturbed images) under
+    the spread gate."""
+    c = SSD_PARITY
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((c["B"], 3, c["S"], c["S"])).astype(np.float32)
+    labels = ssd_example_labels()
+    weights = {n: p.detach().clone() for n, p in
+               vision.ssd_512_resnet50_v1_voc(device="cpu").named_parameters()}
+
+    def run(device, images, full=True):
+        net = vision.ssd_512_resnet50_v1_voc(device=device)
+        with torch.no_grad():
+            for n, p in net.named_parameters():
+                p.copy_(weights[n])
+        xb = torch.from_numpy(images).to(device)
+        res = {}
+        with torch.no_grad():
+            cls, box, anchors = net(xb)
+        bt, bm, ct = det.multibox_target(
+            anchors, torch.from_numpy(labels).to(device), cls.transpose(1, 2))
+        if full:
+            with torch.no_grad():
+                loss = Loss()(cls, box, anchors, ct, bt, bm)
+            dets = net.detect(xb, **SSD_DETECT)
+            res.update({k: v.cpu().numpy() for k, v in dict(
+                cls=cls, box=box, anchors=anchors, bt=bt, bm=bm, ct=ct,
+                loss=loss, dets=dets).items()})
+        step = TrainStep(net, Loss(), SGD(learning_rate=c["lr"],
+                                          momentum=0.9))
+        res["losses"] = step.run_steps(xb, ct, bt, bm,
+                                       steps=c["steps"]).cpu().numpy()
+        res["state"] = {n: p.detach().cpu().numpy()
+                        for n, p in net.named_parameters()}
+        return res
+    t0 = time.perf_counter()
+    cpu = run("cpu", x)
+    cpu_ulps = [run("cpu", x * np.float32(u), full=False) for u in SSD_ULPS]
+    cpu_s = time.perf_counter() - t0
+    card = run(DEV, x)
+    out = {"config": dict(c, model="ssd_512_resnet50_v1_voc",
+                          optimizer=f"SGD({c['lr']}, momentum 0.9)",
+                          tf32=False, anchors=int(cpu["anchors"].shape[1]),
+                          labels="examples/train_ssd.py"),
+           "cpu_seconds_three_runs": cpu_s}
+    require(card["anchors"].tobytes() == cpu["anchors"].tobytes(),
+            "ssd512 parity: anchors differ between the card and the CPU")
+    for k in ("ct", "bm"):
+        require(np.array_equal(card[k], cpu[k]),
+                f"ssd512 parity: {k} differs between the card and the CPU")
+    g = card["bt"].reshape(*card["ct"].shape, 4)
+    w = cpu["bt"].reshape(*cpu["ct"].shape, 4)
+    ulps = np.abs(g.view(np.int32).astype(np.int64)
+                  - w.view(np.int32).astype(np.int64))
+    out["targets"] = {"positives": int((cpu["ct"] > 0).sum()),
+                      "box_target_max_ulps": int(ulps.max()),
+                      "box_target_elements_apart": int((ulps > 0).sum()),
+                      "center_columns_equal": bool(
+                          (ulps[..., :2] == 0).all())}
+    require(ulps[..., :2].max() == 0 and ulps.max() <= 2,
+            f"ssd512 parity: box targets apart {out['targets']}")
+    rows = {}
+    for k in ("cls", "box"):
+        top = max(float(np.abs(cpu[k]).max()), 1e-30)
+        rows[k] = float(np.abs(card[k] - cpu[k]).max()) / top
+    rows["loss"] = float(np.abs(card["loss"] - cpu["loss"]).max()
+                         / np.abs(cpu["loss"]).max())
+    out["eval"] = rows
+    require(max(rows.values()) <= 1e-5, f"ssd512 parity: eval forward or "
+            f"loss over 1e-5: {rows}")
+    kd, kc = card["dets"], cpu["dets"]
+    out["detect"] = {"rows_kept": int((kc[..., 0] >= 0).sum()),
+                     "same_rows": bool(np.array_equal(kd[..., 0] >= 0,
+                                                      kc[..., 0] >= 0)),
+                     "class_ids_equal": bool(np.array_equal(kd[..., 0],
+                                                            kc[..., 0])),
+                     "max_abs_diff": float(np.abs(kd - kc).max())}
+    require(out["detect"]["same_rows"] and out["detect"]["class_ids_equal"]
+            and out["detect"]["max_abs_diff"] <= 1e-5,
+            f"ssd512 parity: detections differ {out['detect']}")
+    ulp_losses = [u["losses"] for u in cpu_ulps]
+    gates = {f"loss_{i}": resnet_gate(
+        card["losses"][i:i + 1], cpu["losses"][i:i + 1],
+        [u[i:i + 1] for u in ulp_losses], 1e-5) for i in range(c["steps"])}
+    for n, wv in cpu["state"].items():
+        gates[n] = resnet_gate(card["state"][n], wv,
+                               [u["state"][n] for u in cpu_ulps], 1e-4)
+    over = sorted(n for n, (d, _, gt) in gates.items() if d > gt)
+    ratio = {n: d / max(sp, 1e-30) for n, (d, sp, _) in gates.items()}
+    worst = max(gates, key=lambda n: gates[n][0] / gates[n][2])
+    out["train"] = {"losses_card": card["losses"].tolist(),
+                    "losses_cpu": cpu["losses"].tolist(),
+                    "losses_cpu_perturbed": [u.tolist() for u in ulp_losses],
+                    "tensors": len(cpu["state"]), "over_gate": over,
+                    "worst": worst, "worst_dist_spread_gate": gates[worst],
+                    "median_dist_over_spread": float(np.median(
+                        list(ratio.values())))}
+    require(all(np.isfinite(v).all() for v in card["state"].values()),
+            "ssd512 parity: non-finite parameters on the card")
+    require(len(over) <= SSD_FLIPPED_TENSORS and all(
+        gates[n][0] <= SSD_FLIP_FACTOR / RESNET_SPREAD_FACTOR * gates[n][2]
+        for n in over) and not any(n.startswith("loss_") for n in over),
+        f"ssd512 parity: card against CPU over the gate for {over}: worst "
+        f"{worst} {gates[worst]}")
+    require(out["train"]["median_dist_over_spread"] <= 2.0,
+            f"ssd512 parity: median distance over spread "
+            f"{out['train']['median_dist_over_spread']}")
+    return out
+
+
+# NMS edge cases, kernel against plain on the card: (B, N, overlap
+# threshold, force_suppress, what is special); the boxes are clustered
+# (many pairs near the threshold), ids in 0-2, scores rounded to one
+# decimal (ties), a third of the rows invalid and spread over the order
+NMS_EDGES = [(2, 1, 0.5, False, ""), (1, 63, 0.5, False, ""),
+             (1, 64, 0.3, False, ""), (1, 65, 0.7, True, ""),
+             (3, 200, 0.45, False, ""), (2, 5624, 0.45, False, ""),
+             (2, 130, 0.5, False, "nan"), (2, 64, 0.5, False, "dead"),
+             (1, 3, 0.5, False, "at_threshold")]
+
+
+def nms_edge_inputs(torch, B, N, special, seed):
+    """nms_keep's inputs (boxes, ids, valid) on the card for an edge
+    case of NMS_EDGES."""
+    r = np.random.default_rng(seed)
+    centers = r.uniform(0.2, 0.8, (B, max(N // 6, 1), 2))
+    c = np.stack([centers[b][r.integers(0, centers.shape[1], N)]
+                  for b in range(B)]) + r.normal(0, 0.03, (B, N, 2))
+    wh = r.uniform(0.1, 0.3, (B, N, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    ids = r.integers(0, 3, (B, N)).astype(np.float32)
+    valid = r.random((B, N)) > 0.33
+    if special == "nan":
+        boxes[0, 1, 2] = np.nan
+        boxes[0, 5] = np.nan
+        ids[1, 3] = np.nan
+    elif special == "dead":
+        valid[:] = False
+    elif special == "at_threshold":
+        boxes[0] = [[0, 0, 1, 1], [0, 0, 1, 0.5], [0, 0, 1, 0.51]]
+        ids[0] = 0
+        valid[0] = True
+    return tuple(torch.from_numpy(a).to(DEV) for a in (boxes, ids, valid))
+
+
+def nms_edges(torch, det):
+    """Every NMS_EDGES case: the kernel's keep mask equals the plain
+    version's, one launch a call; the IoU-at-threshold case keeps the
+    pair at exactly 0.5 and drops the one above it."""
+    rows = []
+    for i, (B, N, thr, force, special) in enumerate(NMS_EDGES):
+        args = nms_edge_inputs(torch, B, N, special, seed=i)
+        before = det.LAUNCHES["nms"]
+        got = det.nms_keep(*args, thr, force)
+        want = det.nms_keep(*args, thr, force, impl="torch")
+        require(det.LAUNCHES["nms"] == before + 1,
+                f"nms edge {i}: {det.LAUNCHES['nms'] - before} launches")
+        require(torch.equal(got, want), f"nms edge {i} ({B}, {N}, {thr}, "
+                f"{force}, {special!r}): the kernel's keep mask differs in "
+                f"{int((got != want).sum())} rows")
+        if special == "at_threshold":
+            require(got[0].tolist() == [True, True, False],
+                    f"nms edge {i}: {got[0].tolist()}")
+        rows.append({"B": B, "N": N, "thresh": thr, "force": force,
+                     "special": special, "kept": int(got.sum()),
+                     "valid": int(args[2].sum())})
+    return rows
+
+
+def nms_work(valid):
+    """Bytes and operations the NMS walk needs for these inputs: every
+    row's valid flag read (1 byte) and keep written (1); a valid row's
+    box (16) and id (4) read once and its area computed once
+    (NMS_ROW_FLOPS); one IoU and its test (NMS_PAIR_FLOPS) for each pair
+    of valid rows of an image. A row that is not valid is never kept and
+    never suppresses, so nothing else of it is needed."""
+    v = valid.sum(dim=1).double()
+    rows = float(v.sum())
+    pairs = float((v * (v - 1) / 2).sum())
+    nbytes = 2 * valid.numel() + 20 * rows
+    return nbytes, NMS_PAIR_FLOPS * pairs + NMS_ROW_FLOPS * rows, pairs
+
+
+def phase_ssd512(torch, card):
+    """SSD-512 through the port: (a) float32 parity of the card against
+    the CPU (ssd_parity); (b) the full configuration trained in float32
+    and in bfloat16, timed, the first losses held to each other, the
+    bfloat16 step profiled; (c) SSD.detect at B = 32 with the NMS
+    kernel counted, held to the plain version on the same inputs
+    (identical keep masks and rows), timed beside it and its bound, and
+    the mAP on the synthetic labels."""
+    from mxnet_tpu_torch.metric import VOCMApMetric
+    from mxnet_tpu_torch.models import vision
+    from mxnet_tpu_torch.models.vision.ssd import SSDMultiBoxLoss
+    from mxnet_tpu_torch.ops import detection as det
+    from mxnet_tpu_torch.optimizer import SGD
+    from mxnet_tpu_torch.parallel import TrainStep
+    Loss = ssd_loss_class(SSDMultiBoxLoss)
+    out = {"phase": "ssd512", "card": card, "layout": "NCHW"}
+    out["parity_f32"] = ssd_parity(torch, vision, det, TrainStep, SGD, Loss)
+    release_device(torch)
+
+    # (b) the full configuration, in float32 (TF32 off) and then in
+    # bfloat16, from the same Xavier weights, images and targets
+    c = SSD_BENCH
+    B, S = c["B"], c["S"]
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    x32 = torch.randn(B, 3, S, S, device=DEV, generator=gen)
+    labels = ssd_synthetic_labels(B, c["max_boxes"], c["classes"])
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        net = vision.ssd_512_resnet50_v1_voc(device=DEV).to(dtype)
+        flops, layers = resnet_step_flops(torch, net, S)
+        x = x32.to(dtype)
+        with torch.no_grad():
+            anchors = net(x[:1])[2]
+        N = anchors.shape[1]
+        bt, bm, ct = det.multibox_target(
+            anchors, torch.from_numpy(labels).to(DEV),
+            torch.zeros(B, c["classes"] + 1, N, device=DEV))
+        step = TrainStep(net, Loss(), SGD(learning_rate=1e-3, momentum=0.9,
+                                          wd=5e-4))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        warm = step.run_steps(x, ct, bt, bm, steps=c["warmup"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step.run_steps(x, ct, bt, bm, steps=c["steps"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / c["steps"]
+        losses = warm.tolist() + losses.tolist()
+        stats = [p for n, p in net.named_parameters()
+                 if n.endswith(("running_mean", "running_var"))]
+        out[f"train_{'bf16' if name == 'bfloat16' else 'f32'}"] = res = {
+            "config": dict(c, model="ssd_512_resnet50_v1_voc", dtype=name,
+                           init="Xavier(seed 0)", anchors=N, tf32=False,
+                           optimizer="SGD(1e-3, momentum 0.9, wd 5e-4)",
+                           positives=int((ct > 0).sum())),
+            "losses": losses, "ms_per_step": dt * 1e3, "img_per_s": B / dt,
+            "step_flops": flops * B, "mac_layers": layers,
+            "achieved_tflops": flops * B / dt / 1e12,
+            "mfu": flops * B / dt / PEAK_FLOPS[name],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        require(len(stats) == 118, "ssd512: running statistics missing")
+        require(all(np.isfinite(losses)), f"ssd512 {name}: non-finite "
+                f"losses {losses}")
+        require(all(bool(torch.isfinite(p).all()) for p in stats),
+                f"ssd512 {name}: non-finite running statistics")
+        if dtype == torch.bfloat16:
+            trace = resnet_profile(torch, step, (x, ct, bt, bm))
+            res["trace"] = trace
+            require(np.isfinite(trace["loss"]), "ssd512: non-finite loss "
+                    f"{trace['loss']} in the profiled step")
+        del step, bt, bm, ct
+        if dtype == torch.float32:
+            del net, x
+        release_device(torch)
+    # the first step's loss is the training forward on the same weights
+    # and batch: bfloat16 against float32, as phase resnet50's (b)
+    first = {k: out[k]["losses"][0] for k in ("train_f32", "train_bf16")}
+    rel = abs(first["train_bf16"] - first["train_f32"]) \
+        / abs(first["train_f32"])
+    out["bf16_vs_f32"] = {"first_loss": first, "loss_rel_diff": rel,
+                          "tol": RESNET_BF16_LOSS_TOL}
+    require(rel <= RESNET_BF16_LOSS_TOL, f"ssd512 bfloat16 first loss "
+            f"{first['train_bf16']} against float32 {first['train_f32']}: "
+            f"{rel} relative, over {RESNET_BF16_LOSS_TOL}")
+
+    # (c) detect, the path through the NMS kernel: multibox_detection's
+    # and nms_keep's arguments are captured as detect passes them
+    net.eval()
+    seen = {}
+
+    def capture(name, fn):
+        def call(*args, **kw):
+            seen.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return call
+    detection, keep = det.multibox_detection, det.nms_keep
+    det.multibox_detection = capture("detection", detection)
+    det.nms_keep = capture("nms", keep)
+    try:
+        torch.cuda.synchronize()
+        det.reset_launches()
+        t0 = time.perf_counter()
+        dets = net.detect(x, **SSD_DETECT)
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+    finally:
+        det.multibox_detection, det.nms_keep = detection, keep
+    launches = det.LAUNCHES["nms"]
+    require(launches == 1, f"ssd512: detect launched the NMS kernel "
+            f"{launches} times, not once")
+    args, kw = seen["detection"]
+    rows_p = detection(*args, **dict(kw, impl="torch"))
+    require(torch.equal(dets, rows_p), "ssd512: detect rows through the "
+            "NMS kernel differ from the plain version's")
+    args, kw = seen["nms"]
+    require(len(args) == 6 and args[5] == "auto" and not kw,
+            f"ssd512: box_nms called nms_keep with {len(args)} arguments "
+            f"and {sorted(kw)}")
+    args = args[:5]
+    keep_k = keep(*args)
+    keep_p = keep(*args, impl="torch")
+    require(torch.equal(keep_k, keep_p), "ssd512: the NMS kernel's keep "
+            "mask differs from the plain version's at B = 32")
+    nbytes, ops, pairs = nms_work(args[2])
+    b_ms, b_by = bound(nbytes, ops, "float32")
+    k_ms = time_ms(torch, lambda: keep(*args))
+    p_ms = time_ms(torch, lambda: keep(*args, impl="torch"), iters=3,
+                   warmup=1)
+    metric = VOCMApMetric(iou_thresh=0.5)
+    metric.update(labels, dets)
+    out["nms_edges"] = nms_edges(torch, det)
+    valid = args[2].sum(dim=1)
+    out["detect"] = {
+        "config": dict(SSD_DETECT, B=B, S=S, anchors=N),
+        "launches": launches, "detect_s": detect_s,
+        "rows_equal": True, "keep_equal": True,
+        "max_abs_err": float((keep_k.float() - keep_p.float()).abs().max()),
+        "valid_rows_per_image": [int(valid.min()), int(valid.max())],
+        "kept_rows": int(keep_k.sum()), "valid_pairs": pairs,
+        "nms_kernel_ms": k_ms, "nms_plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "bytes": nbytes, "flops": ops,
+        "library_ms": None,
+        "library_note": "no library NMS is installed (torchvision is "
+                        "absent); the plain version is the yardstick",
+        "map_synthetic": metric.get()[1]}
+    require(np.isfinite(dets.cpu().numpy()).all()
+            and tuple(dets.shape) == (B, N, 6), "ssd512: detect output")
     emit(out)
     return out
 
@@ -5826,6 +6289,19 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
             "library_ms_bf16": b16.get("library_ms"), "card": card, **extra}
 
 
+def nms_entry(ssd, card):
+    """The NMS kernel pair (mask, scan; one launch a call) on its main
+    path, phase ssd512's SSD.detect at B = 32."""
+    d = ssd["detect"]
+    return {"name": "nms", "route": "cuda", "source": NMS_SOURCE,
+            "replaces": REPLACES["nms"], "launches": d["launches"],
+            "max_abs_err": d["max_abs_err"], "ms": d["nms_kernel_ms"],
+            "plain_ms": d["nms_plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None,
+            "library_note": d["library_note"], "cell": d["config"],
+            "keep_equal": d["keep_equal"], "card": card}
+
+
 def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
                  router, fleet, tp, card):
     """The four span kernels' kernels-line entries: the CUDA-core kernel
@@ -6066,6 +6542,7 @@ def main():
     bert = timed("bert", phase_bert, torch, fa, card)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
     timed("resnet50", phase_resnet50, torch, card)
+    ssd = timed("ssd512", phase_ssd512, torch, card)
     nmt_train = timed("nmt_train", phase_nmt_train, torch, F, fa, card)
     nmt_translate = timed("nmt_translate", phase_nmt_translate, torch, F,
                           fa, card)
@@ -6084,6 +6561,7 @@ def main():
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
                              gpt2_train, nmt_train, nmt_translate, generate,
                              card)
+    kernels.append(nms_entry(ssd, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds, "card": card})
     emit({"kernels": kernels})

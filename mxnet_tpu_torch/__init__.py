@@ -11,9 +11,11 @@ cache (`serving.ServingEngine`, `models.GPT2ForCausalLM`,
 `models.PagedKVCache`, `ops.ragged_span_attention`,
 `ops.ragged_decode_attention`), the single-device BERT MLM training
 step (`models.BertForMaskedLM`, `loss.SoftmaxCrossEntropyLoss`,
-`optimizer.AdamW`, `parallel.TrainStep`, `ops.fused_attention`), and
+`optimizer.AdamW`, `parallel.TrainStep`, `ops.fused_attention`),
 ResNet training (`models.vision`, `nn.Conv2D`, `nn.BatchNorm`,
-`optimizer.SGD`, `initializer.Xavier`).
+`optimizer.SGD`, `initializer.Xavier`), and SSD-512 detection
+(`models.vision.ssd`, `ops.detection` with its NMS kernel,
+`metric.VOCMApMetric`).
 ROADMAP.md lists what is still to come.
 """
 from .base import MXNetError, resolve_device

@@ -43,7 +43,8 @@ _CSRC = _PKG / "csrc"
 SOURCES = {"ragged_attention": _CSRC / "ragged_attention.cu",
            "ragged_attention_tc": _CSRC / "ragged_attention_tc.cu",
            "fused_attention": _CSRC / "fused_attention.cu",
-           "fused_attention_tc": _CSRC / "fused_attention_tc.cu"}
+           "fused_attention_tc": _CSRC / "fused_attention_tc.cu",
+           "nms": _CSRC / "nms.cu"}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -381,7 +381,7 @@ def test_get_model_and_get_resnet():
                            device="cpu")
     assert isinstance(net, vision.ResNetV1) and net.output.weight.shape == \
         (3, 512)
-    for name in ("alexnet", "vgg16", "ssd_512_resnet50_v1_voc"):
+    for name in ("alexnet", "vgg16", "densenet121"):
         with pytest.raises(MXNetError, match="not ported"):
             vision.get_model(name)
     with pytest.raises(MXNetError, match="invalid resnet depth"):
