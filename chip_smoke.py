@@ -364,7 +364,10 @@ no engine outlives its phase:
               1-4, three extra blocks, 20 classes; Xavier, seed 0)
               through the port's multibox ops, TrainStep + SGD and
               SSD.detect, whose NMS runs on the hand-written kernel
-              (csrc/nms.cu: a mask kernel and a one-warp scan). (a)
+              (csrc/nms.cu: the valid rows compacted, their mask in a
+              thread-block cluster's shared memory, a one-warp walk;
+              beyond 1,216 valid rows an image, a global-memory path in
+              the same launch). (a)
               float32 parity, card against CPU (TF32 off), on
               examples/train_ssd.py's two images and labels at 128x128
               (356 anchors), weights drawn once on the CPU: anchors
@@ -389,19 +392,25 @@ no engine outlives its phase:
               loss within RESNET_BF16_LOSS_TOL of float32's; one
               bfloat16 step profiled as phase resnet50's. (c)
               SSD.detect at B = 32 (nms 0.45, threshold 0.01, topk 400)
-              with the NMS kernel launched exactly once, the arguments
+              with the NMS kernel called exactly once, detect's peak
+              device memory, the arguments
               it passes to multibox_detection and nms_keep captured:
               multibox_detection's plain version on them gives rows
               identical to detect's; nms_keep's keep masks identical;
               the kernel's and the plain version's ms, the bound
               (nms_work: flags read and keep written for every row, box
               and id read for each valid row; NMS_ROW_FLOPS for each
-              valid row, NMS_PAIR_FLOPS for each pair of valid rows), no
-              library NMS (torchvision is absent); the mAP on the
-              synthetic labels (no gate); and
+              valid row, NMS_ID_FLOPS for each pair of valid rows,
+              NMS_PAIR_FLOPS for each such pair of one class id), no
+              library NMS (torchvision is absent: the bound is the
+              yardstick); the mAP on the synthetic labels (no gate); and
               NMS_EDGES (N = 1, 63, 64, 65, 200, 5,624, NaN boxes and
               ids, every row invalid, an IoU exactly at the threshold,
-              force_suppress) with identical keep masks.
+              force_suppress, images at and one row over the on-chip
+              limit in one call, every row valid, valid rows only at the
+              end, B = 128, 80 class ids with and without force, a
+              negative threshold) with identical keep masks and one
+              launch each, each timed beside its bound.
   7d. nmt_train  Transformer-base NMT (nmt_base_config: 6 + 6 layers,
               512 units, 8 heads, 2048 hidden, vocab 32000 / 32000,
               dropout 0.1; seeded random weights), teacher forcing through
@@ -637,13 +646,15 @@ SSD_FLIP_FACTOR = 64
 NMS_SOURCE = "mxnet_tpu_torch/csrc/nms.cu"
 REPLACES["nms"] = ("mxnet_tpu/ops/detection.py:59 _nms_single (XLA "
                    "fori_loop; no Pallas body)")
-# the NMS bound's operation count: for each pair of valid rows, 4
-# max/min, 2 differences and 2 max(., 0) for the intersection's sides,
-# its product, a sum and a difference for the union, its test against 0,
-# a quotient and the test against the threshold (the class-id test is
-# left out, so the bound stays a lower one); for each valid row, its
-# area once (2 differences, 2 max(., 0), a product)
+# the NMS bound's operation count: for each pair of valid rows of one
+# class id (every pair with force_suppress), 4 max/min, 2 differences and
+# 2 max(., 0) for the intersection's sides, its product, a sum and a
+# difference for the union, its test against 0, a quotient and the test
+# against the threshold; for each pair of valid rows without
+# force_suppress, the class-id test; for each valid row, its area once
+# (2 differences, 2 max(., 0), a product)
 NMS_PAIR_FLOPS = 14
+NMS_ID_FLOPS = 1
 NMS_ROW_FLOPS = 5
 # phases 7d-7f: nmt_base_config's layers (encoder and decoder each)
 NMT_LAYERS = 6
@@ -5284,13 +5295,26 @@ def ssd_parity(torch, vision, det, TrainStep, SGD, Loss):
 
 # NMS edge cases, kernel against plain on the card: (B, N, overlap
 # threshold, force_suppress, what is special); the boxes are clustered
-# (many pairs near the threshold), ids in 0-2, scores rounded to one
-# decimal (ties), a third of the rows invalid and spread over the order
+# (many pairs near the threshold), ids in 0-2, a third of the rows
+# invalid and spread over the order. The kernel keeps an image's valid
+# rows on chip up to NMS_ON_CHIP_ROWS and takes a global-memory path
+# beyond: "limit" puts an image at that many valid rows and one a row
+# over it in the same call; N = 5,624 (2/3 valid) and "all_valid" take
+# the global path; "tail" has its valid rows only at the end of the
+# order; B = 128 at N = 400 gives more clusters than the card has SMs;
+# "ids80" draws 80 class ids; a negative threshold suppresses pairs
+# that do not overlap (IoU exactly 0)
+NMS_ON_CHIP_ROWS = 1216
 NMS_EDGES = [(2, 1, 0.5, False, ""), (1, 63, 0.5, False, ""),
              (1, 64, 0.3, False, ""), (1, 65, 0.7, True, ""),
              (3, 200, 0.45, False, ""), (2, 5624, 0.45, False, ""),
              (2, 130, 0.5, False, "nan"), (2, 64, 0.5, False, "dead"),
-             (1, 3, 0.5, False, "at_threshold")]
+             (1, 3, 0.5, False, "at_threshold"),
+             (2, NMS_ON_CHIP_ROWS + 64, 0.45, False, "limit"),
+             (2, 5624, 0.45, False, "all_valid"),
+             (2, 5624, 0.45, False, "tail"), (128, 400, 0.45, False, ""),
+             (4, 1000, 0.5, False, "ids80"), (4, 1000, 0.5, True, "ids80"),
+             (2, 300, -0.1, False, "")]
 
 
 def nms_edge_inputs(torch, B, N, special, seed):
@@ -5302,9 +5326,18 @@ def nms_edge_inputs(torch, B, N, special, seed):
                   for b in range(B)]) + r.normal(0, 0.03, (B, N, 2))
     wh = r.uniform(0.1, 0.3, (B, N, 2))
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
-    ids = r.integers(0, 3, (B, N)).astype(np.float32)
+    ids = r.integers(0, 80 if special == "ids80" else 3,
+                     (B, N)).astype(np.float32)
     valid = r.random((B, N)) > 0.33
-    if special == "nan":
+    if special == "limit":          # NMS_ON_CHIP_ROWS valid rows, and one more
+        valid[:] = False
+        for b, m in enumerate((NMS_ON_CHIP_ROWS, NMS_ON_CHIP_ROWS + 1)):
+            valid[b, r.choice(N, m, replace=False)] = True
+    elif special == "all_valid":
+        valid[:] = True
+    elif special == "tail":
+        valid[:, :N - 600] = False
+    elif special == "nan":
         boxes[0, 1, 2] = np.nan
         boxes[0, 5] = np.nan
         ids[1, 3] = np.nan
@@ -5320,7 +5353,11 @@ def nms_edge_inputs(torch, B, N, special, seed):
 def nms_edges(torch, det):
     """Every NMS_EDGES case: the kernel's keep mask equals the plain
     version's, one launch a call; the IoU-at-threshold case keeps the
-    pair at exactly 0.5 and drops the one above it."""
+    pair at exactly 0.5 and drops the one above it. Each case's kernel
+    time is time_ms's median."""
+    require(getattr(det, "_NMS_ON_CHIP_ROWS", None) == NMS_ON_CHIP_ROWS,
+            "nms edges: the kernel's on-chip row limit moved; NMS_EDGES' "
+            "limit case must follow it")
     rows = []
     for i, (B, N, thr, force, special) in enumerate(NMS_EDGES):
         args = nms_edge_inputs(torch, B, N, special, seed=i)
@@ -5335,24 +5372,44 @@ def nms_edges(torch, det):
         if special == "at_threshold":
             require(got[0].tolist() == [True, True, False],
                     f"nms edge {i}: {got[0].tolist()}")
+        valid = args[2].sum(dim=1)
+        nbytes, ops, _, _ = nms_work(args[2], args[1], force)
+        b_ms, b_by = bound(nbytes, ops, "float32")
         rows.append({"B": B, "N": N, "thresh": thr, "force": force,
                      "special": special, "kept": int(got.sum()),
-                     "valid": int(args[2].sum())})
+                     "valid": int(valid.sum()),
+                     "valid_per_image": [int(valid.min()), int(valid.max())],
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "ms": time_ms(torch, lambda: det.nms_keep(*args, thr,
+                                                              force))})
     return rows
 
 
-def nms_work(valid):
+def nms_work(valid, ids, force):
     """Bytes and operations the NMS walk needs for these inputs: every
     row's valid flag read (1 byte) and keep written (1); a valid row's
     box (16) and id (4) read once and its area computed once
-    (NMS_ROW_FLOPS); one IoU and its test (NMS_PAIR_FLOPS) for each pair
-    of valid rows of an image. A row that is not valid is never kept and
-    never suppresses, so nothing else of it is needed."""
+    (NMS_ROW_FLOPS); for each pair of valid rows of an image, the id
+    test (NMS_ID_FLOPS; none with force_suppress) and, where the ids are
+    equal (every pair with force_suppress), one IoU and its test
+    (NMS_PAIR_FLOPS). A row that is not valid is never kept and never
+    suppresses, and a NaN id equals no id, so nothing else is needed.
+    Returns (bytes, operations, valid pairs, pairs that need the IoU)."""
     v = valid.sum(dim=1).double()
     rows = float(v.sum())
     pairs = float((v * (v - 1) / 2).sum())
+    if force:
+        same = pairs
+    else:
+        same = 0.0
+        for b in range(valid.shape[0]):
+            c = ids[b][valid[b]]
+            n = c[~c.isnan()].unique(return_counts=True)[1].double()
+            same += float((n * (n - 1) / 2).sum())
     nbytes = 2 * valid.numel() + 20 * rows
-    return nbytes, NMS_PAIR_FLOPS * pairs + NMS_ROW_FLOPS * rows, pairs
+    ops = (NMS_PAIR_FLOPS * same + NMS_ROW_FLOPS * rows
+           + (0 if force else NMS_ID_FLOPS * pairs))
+    return nbytes, ops, pairs, same
 
 
 def phase_ssd512(torch, card):
@@ -5455,15 +5512,18 @@ def phase_ssd512(torch, card):
     det.nms_keep = capture("nms", keep)
     try:
         torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         det.reset_launches()
         t0 = time.perf_counter()
         dets = net.detect(x, **SSD_DETECT)
         torch.cuda.synchronize()
         detect_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
     finally:
         det.multibox_detection, det.nms_keep = detection, keep
     launches = det.LAUNCHES["nms"]
-    require(launches == 1, f"ssd512: detect launched the NMS kernel "
+    require(launches == 1, f"ssd512: detect called the NMS kernel "
             f"{launches} times, not once")
     args, kw = seen["detection"]
     rows_p = detection(*args, **dict(kw, impl="torch"))
@@ -5478,10 +5538,10 @@ def phase_ssd512(torch, card):
     keep_p = keep(*args, impl="torch")
     require(torch.equal(keep_k, keep_p), "ssd512: the NMS kernel's keep "
             "mask differs from the plain version's at B = 32")
-    nbytes, ops, pairs = nms_work(args[2])
+    nbytes, ops, pairs, same = nms_work(args[2], args[1], args[4])
     b_ms, b_by = bound(nbytes, ops, "float32")
     k_ms = time_ms(torch, lambda: keep(*args))
-    p_ms = time_ms(torch, lambda: keep(*args, impl="torch"), iters=3,
+    p_ms = time_ms(torch, lambda: keep(*args, impl="torch"), iters=1,
                    warmup=1)
     metric = VOCMApMetric(iou_thresh=0.5)
     metric.update(labels, dets)
@@ -5490,15 +5550,19 @@ def phase_ssd512(torch, card):
     out["detect"] = {
         "config": dict(SSD_DETECT, B=B, S=S, anchors=N),
         "launches": launches, "detect_s": detect_s,
+        "detect_peak_memory_gb": peak / 1e9, "resident_gb": resident / 1e9,
         "rows_equal": True, "keep_equal": True,
         "max_abs_err": float((keep_k.float() - keep_p.float()).abs().max()),
         "valid_rows_per_image": [int(valid.min()), int(valid.max())],
         "kept_rows": int(keep_k.sum()), "valid_pairs": pairs,
+        "same_id_pairs": same,
         "nms_kernel_ms": k_ms, "nms_plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "bytes": nbytes, "flops": ops,
         "library_ms": None,
         "library_note": "no library NMS is installed (torchvision is "
-                        "absent); the plain version is the yardstick",
+                        "absent); the bound, not the plain version (a "
+                        "step-by-step repeat of the walk), is the "
+                        "yardstick",
         "map_synthetic": metric.get()[1]}
     require(np.isfinite(dets.cpu().numpy()).all()
             and tuple(dets.shape) == (B, N, 6), "ssd512: detect output")
@@ -6290,8 +6354,8 @@ def kernel_entry(name, source, launches, f32, b16, card, **extra):
 
 
 def nms_entry(ssd, card):
-    """The NMS kernel pair (mask, scan; one launch a call) on its main
-    path, phase ssd512's SSD.detect at B = 32."""
+    """The NMS kernel (one launch a call) on its main path, phase
+    ssd512's SSD.detect at B = 32."""
     d = ssd["detect"]
     return {"name": "nms", "route": "cuda", "source": NMS_SOURCE,
             "replaces": REPLACES["nms"], "launches": d["launches"],

@@ -43,14 +43,17 @@ __all__ = ["box_iou", "box_nms", "multibox_prior", "multibox_target",
            "multibox_detection", "roi_align", "nms_keep", "LAUNCHES",
            "reset_launches"]
 
-# launches of the NMS kernel pair (mask, scan) since the last reset
+# launches of the NMS kernel (one a call) since the last reset
 LAUNCHES = {"nms": 0}
 _IMPLS = ("auto", "torch")
-# mirrors of csrc/nms.cu: boxes a mask word covers; the scan keeps two
-# bitmasks of ceil(N / 64) words in 48 KB of shared memory at most
+# mirrors of csrc/nms.cu: rows a mask word covers; valid rows an image
+# keeps on chip (beyond them the image takes the global path, whose
+# scratch is given only where N exceeds this); mask words of a row at
+# most (the global walk's bitmask in 24 KB of shared memory)
 _NMS_TILE = 64
+_NMS_ON_CHIP_ROWS = 1216
 _NMS_MAX_WORDS = 3072
-_MAX_GRID_YZ = 65535
+_NMS_MAX_IMAGES = 65535
 
 
 def reset_launches():
@@ -116,7 +119,7 @@ def _nms_lib():
     lib = _build.load("nms")
     if not getattr(lib, "_mxt_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mxt_nms.argtypes = [ptr] * 5 + [i32, i32, ctypes.c_float, i32,
+        lib.mxt_nms.argtypes = [ptr] * 7 + [i32, i32, ctypes.c_float, i32,
                                             ptr]
         lib.mxt_nms.restype = i32
         lib._mxt_bound = True
@@ -133,6 +136,23 @@ def nms_keep(boxes, ids, valid, overlap_thresh=0.5, force_suppress=False,
     suppresses every later row j whose IoU with it exceeds
     `overlap_thresh` and whose id equals its own (any id with
     `force_suppress`). Returns keep (B, N) bool in the same order.
+
+    On a CUDA tensor this makes one launch of csrc/nms.cu, which works
+    on each image's M valid rows alone: a thread-block cluster an image
+    (of 16, 8, 4, 2 or 1 blocks: the largest of which all B clusters fit
+    the card at once) compacts them in walk order, builds their
+    M x ceil(M / 64) words of suppression mask in the leader block's
+    shared memory (the others write theirs over distributed shared
+    memory), and one warp walks it from registers and shared memory, a
+    64-row tile at a time in rounds of warp reductions. An image with
+    more than _NMS_ON_CHIP_ROWS valid rows takes a global-memory path in
+    the same launch: its cluster builds its mask as the upper triangle
+    of 64 x 64 tiles in scratch, then its leader walks the compacted
+    words from L2. The kernel decides per image; nothing here waits for
+    the card. The scratch (68 MB at B = 32, N = 5,624) is allocated
+    only where N exceeds _NMS_ON_CHIP_ROWS. What bounds it is latency:
+    the mask's chains of dependent IoU operations, then the walk's
+    rounds and the launch.
 
     The kernel takes float32 boxes and ids, contiguous, 16-byte aligned
     boxes, N <= 196,608 and B <= 65,535.
@@ -159,21 +179,30 @@ def nms_keep(boxes, ids, valid, overlap_thresh=0.5, force_suppress=False,
         raise MXNetError(f"{name}: the kernel needs contiguous tensors and "
                          "16-byte aligned boxes")
     words = -(-N // _NMS_TILE)
-    if words > _NMS_MAX_WORDS or B > _MAX_GRID_YZ:
+    if words > _NMS_MAX_WORDS or B > _NMS_MAX_IMAGES:
         raise MXNetError(f"{name}: the kernel takes N <= "
                          f"{_NMS_MAX_WORDS * _NMS_TILE} and B <= "
-                         f"{_MAX_GRID_YZ}, got N = {N}, B = {B}")
+                         f"{_NMS_MAX_IMAGES}, got N = {N}, B = {B}")
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
     if B == 0 or N == 0:
         return keep
-    # one 64-bit word per (row, column tile): bit j of a valid row's word
-    # says that the row suppresses column j; words left of the row's own
-    # tile and rows that are not valid are never written nor read
-    mask = torch.empty(B * N * words, dtype=torch.int64, device=boxes.device)
+    scratch = (None,) * 3
+    if N > _NMS_ON_CHIP_ROWS:
+        # the global path, for images with more valid rows than fit on
+        # chip (the kernel decides per image): each image's mask as the
+        # upper triangle of words x words tiles of 64 words, and its
+        # valid rows' boxes and ids in walk order
+        dev = boxes.device
+        scratch = (
+            torch.empty(B * _NMS_TILE * words * (words + 1) // 2,
+                        dtype=torch.int64, device=dev),
+            torch.empty((B, N, 4), dtype=torch.float32, device=dev),
+            torch.empty((B, N), dtype=torch.float32, device=dev))
     with torch.cuda.device(boxes.device):
         err = _nms_lib().mxt_nms(
             boxes.data_ptr(), ids.data_ptr(), valid.data_ptr(),
-            mask.data_ptr(), keep.data_ptr(), B, N,
+            keep.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in scratch), B, N,
             float(np.float32(overlap_thresh)), int(bool(force_suppress)),
             torch.cuda.current_stream(boxes.device).cuda_stream)
     if err:

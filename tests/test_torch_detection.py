@@ -164,30 +164,38 @@ def _keep_port(rows, overlap_thresh, valid_thresh, topk, id_index,
 
 
 # (overlap_thresh, topk, force_suppress, id_index, background_id, seed,
-#  B, N, tie_scores)
+#  B, N, tie_scores, class ids). The last four sit where the CUDA kernel's
+# paths switch: every row of N = 1,300 valid (over its 1,216 on-chip
+# rows), 80 class ids with and without force, a negative threshold (a
+# pair that does not overlap has IoU 0, which is above it)
 _NMS_CASES = {
-    "t03": (0.3, -1, False, 0, -1, 0, 2, 40, False),
-    "t05": (0.5, -1, False, 0, -1, 1, 2, 40, False),
-    "t07": (0.7, -1, False, 0, -1, 2, 2, 40, False),
-    "topk5_ties": (0.5, 5, False, 0, -1, 3, 2, 40, True),
-    "topkN": (0.5, 40, False, 0, -1, 4, 2, 40, False),
-    "equal_scores": (0.5, -1, False, 0, -1, 5, 2, 40, True),
-    "force": (0.5, -1, True, 0, -1, 6, 2, 40, False),
-    "no_ids": (0.5, -1, False, -1, -1, 7, 2, 40, False),
-    "background1": (0.5, -1, False, 0, 1, 8, 2, 40, False),
-    "background1_topk5": (0.3, 5, False, 0, 1, 9, 2, 40, True),
-    "n1": (0.5, -1, False, 0, -1, 10, 2, 1, False),
-    "n63": (0.5, -1, False, 0, -1, 11, 1, 63, False),
-    "n64": (0.45, 20, False, 0, -1, 12, 1, 64, False),
-    "n65": (0.5, -1, True, 0, -1, 13, 1, 65, False),
-    "n200": (0.45, -1, False, 0, -1, 14, 2, 200, True),
+    "t03": (0.3, -1, False, 0, -1, 0, 2, 40, False, 3),
+    "t05": (0.5, -1, False, 0, -1, 1, 2, 40, False, 3),
+    "t07": (0.7, -1, False, 0, -1, 2, 2, 40, False, 3),
+    "topk5_ties": (0.5, 5, False, 0, -1, 3, 2, 40, True, 3),
+    "topkN": (0.5, 40, False, 0, -1, 4, 2, 40, False, 3),
+    "equal_scores": (0.5, -1, False, 0, -1, 5, 2, 40, True, 3),
+    "force": (0.5, -1, True, 0, -1, 6, 2, 40, False, 3),
+    "no_ids": (0.5, -1, False, -1, -1, 7, 2, 40, False, 3),
+    "background1": (0.5, -1, False, 0, 1, 8, 2, 40, False, 3),
+    "background1_topk5": (0.3, 5, False, 0, 1, 9, 2, 40, True, 3),
+    "n1": (0.5, -1, False, 0, -1, 10, 2, 1, False, 3),
+    "n63": (0.5, -1, False, 0, -1, 11, 1, 63, False, 3),
+    "n64": (0.45, 20, False, 0, -1, 12, 1, 64, False, 3),
+    "n65": (0.5, -1, True, 0, -1, 13, 1, 65, False, 3),
+    "n200": (0.45, -1, False, 0, -1, 14, 2, 200, True, 3),
+    "n1300_all_valid": (0.45, -1, False, 0, -1, 15, 1, 1300, False, 3),
+    "ids80": (0.5, -1, False, 0, -1, 16, 2, 300, False, 80),
+    "ids80_force": (0.5, -1, True, 0, -1, 17, 2, 300, False, 80),
+    "negative_thresh": (-0.1, -1, False, 0, -1, 18, 2, 200, False, 3),
 }
 
 
 @pytest.mark.parametrize("case", list(_NMS_CASES), ids=list(_NMS_CASES))
 def test_box_nms_equal(case):
-    thresh, topk, force, id_index, bg, seed, B, N, ties = _NMS_CASES[case]
-    rows = _nms_rows(seed, B, N, tie_scores=ties)
+    thresh, topk, force, id_index, bg, seed, B, N, ties, n_ids = \
+        _NMS_CASES[case]
+    rows = _nms_rows(seed, B, N, n_ids=n_ids, tie_scores=ties)
     kw = dict(overlap_thresh=thresh, valid_thresh=0.0, topk=topk,
               coord_start=2, score_index=1, id_index=id_index,
               background_id=bg, force_suppress=force)
@@ -274,8 +282,106 @@ def test_nms_wrapper_on_the_cpu():
         r"constexpr int (\w+) = (\d+);", src.read_text())}
     assert consts["kTile"] == det._NMS_TILE == 64
     assert consts["kMaxWords"] == det._NMS_MAX_WORDS
-    # the scan's two bitmasks fit the 48 KB a launch gets by default
-    assert 2 * 8 * det._NMS_MAX_WORDS <= 48 * 1024
+    assert consts["kOnChipRows"] == det._NMS_ON_CHIP_ROWS
+    assert consts["kThreads"] == 1024
+    # the on-chip block's shared memory at the limit (boxes, ids and areas
+    # of the valid rows, their rows x words mask words; 33 ints and 32
+    # words static) fits the 227 KB a block can have; the walk's lane w
+    # holds word w; the global path reuses that memory for its 32 warps'
+    # column tiles of 64 boxes, ids and areas, then for the walk's
+    # bitmask and its 2 x 64 diagonal words
+    rows = det._NMS_ON_CHIP_ROWS
+    words = -(-rows // det._NMS_TILE)
+    limit = rows * (16 + 4 + 4) + rows * words * 8
+    assert limit + 33 * 4 + 32 * 8 <= 232448
+    assert words <= 32
+    assert 32 * 64 * (16 + 4 + 4) <= limit
+    assert 8 * (det._NMS_MAX_WORDS + 2 * 64) <= limit
+
+
+def _above_by_rule(inter, union, thresh):
+    """csrc/nms.cu iou_above's threshold test in numpy float64: whether
+    RN(inter / union) > thresh, decided without dividing. mid is halfway
+    from thresh to the next float32 up; union * mid is exact in float64;
+    a quotient equal to mid rounds up where thresh's last bit is odd.
+    Where inter is 0 or the union not above 0 the IoU is 0."""
+    t = np.float32(thresh)
+    mid = 0.5 * (np.float64(t) + np.float64(np.nextafter(t, np.float32(
+        np.inf))))
+    tie_up = bool(t.view(np.uint32) & 1)
+    with np.errstate(invalid="ignore", over="ignore"):
+        x = union.astype(np.float64) * mid
+        y = inter.astype(np.float64)
+        by_rule = (y > x) | ((y == x) & tie_up)
+        return np.where((inter != 0) & (union > 0), by_rule,
+                        np.float32(0) > t), int(((y == x) & (inter != 0)
+                                                 & (union > 0)).sum())
+
+
+def _above_by_division(inter, union, thresh):
+    """_iou_corner's quotient (float32, round to nearest) against the
+    threshold."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = np.where(union > 0, inter / union, np.float32(0))
+    return iou.astype(np.float32) > np.float32(thresh)
+
+
+_TINY = float(np.float32(2.0 ** -149))
+_RULE_THRESHOLDS = [-0.1, 0.0, -0.0, 0.5, 0.45, 0.7, 1.0,
+                    float(np.nextafter(np.float32(0.5), np.float32(1))),
+                    _TINY, 3 * _TINY, 1000 * _TINY, -_TINY,
+                    float(np.finfo(np.float32).tiny), float("nan")]
+
+
+@pytest.mark.parametrize("thresh", _RULE_THRESHOLDS,
+                         ids=[repr(t) for t in _RULE_THRESHOLDS])
+def test_nms_threshold_rule_equals_division(thresh):
+    """The kernel's division-free threshold test decides as float32
+    division does: quotients within a few ulps of the threshold over
+    unions at many scales, exact ties at the midpoint (they exist only
+    for a zero or subnormal threshold), subnormal quotients, a zero
+    intersection, a union at or below zero, NaN and infinite parts."""
+    src = _build.SOURCES["nms"].read_text()
+    assert "0.5 * ((double)t + (double)nextafterf(t, INFINITY))" in src
+    assert "y > x || (y == x && th.tie_up)" in src
+    assert ": 0.f > th.t;" in src
+    r = np.random.default_rng(0)
+    f32 = np.float32
+    t = f32(thresh)
+    unions = np.concatenate([
+        r.uniform(1e-3, 10, 4000), 2.0 ** r.integers(-60, 60, 1000),
+        r.uniform(1e-38, 1e-36, 500), r.uniform(1e20, 1e30, 500)]).astype(
+        f32)
+    q = np.abs(t) if np.isfinite(t) else f32(0.5)
+    ulps = np.arange(-4, 5)
+    near = (q.view(np.int32) + ulps).view(f32)       # quotients by t
+    near = near[np.isfinite(near) & (near >= 0)]
+    u = np.repeat(unions, near.size)
+    inter = (u.astype(np.float64) * np.tile(near, unions.size)).astype(f32)
+    inter = np.concatenate([(inter.view(np.int32) + d).view(f32)
+                            for d in (-1, 0, 1)])
+    union = np.tile(u, 3)
+    # exact ties: a subnormal threshold k 2^-149 has mid (2k + 1) 2^-150,
+    # so inter = (2k + 1) 2^(j - 150) over union = 2^j is a tie
+    k = int(abs(t) / _TINY) if np.isfinite(t) and abs(t) < 1e-37 else 0
+    j = np.arange(1, 40)
+    tie_u = (2.0 ** j).astype(f32)
+    tie_i = ((2 * k + 1) * 2.0 ** (j - 150)).astype(f32)
+    # subnormal quotients; zero and non-positive unions; NaN and inf (an
+    # infinite intersection comes with a union of -inf or NaN: the union
+    # is the areas' sum less the intersection)
+    sub_i = r.uniform(1e-30, 1e-28, 2000).astype(f32)
+    sub_u = r.uniform(1e8, 1e10, 2000).astype(f32)
+    odd_i = np.array([0, 0, 0.5, 0.5, np.nan, 0.25, 1e30, 0.5, np.inf,
+                      np.inf], f32)
+    odd_u = np.array([1, 0, 0, -1, 1, np.nan, np.inf, np.inf, -np.inf,
+                      np.nan], f32)
+    inter = np.concatenate([inter, tie_i, sub_i, odd_i])
+    union = np.concatenate([union, tie_u, sub_u, odd_u])
+    got, ties = _above_by_rule(inter, union, t)
+    np.testing.assert_array_equal(got, _above_by_division(inter, union, t))
+    if 0 <= t < 1e-37 and k < 2 ** 23:
+        assert ties >= 20        # the ties above were met as ties
 
 
 # ---------------------------------------------------------------------------
