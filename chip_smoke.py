@@ -473,6 +473,35 @@ no engine outlives its phase:
               and ms a token of a warm paged generate (bench_gpt2_decode's
               reading); the decode cell: B 8, H 20, one query row
               over the paged cache's 256 keys.
+  7g. bert_gluon  BERT-base MLM (bert_base_config, seeded weights from
+              mx.random.seed(0) and net.initialize(mx.init.Normal(0.02))
+              on the default device) at bench_bert's traffic driven only
+              through the eager gluon surface: gluon.Trainer with LAMB
+              and a PolyScheduler with warmup (BERT_GLUON),
+              autograd.record, loss.backward, Trainer.step. (a) float32,
+              dropout 0: 3 eager steps against parallel.TrainStep(net,
+              loss, LAMB) from the same weights, batch and schedule
+              (losses within 1e-5 relative each step, the largest
+              parameter difference within 1e-4); (b) those steps launch
+              the CUDA-core fused pair 12 times a step each and nothing
+              else, and one eager step through the plain versions
+              (attention_impl "torch") is held to the kernel's: float32
+              loss 1e-5 and gradients 1e-4 of their layer's largest,
+              bfloat16 loss BF16_REL_TOL and gradients as phase 7's; (c)
+              bfloat16 weights (net.cast) with float32 masters
+              (multi_precision), dropout 0.1, clip_global_norm(1.0): 2
+              warm-up and 10 timed steps (the tensor-core pair 12 times
+              a step), ms a step, tokens/s and peak memory beside phase
+              7's TrainStep ms a step, and each stage's ms (forward,
+              backward, clip, Trainer.step, the card synchronised after
+              each); the first loss within 1e-2 of a float32 forward's
+              on the same dropout stream.
+  7h. flash   dot_product_attention(impl="flash") at bench_longcontext's
+              cell (B 1, H 12, T 8192, D 64, causal, bfloat16, BHTD):
+              the tensor-core fused forward and backward once each, the
+              same bits as the fused call; fused_case's checks against
+              the plain version and its kernel / plain / SDPA times and
+              bound, forward and backward.
   8. kernels  one line listing every ported kernel with its launches on
               its main path (phase 5's float32 serve for the CUDA-core
               span and the decode kernel, its bfloat16 serve for the
@@ -484,7 +513,9 @@ no engine outlives its phase:
               5d, 5g, 5h, 5i, 5j, 5k and 5l, the decode entry with its
               launches in 5l; each fused entry with its launches in
               phases 7d-7f, the forward entries with the lockstep cells of
-              7e and 7f; the NMS kernel with its launches in phase 7c2's
+              7e and 7f; each fused entry with its launches in phase
+              7g's eager steps, the tensor-core pair with phase 7h's
+              flash cell; the NMS kernel with its launches in phase 7c2's
               detect), errors, times, bound and library times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
@@ -593,6 +624,14 @@ FAMILY_KEYS = {"tensor_core": ("fused_attention_fwd_tc",
 SPLIT_TARGETS = (1, 2, 8)
 # phase 7 traffic (bench.py bench_bert): batch, sequence, masked per row
 BERT_TRAFFIC = dict(B=32, T=512, M=76)
+# phase 7g: BERT-base MLM through the eager gluon surface: LAMB with a
+# PolyScheduler warmup; float32 steps against TrainStep, bfloat16 timed
+BERT_GLUON = dict(lr=1e-4, wd=0.01, max_update=1000, warmup_steps=10,
+                  warmup_begin_lr=1e-6, f32_steps=3, bf16_warmup=2,
+                  bf16_steps=10, clip=1.0)
+# the 'flash' route's cell: bench.py bench_longcontext's shape (B, H, T,
+# D; causal, bfloat16, BHTD)
+FLASH_CELL = dict(B=1, H=12, T=8192, D=64)
 # phase 7b: GPT-2 774M's training forward and backward, batch and sequence
 GPT2_TRAIN = dict(B=2, T=1024)
 # phase 7c: ResNet-50 v1b training. (a) the float32 card-against-CPU
@@ -4749,6 +4788,329 @@ def phase_bert(torch, fa, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 7g: BERT-base MLM through the eager gluon surface
+# ---------------------------------------------------------------------------
+
+def gluon_bert(mx, **kw):
+    """BertForMaskedLM(cfg) on the default device (the card), initialised
+    by the gluon surface from mx.random.seed(0): the same weights every
+    call."""
+    from mxnet_tpu_torch.models import BertForMaskedLM, bert_base_config
+    cfg = bert_base_config(**kw)
+    require(cfg.num_layers == BERT_LAYERS, "base config changed")
+    net = BertForMaskedLM(cfg)
+    mx.random.seed(0)
+    net.initialize(mx.init.Normal(0.02))
+    return net, cfg
+
+
+def gluon_steps(mx, net, trainer, lfn, batch, steps, clip=None):
+    """The eager loop: record, backward, clip_global_norm (when given),
+    Trainer.step(1); returns the losses as floats."""
+    from mxnet_tpu_torch import autograd, gluon
+    nd = [mx.nd.NDArray(t) for t in batch]
+    params = list(net.collect_params().values())
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            loss = lfn(net(*nd[:4]), nd[4]).mean()
+        loss.backward()
+        if clip is not None:
+            gluon.utils.clip_global_norm(
+                [p.grad() for p in params if p.grad_req != "null"], clip)
+        trainer.step(1)
+        losses.append(float(loss.asscalar()))
+    return losses
+
+
+def gluon_grads(mx, net, lfn, batch):
+    """One eager forward and backward: (loss, {name: gradient})."""
+    from mxnet_tpu_torch import autograd
+    nd = [mx.nd.NDArray(t) for t in batch]
+    with autograd.record():
+        loss = lfn(net(*nd[:4]), nd[4]).mean()
+    loss.backward()
+    g = {n: p.grad()._data.detach().clone()
+         for n, p in net.collect_params().items() if p.grad_req != "null"}
+    net.zero_grad()
+    return float(loss.asscalar()), g
+
+
+def gluon_breakdown(torch, mx, net, trainer, lfn, batch, clip, steps=3):
+    """Host wall ms of each stage of the eager step, the card synchronised
+    after each (so each stage holds its own device time): forward under
+    record(), backward, clip_global_norm, Trainer.step; medians over
+    `steps` steps."""
+    from mxnet_tpu_torch import autograd, gluon
+    nd = [mx.nd.NDArray(t) for t in batch]
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    rows = []
+    for _ in range(steps):
+        t = [time.perf_counter()]
+        with autograd.record():
+            loss = lfn(net(*nd[:4]), nd[4]).mean()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        gluon.utils.clip_global_norm([p.grad() for p in params], clip)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        trainer.step(1)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        rows.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+    med = np.median(np.asarray(rows), axis=0)
+    return dict(zip(("forward", "backward", "clip_global_norm",
+                     "trainer_step"), (float(x) for x in med)))
+
+
+def phase_bert_gluon(torch, fa, card, bert):
+    """BERT-base MLM at bench_bert's traffic driven only through the gluon
+    surface (BertForMaskedLM(cfg), net.initialize, gluon.Trainer with
+    LAMB and a PolyScheduler with warmup, autograd.record, backward,
+    clip_global_norm, Trainer.step): (a) float32, dropout 0, TF32 off:
+    BERT_GLUON f32_steps eager steps against parallel.TrainStep(net, loss,
+    LAMB) from the same weights and batch (the step's scheduler shifted
+    by one: TrainStep reads the rate before it counts the step, the
+    Trainer after; no global-norm clip on either side, TrainStep has
+    none): losses within 1e-5 relative each step, the largest parameter
+    difference after the last step within 1e-4; (b) the fused kernels ran
+    12 forward and 12 backward launches a step (CUDA-core family) in
+    those eager steps, and one eager step on the plain path
+    (attention_impl "torch") against the kernel's, float32 and bfloat16,
+    within phase 7's gates; (c) bfloat16 (net.cast, multi_precision),
+    dropout 0.1, the loop with clip_global_norm(1.0): bf16_warmup steps,
+    then bf16_steps timed (ms a step, tokens/s, peak memory) beside phase
+    7's TrainStep ms at the same traffic; the tensor-core pair 12 times a
+    step; the first loss within 1e-2 of a float32 forward's on the same
+    dropout stream; every loss finite."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, rng
+    from mxnet_tpu_torch.lr_scheduler import PolyScheduler
+    from mxnet_tpu_torch.optimizer import LAMB
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    G = BERT_GLUON
+
+    def sched():
+        return PolyScheduler(G["max_update"], base_lr=G["lr"], pwr=1,
+                             warmup_steps=G["warmup_steps"],
+                             warmup_begin_lr=G["warmup_begin_lr"])
+
+    def trainer(net, **kw):
+        return gluon.Trainer(net.collect_params(), "lamb",
+                             dict(learning_rate=G["lr"], wd=G["wd"],
+                                  lr_scheduler=sched(), **kw))
+
+    lfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {"phase": "bert_gluon", "card": card, "optimizer": "lamb",
+           "schedule": {k: G[k] for k in ("lr", "wd", "max_update",
+                                          "warmup_steps",
+                                          "warmup_begin_lr")}}
+    t0 = time.perf_counter()
+    net, cfg = gluon_bert(mx, dropout=0.0, attention_dropout=0.0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    require(net.device.type == "cuda", "the default device is not the card")
+    batch, lens = bert_batch(torch, cfg, **BERT_TRAFFIC)
+    B, T = batch[0].shape
+    out["traffic"] = {"batch": B, "seq_len": T,
+                      "masked_per_row": batch[3].shape[1]}
+    w0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+
+    # (a) + (b): the main path, float32 through the kernels
+    n = G["f32_steps"]
+    tr = trainer(net)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    eager = gluon_steps(mx, net, tr, lfn, batch, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    want = {k: (BERT_LAYERS * n if k in FAMILY_KEYS["cuda_core"] else 0)
+            for k in launches}
+    require(launches == want, f"eager float32 steps launched {launches}, "
+            f"not {BERT_LAYERS} x {n} of the CUDA-core pair alone")
+    out["launches"] = launches
+    w_eager = {k: p.detach().clone() for k, p in net.named_parameters()}
+    del tr
+    net2, _ = gluon_bert(mx, dropout=0.0, attention_dropout=0.0)
+    with torch.no_grad():
+        for k, p in net2.named_parameters():
+            p.copy_(w0[k])
+    s2 = sched()
+    rng.seed(0)
+    step = TrainStep(net2, lfn, LAMB(learning_rate=G["lr"], wd=G["wd"],
+                                     lr_scheduler=lambda t: s2(t + 1)),
+                     n_net_inputs=4)
+    fused = [float(step(*batch)) for _ in range(n)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(eager, fused)]
+    diff = max((p.detach() - w_eager[k]).abs().max().item()
+               for k, p in net2.named_parameters())
+    out["float32"] = {"eager_losses": eager, "trainstep_losses": fused,
+                      "loss_rel_diff": rel, "max_param_abs_diff": diff,
+                      "eager_ms_per_step": wall / n * 1e3,
+                      "lr_steps": [sched()(t) for t in range(1, n + 1)]}
+    require(all(np.isfinite(eager)), f"non-finite eager losses {eager}")
+    require(max(rel) <= 1e-5, f"eager and TrainStep losses differ by {rel}")
+    require(diff <= 1e-4, f"eager and TrainStep parameters differ by {diff}")
+    del step, net2, w_eager
+    torch.cuda.empty_cache()
+
+    # (b): kernel against plain, one eager step from the same weights
+    def reload(m):
+        with torch.no_grad():
+            for k, p in m.named_parameters():
+                p.copy_(w0[k].to(p.dtype))
+        return m
+
+    reload(net)
+    fa.reset_launches()
+    l32, g32k = gluon_grads(mx, net, lfn, batch)
+    require(dict(fa.LAUNCHES) == {k: (BERT_LAYERS if k in
+                                      FAMILY_KEYS["cuda_core"] else 0)
+                                  for k in fa.LAUNCHES},
+            f"one float32 eager step launched {dict(fa.LAUNCHES)}")
+    plain, _ = gluon_bert(mx, dropout=0.0, attention_dropout=0.0,
+                          attention_impl="torch")
+    reload(plain)
+    fa.reset_launches()
+    p32, g32 = gluon_grads(mx, plain, lfn, batch)
+    require(not any(fa.LAUNCHES.values()), "the plain path launched")
+    top32 = layer_top(g32)
+    r32 = grad_rel(g32k, g32, top32)
+    worst = max(r32, key=r32.get)
+    loss_rel = abs(l32 - p32) / abs(p32)
+    out["float32_kernel_vs_plain"] = {
+        "loss_kernel": l32, "loss_plain": p32, "loss_rel_diff": loss_rel,
+        "grad_rel_worst": r32[worst], "worst_param": worst, "tol": 1e-4,
+        "loss_tol": 1e-5}
+    require(loss_rel <= 1e-5, f"eager kernel and plain losses {l32}, {p32}")
+    require(r32[worst] <= 1e-4, f"eager float32 gradient of {worst} "
+            f"differs by {r32[worst]} of its layer's largest")
+    del g32k
+    for m in (net, plain):
+        m.cast("bfloat16")
+    fa.reset_launches()
+    l16, g16k = gluon_grads(mx, net, lfn, batch)
+    require(dict(fa.LAUNCHES) == {k: (BERT_LAYERS if k in
+                                      FAMILY_KEYS["tensor_core"] else 0)
+                                  for k in fa.LAUNCHES},
+            f"one bfloat16 eager step launched {dict(fa.LAUNCHES)}")
+    p16, g16 = gluon_grads(mx, plain, lfn, batch)
+    diff16 = grad_rel(g16k, g16, top32)
+    own = grad_rel(g16, g32, top32)
+    limit = {k: max(BF16_MODEL_GRAD_TOL, own[k]) for k in diff16}
+    worst = max(diff16, key=lambda k: diff16[k] / limit[k])
+    rel16 = abs(l16 - p16) / abs(p16)
+    out["bfloat16_kernel_vs_plain"] = {
+        "loss_kernel": l16, "loss_plain": p16, "loss_rel_diff": rel16,
+        "loss_tol": BF16_REL_TOL, "grad_rel_worst": diff16[worst],
+        "worst_param": worst, "worst_limit": limit[worst],
+        "tol": BF16_MODEL_GRAD_TOL}
+    require(rel16 <= BF16_REL_TOL, f"bfloat16 eager losses {l16}, {p16}")
+    require(diff16[worst] <= limit[worst], f"bfloat16 eager gradient of "
+            f"{worst} differs by {diff16[worst]}, over {limit[worst]}")
+    del net, plain, g16k, g16, g32
+    torch.cuda.empty_cache()
+
+    # (c): bfloat16 with masters, dropout 0.1, timed
+    net, _ = gluon_bert(mx, dropout=0.1, attention_dropout=0.1)
+    rng.seed(1)
+    nd = [mx.nd.NDArray(t) for t in batch]
+    with torch.no_grad(), autograd.train_mode():
+        first32 = float(lfn(net(*nd[:4]), nd[4]).mean().asscalar())
+    net.cast("bfloat16")
+    tr = trainer(net, multi_precision=True)
+    torch.cuda.reset_peak_memory_stats()
+    rng.seed(1)
+    warm = gluon_steps(mx, net, tr, lfn, batch, G["bf16_warmup"],
+                       clip=G["clip"])
+    n = G["bf16_steps"]
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed_losses = gluon_steps(mx, net, tr, lfn, batch, n, clip=G["clip"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    launches16 = dict(fa.LAUNCHES)
+    want = {k: (BERT_LAYERS * n if k in FAMILY_KEYS["tensor_core"] else 0)
+            for k in launches16}
+    require(launches16 == want, f"eager bfloat16 steps launched "
+            f"{launches16}, not {BERT_LAYERS} x {n} of the tensor-core "
+            "pair alone")
+    out["launches_bf16"] = launches16
+    losses = warm + timed_losses
+    out["bfloat16_breakdown_ms"] = gluon_breakdown(torch, mx, net, tr, lfn,
+                                                   batch, G["clip"])
+    first_rel = abs(losses[0] - first32) / abs(first32)
+    ts_ms = bert["bfloat16_kernel"]["ms_per_step"]
+    out["bfloat16"] = {
+        "card": card, "steps": n, "losses": losses,
+        "first_loss_float32": first32, "first_loss_rel_diff": first_rel,
+        "ms_per_step": dt * 1e3, "tokens_per_s": B * T / dt,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "trainstep_adamw_ms_per_step": ts_ms,
+        "eager_over_trainstep": dt * 1e3 / ts_ms,
+        "note": "TrainStep (phase 7) runs AdamW without a global-norm "
+                "clip; the eager loop LAMB with clip_global_norm"}
+    require(all(np.isfinite(losses)), f"non-finite bfloat16 losses {losses}")
+    require(first_rel <= 1e-2, f"the first bfloat16 loss {losses[0]} is "
+            f"{first_rel} from float32's {first32}")
+    del tr, net
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7h: the 'flash' route at bench_longcontext's shape
+# ---------------------------------------------------------------------------
+
+def phase_flash(torch, F, fa):
+    """dot_product_attention(impl="flash") at bench_longcontext's cell
+    (FLASH_CELL: causal, B 1, H 12, T 8192, D 64, bfloat16, BHTD): the
+    route launches the tensor-core fused forward and backward once each
+    and gives the same bits as the fused call; fused_case holds the
+    kernel to its plain version there (forward and gradients within
+    BF16_REL_TOL) and times kernel, plain and SDPA, forward and
+    backward, beside the bound."""
+    from mxnet_tpu_torch.ops import nn as ops
+    c = FLASH_CELL
+    B, H, T, D = c["B"], c["H"], c["T"], c["D"]
+    out = {"phase": "flash", "shape": dict(c, causal=True,
+                                           dtype="bfloat16", layout="BHTD")}
+    g = torch.Generator(device=DEV).manual_seed(5)
+    q, k, v, do = (torch.randn(B, H, T, D, device=DEV, generator=g,
+                               dtype=torch.bfloat16) for _ in range(4))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    fa.reset_launches()
+    o = ops.dot_product_attention(q, k, v, causal=True, impl="flash")
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    launches = dict(fa.LAUNCHES)
+    want = {k_: (1 if k_ in FAMILY_KEYS["tensor_core"] else 0)
+            for k_ in launches}
+    require(launches == want, f"impl='flash' launched {launches}")
+    o2 = fa.fused_attention(q, k, v, causal=True)
+    grads2 = torch.autograd.grad(o2, (q, k, v), do)
+    require(torch.equal(o, o2) and all(torch.equal(a, b) for a, b in
+                                       zip(grads, grads2)),
+            "impl='flash' differs from the fused call")
+    out["launches"] = launches
+    del o, o2, grads, grads2, q, k, v, do
+    torch.cuda.empty_cache()
+    r = fused_case(torch, F, fa, B, H, T, T, D, "BHTD", True, 0.0, None,
+                   torch.bfloat16, seed=60, timed=True)
+    require(r["route"] == "tensor_core", f"flash cell routed {r['route']}")
+    out["bfloat16"] = r
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7b: GPT-2 774M's training forward (cache=None) and backward
 # ---------------------------------------------------------------------------
 
@@ -6434,7 +6796,7 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
 
 
 def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
-                  nmt_translate, generate, card):
+                  nmt_translate, generate, card, bert_gluon, flash):
     """The fused kernels' four kernels-line entries at the BERT-base BTHD
     cell (the main path's shape), the BHTD and GPT-2 cells beside: the
     CUDA-core pair (float32, with the split-TF32 bound beside; bfloat16
@@ -6446,7 +6808,10 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
     the kernels, and the forwards' lockstep cells of the dtype: NMT's
     decode self-attention (BHTD, one query row over 128 keys), its
     cross-attention (BTHD, one row over 64 padded source keys) and GPT-2
-    774M's decode (BHTD, one row over 256 paged keys)."""
+    774M's decode (BHTD, one row over 256 paged keys); each with its
+    launches in phase 7g's eager gluon steps of its dtype, and the
+    tensor-core pair with phase 7h's 'flash' cell (BHTD, causal, T 8192:
+    its launches, times, errors and bound)."""
     main = fused["bert_bthd"]
     f32, b16 = main["float32"], main["bfloat16"]
     cells = ("bert_bhtd", "gpt2_774m_causal")
@@ -6470,6 +6835,27 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
 
     def train(dtype, key):
         return gpt2_train[dtype]["kernel"]["launches"][key]
+
+    def gluon(key):
+        """Launches in phase 7g's eager steps, and the flash cell."""
+        src = bert_gluon["launches_bf16" if key.endswith("_tc")
+                         else "launches"]
+        extra = {"bert_gluon_launches": src[key]}
+        if key.endswith("_tc"):
+            r = flash["bfloat16"]
+            fwd = "fwd" in key
+            keys = (("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+                    if fwd else ("bwd_ms", "plain_bwd_ms", "library_bwd_ms",
+                                 "bwd_bound_ms", "bwd_bound_by"))
+            extra["flash_cell"] = dict(
+                {k.replace("bwd_", "").replace("_bwd", ""): r[k]
+                 for k in keys},
+                launches=flash["launches"][key],
+                max_abs_err=r["max_abs_err"] if fwd
+                else max(r["grad_max_abs_err"]),
+                rel_err=r["rel_err"] if fwd else max(r["grad_rel_err"]),
+                shape=flash["shape"])
+        return extra
 
     def lockstep(dtype, key):
         """Launches and cells of phases 7d-7f for one entry."""
@@ -6513,7 +6899,8 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
                                                "fused_attention_fwd"),
                      other_cells=other("float32", "ms", "library_ms",
                                        "bound_ms"),
-                     **lockstep("float32", "fused_attention_fwd")),
+                     **lockstep("float32", "fused_attention_fwd"),
+                     **gluon("fused_attention_fwd")),
         kernel_entry("fused_attention_bwd", FUSED_SOURCE,
                      launches["fused_attention_bwd"], bwd_view(f32),
                      bwd_view(d40), card,
@@ -6526,20 +6913,23 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
                                                "fused_attention_bwd"),
                      other_cells=other("float32", "bwd_ms",
                                        "library_bwd_ms", "bwd_bound_ms"),
-                     **lockstep("float32", "fused_attention_bwd")),
+                     **lockstep("float32", "fused_attention_bwd"),
+                     **gluon("fused_attention_bwd")),
         dict(tc_entry("fused_attention_fwd_tc", b16,
                       launches16["fused_attention_fwd_tc"],
                       other("bfloat16", "ms", "library_ms", "bound_ms")),
              gpt2_train_launches=train("bfloat16",
                                        "fused_attention_fwd_tc"),
-             **lockstep("bfloat16", "fused_attention_fwd_tc")),
+             **lockstep("bfloat16", "fused_attention_fwd_tc"),
+             **gluon("fused_attention_fwd_tc")),
         dict(tc_entry("fused_attention_bwd_tc", bwd_view(b16),
                       launches16["fused_attention_bwd_tc"],
                       other("bfloat16", "bwd_ms", "library_bwd_ms",
                             "bwd_bound_ms")),
              gpt2_train_launches=train("bfloat16",
                                        "fused_attention_bwd_tc"),
-             **lockstep("bfloat16", "fused_attention_bwd_tc"))]
+             **lockstep("bfloat16", "fused_attention_bwd_tc"),
+             **gluon("fused_attention_bwd_tc"))]
 
 
 def main():
@@ -6604,6 +6994,9 @@ def main():
     tp = timed("gpt2_tp", phase_gpt2_tp, torch, ra, card, gpt2)
     fused = timed("fused", phase_fused, torch, F, fa)
     bert = timed("bert", phase_bert, torch, fa, card)
+    bert_gluon = timed("bert_gluon", phase_bert_gluon, torch, fa, card,
+                       bert)
+    flash = timed("flash", phase_flash, torch, F, fa)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
     timed("resnet50", phase_resnet50, torch, card)
     ssd = timed("ssd512", phase_ssd512, torch, card)
@@ -6624,7 +7017,7 @@ def main():
         span_sq1_ms_bf16=decode["bfloat16"]["span_sq1_ms"]))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
                              gpt2_train, nmt_train, nmt_translate, generate,
-                             card)
+                             card, bert_gluon, flash)
     kernels.append(nms_entry(ssd, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds, "card": card})

@@ -3,12 +3,15 @@
 Counterpart of mxnet_tpu/gluon/loss.py `Loss`, `SoftmaxCrossEntropyLoss`
 and its helpers `_softmax_ce`, `_apply_weighting` and `_mean_nonbatch`:
 per-sample losses, the mean over every axis but the batch axis (the
-reference's reduction convention). The other losses are not ported yet.
+reference's reduction convention). The reference's other losses are in
+gluon/loss.py. A loss is a gluon HybridBlock over tensors: it takes
+NDArrays too.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
+
+from .nn.layers import TensorBlock
 
 __all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
@@ -35,7 +38,7 @@ def _softmax_ce(pred, label, axis, sparse, from_logits):
     return -(pred * label).sum(dim=axis)
 
 
-class Loss(nn.Module):
+class Loss(TensorBlock):
     """Base loss (parity: gluon.loss.Loss)."""
 
     def __init__(self, weight=1.0, batch_axis=0):

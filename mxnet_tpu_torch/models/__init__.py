@@ -2,7 +2,7 @@
 BERT MLM, Transformer NMT)."""
 from .bert import (BertConfig, BertForMaskedLM, BertModel, bert_base_config,
                    bert_large_config)
-from .convert import init_params, load_jax_params
+from .convert import init_params, load_gluon_params, load_jax_params
 from .gpt2 import (AdapterBatch, GPT2Config, GPT2ForCausalLM, GPT2Model,
                    gpt2_774m_config, gpt2_medium_config, gpt2_small_config,
                    gpt2_xl_config)
@@ -15,5 +15,6 @@ __all__ = ["AdapterBatch", "BertConfig", "BertForMaskedLM", "BertModel", "GPT2Co
            "PagedKVCache", "TransformerNMT", "bert_base_config",
            "bert_large_config",
            "gpt2_774m_config", "gpt2_medium_config", "gpt2_small_config",
-           "gpt2_xl_config", "init_params", "load_jax_params",
+           "gpt2_xl_config", "init_params", "load_gluon_params",
+           "load_jax_params",
            "gather_kv_pages", "nmt_base_config", "scatter_kv_pages"]

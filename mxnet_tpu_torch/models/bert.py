@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..base import MXNetError, not_ported, resolve_device
+from ..nn.layers import TensorBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm, TransformerEncoder
 from ..ops import nn as _ops
 from .convert import init_params
@@ -76,7 +77,7 @@ def bert_large_config(**kw):
     return BertConfig(**kw)
 
 
-class BertModel(nn.Module):
+class BertModel(TensorBlock):
     """Embeddings + transformer encoder. The pooler (the reference's
     use_pooler=True, which only BertForPretraining needs) is not ported
     yet."""
@@ -113,7 +114,7 @@ class BertModel(nn.Module):
         return self.encoder(x, mask)
 
 
-class _MLMHead(nn.Module):
+class _MLMHead(TensorBlock):
     """Transform + decoder (weight-tied to the word embedding) + bias."""
 
     def __init__(self, config, word_embed, device=None, dtype=None):
@@ -144,7 +145,7 @@ class _MLMHead(nn.Module):
         return F.linear(h, self._word_embed.weight, self.decoder_bias)
 
 
-class BertForMaskedLM(nn.Module):
+class BertForMaskedLM(TensorBlock):
     """BERT with the MLM head.
 
     The parameters live on `device` (default: the CUDA card; raises

@@ -10,6 +10,13 @@ BERT). The port's modules carry the same names, so the copy is by name;
 any missing, extra or mis-shaped key raises. The tied LM head / MLM
 decoder has no weight of its own in either package and stays tied.
 
+`load_gluon_params(block, arrays, ctx)` does the same through the gluon
+surface: it fills `block.collect_params()` by name, so it also takes a
+user's Block with its own Parameters and layers whose shapes are still
+deferred or not yet initialised (they land on `ctx`, else where the
+parameter lives, else the default device); a missing, extra or
+mis-shaped name raises.
+
 `init_params(model, seed, std)` draws weights from N(0, std) with a
 generator seeded on the model's own device (gamma 1; beta, biases and
 BERT's `decoder_bias` 0, as the reference's `init="zeros"`; BatchNorm's
@@ -23,7 +30,7 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["load_jax_params", "init_params"]
+__all__ = ["load_jax_params", "load_gluon_params", "init_params"]
 
 
 def load_jax_params(model, arrays):
@@ -42,6 +49,32 @@ def load_jax_params(model, arrays):
         with torch.no_grad():
             p.copy_(torch.from_numpy(np.array(a)))
     return model
+
+
+def load_gluon_params(block, arrays, ctx=None):
+    from .. import device as _device
+    params = block.collect_params()
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise MXNetError(f"load_gluon_params: missing {missing}, "
+                         f"unexpected {extra}")
+    for name, p in params.items():
+        a = np.asarray(arrays[name])
+        known = p._shape_is_known
+        if tuple(a.shape) != p.shape and (known or len(a.shape) != len(
+                p.shape) or any(s and s != t for s, t in zip(p.shape,
+                                                               a.shape))):
+            raise MXNetError(f"load_gluon_params: {name} has shape "
+                             f"{tuple(a.shape)}, the block wants {p.shape}")
+        dev = _device.to_torch(ctx) if ctx is not None else (
+            p.var.device if not p.var.is_meta else None)
+        t = torch.from_numpy(np.array(a))
+        if p.var.is_meta and p._deferred_init is None:
+            p._deferred_init = (None, dev if dev is not None
+                                else _device.to_torch(None), False)
+        p.set_data(t if dev is None else t.to(dev))
+    return block
 
 
 def init_params(model, seed=0, std=0.02):

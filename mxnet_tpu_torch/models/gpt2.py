@@ -52,9 +52,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch import nn
 
+from .. import autograd as _ag
 from ..base import MXNetError, not_ported, resolve_device
+from ..nn.layers import TensorBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops import nn as _ops
 from ..ops.ragged_attention import (ragged_decode_attention,
@@ -191,7 +192,7 @@ def gpt2_xl_config(**kw):              # 1.5B
     return GPT2Config(**kw)
 
 
-class GPT2Attention(nn.Module):
+class GPT2Attention(TensorBlock):
     """Causal self-attention: over the chunk itself (no cache, training),
     over a lockstep cache (generate) or over a ragged paged KV cache
     (serving). tp=(rank, size): shard `rank` of a
@@ -235,7 +236,8 @@ class GPT2Attention(nn.Module):
             # kernel reads through its strides
             out = _ops.dot_product_attention(
                 q, k, v, causal=True,
-                dropout_p=self._dropout if self.training else 0.0,
+                dropout_p=self._dropout if _ag.training_active(self)
+                else 0.0,
                 impl=self._impl, layout="BTHD")
             out = out.reshape(b, t, h * d)
             return self._project(self.proj, 3, out, layer_idx,
@@ -307,7 +309,7 @@ class GPT2Attention(nn.Module):
         return self._attend(q, k, v, cache, layer_idx)[0]
 
 
-class GPT2Block(nn.Module):
+class GPT2Block(TensorBlock):
     """Pre-LN transformer block (GPT-2 style)."""
 
     def __init__(self, cfg, device, dtype, tp=(0, 1)):
@@ -344,7 +346,7 @@ class GPT2Block(nn.Module):
         return self.fc2(h, bias=False)
 
 
-class GPT2Model(nn.Module):
+class GPT2Model(TensorBlock):
     """Embeddings + pre-LN blocks + final LN. tp=(rank, size) builds
     shard `rank` of a size-way tensor-parallel split (parallel/tp.py
     shard_gpt2 fills it; tp_forward runs it)."""
@@ -458,7 +460,7 @@ def tp_forward(shards, group, inputs, caches, adapters=None):
     return _ops.fully_connected(h, shards[0].word_embed.weight)
 
 
-class GPT2ForCausalLM(nn.Module):
+class GPT2ForCausalLM(TensorBlock):
     """GPT-2 with the weight-tied LM head.
 
     The parameters live on `device` (default: the CUDA card; raises

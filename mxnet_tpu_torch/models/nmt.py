@@ -27,9 +27,9 @@ the reference does.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..base import MXNetError, resolve_device
+from ..nn.layers import TensorBlock
 from ..nn import Dropout, Embedding, LayerNorm
 from ..nn.layers import _in_dtype
 from ..nn.transformer import MultiHeadAttention, PositionwiseFFN
@@ -87,7 +87,7 @@ def _drop(dropout, h):
     return dropout(h) if dropout is not None else h
 
 
-class _EncoderLayer(nn.Module):
+class _EncoderLayer(TensorBlock):
     """Pre-LN encoder layer."""
 
     def __init__(self, c, **kw):
@@ -105,7 +105,7 @@ class _EncoderLayer(nn.Module):
         return x + _drop(self.dropout, self.ffn(self.ln2(x)))
 
 
-class _DecoderLayer(nn.Module):
+class _DecoderLayer(TensorBlock):
     """Pre-LN decoder layer: causal self-attention (over the chunk, or
     over a lockstep cache), cross-attention over the encoder memory, FFN."""
 
@@ -151,7 +151,7 @@ class _DecoderLayer(nn.Module):
         return x, cache
 
 
-class TransformerNMT(nn.Module):
+class TransformerNMT(TensorBlock):
     """Encoder-decoder transformer with the target embedding tied to the
     output layer. The parameters live on `device` (default: the CUDA
     card; raises without one) in `config.dtype` and start as seeded

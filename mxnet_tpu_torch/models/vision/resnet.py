@@ -23,9 +23,9 @@ updates the running statistics once a step.
 """
 from __future__ import annotations
 
-from torch import nn
 
 from ...base import MXNetError, resolve_device
+from ...nn.layers import TensorBlock
 from ...initializer import Xavier, initialize
 from ...nn import (Activation, BatchNorm, Conv2D, Dense, Flatten,
                    GlobalAvgPool2D, HybridSequential, MaxPool2D)
@@ -47,7 +47,7 @@ def _conv3x3(channels, stride, in_channels, **kw):
                   use_bias=False, in_channels=in_channels, **kw)
 
 
-class BasicBlockV1(nn.Module):
+class BasicBlockV1(TensorBlock):
     """conv3x3-BN-relu-conv3x3-BN + shortcut."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -69,7 +69,7 @@ class BasicBlockV1(nn.Module):
         return _ops.activation(self.body(x) + residual, "relu")
 
 
-class BottleneckV1(nn.Module):
+class BottleneckV1(TensorBlock):
     """1x1-3x3-1x1 bottleneck. stride_in_1x1=True is the classic v1
     (stride on the first 1x1); False is v1b (stride on the 3x3)."""
 
@@ -99,7 +99,7 @@ class BottleneckV1(nn.Module):
         return _ops.activation(self.body(x) + residual, "relu")
 
 
-class BasicBlockV2(nn.Module):
+class BasicBlockV2(TensorBlock):
     """Pre-activation basic block."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -123,7 +123,7 @@ class BasicBlockV2(nn.Module):
         return self.conv2(x) + residual
 
 
-class BottleneckV2(nn.Module):
+class BottleneckV2(TensorBlock):
     """Pre-activation bottleneck."""
 
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -162,7 +162,7 @@ def _make_layer(block, layers, channels, stride, in_channels, **kw):
     return layer
 
 
-class _ResNet(nn.Module):
+class _ResNet(TensorBlock):
     def _finish(self):
         initialize(self, Xavier(), seed=0)
         self.eval()

@@ -25,9 +25,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...base import MXNetError, resolve_device
+from ...nn.layers import TensorBlock
 from ...initializer import Xavier, initialize
 from ...loss import Loss
 from ...nn import BatchNorm, Conv2D, HybridSequential
@@ -39,7 +39,7 @@ __all__ = ["SSD", "SSDMultiBoxLoss", "ssd_512_resnet50_v1",
            "ssd_512_resnet50_v1_voc"]
 
 
-class _ExtraBlock(nn.Module):
+class _ExtraBlock(TensorBlock):
     """1x1 squeeze + 3x3/2 expand (the SSD extra-layer recipe)."""
 
     def __init__(self, squeeze, expand, in_channels, device=None):
@@ -57,7 +57,7 @@ class _ExtraBlock(nn.Module):
         return _ops.activation(self.body(x), "relu")
 
 
-class SSD(nn.Module):
+class SSD(TensorBlock):
     """Generic SSD over a resnet50_v1b backbone.
 
     forward(x) -> (cls_preds (B, N, C+1), box_preds (B, N*4),

@@ -14,11 +14,10 @@ the global max pools, ReflectionPad2D and Conv2D's fused `activation`.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..base import MXNetError
 from ..ops import nn as _ops
-from .layers import _param
+from .layers import TensorBlock, _param
 
 __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D"]
 
@@ -27,7 +26,7 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-class Conv2D(nn.Module):
+class Conv2D(TensorBlock):
     """y = conv2d(x, weight) (+ bias)."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
@@ -60,7 +59,7 @@ class Conv2D(nn.Module):
                 f"stride={self._strides}, padding={self._padding}")
 
 
-class _Pooling(nn.Module):
+class _Pooling(TensorBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
                  pool_type, count_include_pad=True, layout="NCHW"):
         super().__init__()

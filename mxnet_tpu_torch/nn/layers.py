@@ -13,6 +13,14 @@ package). BatchNorm's running statistics are parameters that do not
 require grad (the reference's grad_req "null"), so the optimizer of
 parallel.TrainStep never sees them. Inference paths (the serving engine)
 run under torch.no_grad.
+
+Every layer is a gluon HybridBlock whose forward is written over tensors
+(gluon/block.py): it also takes NDArrays, and gains `collect_params()` /
+`initialize()`. Dropout and BatchNorm's batch statistics are on when
+`autograd.training_active(layer)` holds: the layer is in train() mode
+(as parallel.TrainStep sets it) or the autograd scope is training (a
+gluon user under `autograd.record()`), so TrainStep and the serving
+engine run as before and a gluon user gets the reference's behaviour.
 """
 from __future__ import annotations
 
@@ -21,11 +29,20 @@ import functools
 import torch
 from torch import nn
 
+from .. import autograd as _ag
 from ..base import MXNetError
+from ..gluon.block import Block, HybridBlock
 from ..ops import nn as _ops
 
 __all__ = ["Dense", "BatchNorm", "LayerNorm", "Embedding", "Dropout",
-           "Flatten", "Activation", "HybridSequential"]
+           "Flatten", "Activation", "HybridSequential", "Sequential",
+           "TensorBlock"]
+
+
+class TensorBlock(HybridBlock):
+    """A HybridBlock whose forward takes and returns tensors."""
+
+    _forward_kind = "tensor"
 
 
 def _param(*shape, device, dtype, requires_grad=True):
@@ -41,7 +58,7 @@ def _in_dtype(value, dtype):
     return float(torch.tensor(value, dtype=dtype))
 
 
-class Dense(nn.Module):
+class Dense(TensorBlock):
     """y = x @ weight.T + bias with weight (units, in_units).
 
     `quantize_(codes, scale)` turns the layer into a w8 layer for
@@ -76,7 +93,7 @@ class Dense(nn.Module):
         return _ops.fully_connected(x, self.weight, b)
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(TensorBlock):
     """Batch normalisation over `axis` with running statistics (parity:
     gluon.nn.BatchNorm). In train() mode (and not `use_global_stats`)
     the batch's statistics normalise and the running ones are updated
@@ -106,7 +123,8 @@ class BatchNorm(nn.Module):
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             eps=self._epsilon, momentum=self._momentum,
             fix_gamma=not self._scale,
-            use_global_stats=self._use_global_stats, training=self.training,
+            use_global_stats=self._use_global_stats,
+            training=_ag.training_active(self),
             axis=self._axis)
         if not isinstance(out, tuple):
             return out
@@ -128,7 +146,7 @@ class BatchNorm(nn.Module):
                 f"in_channels={self.gamma.shape[0]}")
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(TensorBlock):
     def __init__(self, in_channels, epsilon=1e-5, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -140,7 +158,7 @@ class LayerNorm(nn.Module):
         return _ops.layer_norm(x, self.gamma, self.beta, self.epsilon)
 
 
-class Embedding(nn.Module):
+class Embedding(TensorBlock):
     """Row lookup into weight (input_dim, output_dim). Indices must lie
     in range: unlike jnp.take, torch raises (CPU) or asserts on the
     device (CUDA) for an index past the table."""
@@ -155,27 +173,26 @@ class Embedding(nn.Module):
         return self.weight[ids]
 
 
-class Dropout(nn.Module):
-    """Inverted dropout, active only in train() mode (the reference's is
-    active only under autograd training). Draws from the current
-    generator (mxnet_tpu_torch.rng)."""
+class Dropout(TensorBlock):
+    """Inverted dropout, active in train() mode or under autograd
+    training. Draws from the current generator (mxnet_tpu_torch.rng)."""
 
     def __init__(self, rate):
         super().__init__()
         self.rate = float(rate)
 
     def forward(self, x):
-        return _ops.dropout(x, self.rate) if self.training else x
+        return _ops.dropout(x, self.rate) if _ag.training_active(self) else x
 
 
-class Flatten(nn.Module):
+class Flatten(TensorBlock):
     """(B, ...) -> (B, -1) (parity: gluon.nn.Flatten)."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
 
-class Activation(nn.Module):
+class Activation(TensorBlock):
     """ops.nn.activation as a layer (parity: gluon.nn.Activation)."""
 
     def __init__(self, activation):
@@ -189,9 +206,23 @@ class Activation(nn.Module):
         return self._act
 
 
-class HybridSequential(nn.Sequential):
+class HybridSequential(HybridBlock, nn.Sequential):
     """Children run in order and are named 0, 1, ... as the reference's
-    (parity: gluon.nn.HybridSequential; `add` appends)."""
+    (parity: gluon.nn.HybridSequential; `add` appends). Its inputs pass
+    through unchanged: each child adapts them to its own kind."""
+
+    _forward_kind = "any"
+
+    def add(self, *blocks):
+        for b in blocks:
+            self.append(b)
+        return self
+
+
+class Sequential(Block, nn.Sequential):
+    """Parity: gluon.nn.Sequential."""
+
+    _forward_kind = "any"
 
     def add(self, *blocks):
         for b in blocks:

@@ -7,21 +7,21 @@ ln1/ln2, layer{i}) so that models/convert.load_jax_params copies by
 name. The attention core is ops.nn.dot_product_attention with
 layout="BTHD": the head split is a free reshape and the fused kernel
 reads the (B, T, H, D) view through its strides. Dropout (and attention
-dropout) is active only in train() mode.
+dropout) is active in train() mode or under autograd training.
 """
 from __future__ import annotations
 
-from torch import nn
 
+from .. import autograd as _ag
 from ..base import MXNetError
 from ..ops import nn as _ops
-from .layers import Dense, Dropout, LayerNorm
+from .layers import Dense, Dropout, LayerNorm, TensorBlock
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN",
            "TransformerEncoderLayer", "TransformerEncoder"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(TensorBlock):
     """Multi-head attention over (B, T, C) inputs. attention_impl as in
     ops.nn.dot_product_attention ('auto' | 'fused' | 'torch' | 'xla')."""
 
@@ -58,13 +58,13 @@ class MultiHeadAttention(nn.Module):
         v = self._split(self.value(kv), bthd=True)
         out = _ops.dot_product_attention(
             q, k, v, mask, causal=self._causal,
-            dropout_p=self._dropout if self.training else 0.0,
+            dropout_p=self._dropout if _ag.training_active(self) else 0.0,
             impl=self._impl, layout="BTHD")
         b, t, h, d = out.shape
         return self.proj(out.reshape(b, t, h * d))
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(TensorBlock):
     """fc1 -> activation -> dropout -> fc2."""
 
     def __init__(self, units, hidden_size, activation="gelu", dropout=0.0,
@@ -83,7 +83,7 @@ class PositionwiseFFN(nn.Module):
         return self.fc2(h)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(TensorBlock):
     """Post-LN (BERT-style) or pre-LN encoder layer."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
@@ -113,7 +113,7 @@ class TransformerEncoderLayer(nn.Module):
         return self.ln2(x + self._drop(self.ffn(x)))
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(TensorBlock):
     """A stack of encoder layers named layer0, layer1, ..."""
 
     def __init__(self, num_layers, units, hidden_size, num_heads,

@@ -38,6 +38,7 @@ import torch
 
 from ..base import MXNetError, not_ported
 from . import _build
+from . import registry as _registry
 
 __all__ = ["box_iou", "box_nms", "multibox_prior", "multibox_target",
            "multibox_detection", "roi_align", "nms_keep", "LAUNCHES",
@@ -424,3 +425,11 @@ def roi_align(data, rois, pooled_size=(7, 7), spatial_scale=1.0,
               sample_ratio=2, aligned=False):
     """contrib/roi_align.cc (Mask R-CNN ROIAlign): not ported yet."""
     raise not_ported("roi_align")
+
+
+# the registered ops (mx.nd.*), the reference's names over the functions
+# above; roi_align raises not_ported as its function does
+for _name in ("box_iou", "box_nms", "multibox_prior", "multibox_target",
+              "multibox_detection", "roi_align"):
+    _registry.op(_name)(globals()[_name])
+del _name

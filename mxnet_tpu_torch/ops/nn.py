@@ -8,10 +8,11 @@ package leaves them to XLA (no Pallas body); attention goes to the fused
 kernel (ops/fused_attention.py) where it takes the call. BatchNorm and
 pooling are plain torch ops that reproduce the reference's arithmetic.
 
-The port has no autograd training scope: where the reference applies
-dropout only under `autograd.record(train_mode=True)`, the caller here
-passes the rate only in training (the layers pass 0 in eval mode).
-Random draws come from mxnet_tpu_torch.rng.
+These functions take the dropout rate as given: the layers pass it only
+in training (autograd.training_active). The registered forms at the end
+of the module (mx.nd.Dropout, mx.nd.BatchNorm, ...) follow the
+reference's autograd training flag. Random draws come from
+mxnet_tpu_torch.rng.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from . import fused_attention as _fa
 
 __all__ = ["fully_connected", "convolution", "batch_norm", "layer_norm",
            "activation", "gelu", "dropout", "pooling",
-           "dot_product_attention"]
+           "dot_product_attention", "flash_eligible"]
 
 
 def fully_connected(x, weight, bias=None, scale=None):
@@ -216,7 +217,14 @@ def pooling(x, kernel=None, pool_type="max", global_pool=False, stride=None,
     return s / F.avg_pool2d(ones, kernel, stride, divisor_override=1)
 
 
-_ATTN_IMPLS = ("auto", "fused", "torch", "xla")
+_ATTN_IMPLS = ("auto", "fused", "torch", "xla", "flash")
+
+
+def flash_eligible(q, dropout_p):
+    """The reference's gate for the 'flash' route (ops/attention.py
+    `flash_eligible`): no dropout and a float dtype."""
+    return dropout_p == 0.0 and q.dtype in (torch.float32, torch.bfloat16,
+                                            torch.float16)
 
 
 def _einsum_attention(q, k, v, mask, scale, causal, dropout_p, bthd):
@@ -256,13 +264,17 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
     from the current generator when dropout_p > 0; 'torch' takes the same
     route through the kernel's plain PyTorch version (the reference the
     kernel is held to). Otherwise 'auto', 'torch' and 'xla' take one
-    plain softmax attention, and 'fused' raises. 'flash', 'ring' and
-    'ulysses' are not ported.
+    plain softmax attention, and 'fused' raises. 'flash' is the
+    reference's long-sequence route (`flash_eligible`: no dropout, a
+    float dtype): the fused kernel is tiled and takes any T, so an
+    eligible call it supports goes there; any other call takes the plain
+    softmax attention, which gives the values of the reference's
+    blockwise scan. 'ring' and 'ulysses' are not ported.
 
     mask: (B, Tk) key padding, or a boolean mask broadcastable to
     (B, H, Tq, Tk); True = attend. Fully masked rows yield zeros.
     dropout_p applies as given: pass 0 outside training."""
-    if impl in ("flash", "ring", "ulysses"):
+    if impl in ("ring", "ulysses"):
         raise not_ported(f"dot_product_attention impl={impl!r}")
     if impl not in _ATTN_IMPLS:
         raise MXNetError(f"unknown attention impl {impl!r}")
@@ -271,7 +283,12 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
     if mask is not None and mask.dim() == 2:
         # (B, Tk) key padding -> canonical (B, 1, 1, Tk) for every path
         mask = mask[:, None, None, :]
-    if impl != "xla":
+    if impl == "flash":
+        if flash_eligible(q, dropout_p) and _fa.supported(q, k, mask,
+                                                          layout=layout):
+            return _fa.fused_attention(q, k, v, mask=mask, scale=scale,
+                                       causal=causal, layout=layout)
+    elif impl != "xla":
         if _fa.supported(q, k, mask, layout=layout):
             seed = _rng.seed_words(q.device) if dropout_p > 0 else None
             return _fa.fused_attention(
@@ -284,3 +301,279 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
                              "kernel does not take this call")
     return _einsum_attention(q, k, v, mask, scale, causal, dropout_p,
                              layout == "BTHD")
+
+
+# ---------------------------------------------------------------------------
+# the registered ops (mx.nd.*): the reference's names and signatures over
+# the functions above. Where the reference follows autograd's training
+# flag (Dropout, BatchNorm's batch statistics, rrelu, attention dropout),
+# so do these: they are the NDArray surface, not the port's layers.
+# ---------------------------------------------------------------------------
+
+from .. import autograd as _ag  # noqa: E402
+from .registry import not_ported_op, op  # noqa: E402
+
+
+@op("FullyConnected")
+def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                   flatten=True):
+    x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 \
+        else data
+    return fully_connected(x, weight, None if no_bias else bias)
+
+
+@op("Convolution")
+def Convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False, layout=None, cudnn_tune=None, cudnn_off=False,
+                workspace=None):
+    return convolution(data, weight, None if no_bias else bias, stride, pad,
+                       dilate, num_group)
+
+
+not_ported_op("Deconvolution")
+not_ported_op("RNN")
+
+
+@op("BatchNorm")
+def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
+              momentum=0.9, fix_gamma=True, use_global_stats=False,
+              output_mean_var=False, axis=1, cudnn_off=False):
+    training = _ag.is_training() and not use_global_stats
+    out = batch_norm(data, gamma, beta, moving_mean, moving_var, eps=eps,
+                     momentum=momentum, fix_gamma=fix_gamma,
+                     use_global_stats=use_global_stats, training=training,
+                     axis=axis)
+    if isinstance(out, tuple) or not output_mean_var:
+        return out
+    return (out, moving_mean.float().to(moving_mean.dtype),
+            moving_var.float().to(moving_var.dtype))
+
+
+@op("LayerNorm")
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    x32 = data.float()
+    mean = x32.mean(dim=axis, keepdim=True)
+    var = x32.var(dim=axis, unbiased=False, keepdim=True)
+    y = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
+    bshape = [1] * data.dim()
+    bshape[axis] = data.shape[axis]
+    y = y * gamma.reshape(bshape) + beta.reshape(bshape)
+    if output_mean_var:
+        return (y, mean.squeeze(axis), var.squeeze(axis))
+    return y
+
+
+@op("GroupNorm")
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5,
+              output_mean_var=False):
+    n, c = data.shape[0], data.shape[1]
+    xg = data.float().reshape(n, num_groups, c // num_groups, -1)
+    mean = xg.mean(dim=(2, 3), keepdim=True)
+    var = xg.var(dim=(2, 3), unbiased=False, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    y = y.to(data.dtype)
+    bshape = (1, c) + (1,) * (data.dim() - 2)
+    y = y * gamma.reshape(bshape) + beta.reshape(bshape)
+    if output_mean_var:
+        return (y, mean.reshape(n, num_groups), var.reshape(n, num_groups))
+    return y
+
+
+@op("InstanceNorm")
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    red = tuple(range(2, data.dim()))
+    x32 = data.float()
+    mean = x32.mean(dim=red, keepdim=True)
+    var = x32.var(dim=red, unbiased=False, keepdim=True)
+    y = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
+    bshape = (1, data.shape[1]) + (1,) * (data.dim() - 2)
+    return y * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@op("L2Normalization")
+def L2Normalization(data, eps=1e-10, mode="instance"):
+    red = {"instance": tuple(range(1, data.dim())), "channel": (1,),
+           "spatial": tuple(range(2, data.dim()))}.get(mode)
+    if red is None:
+        raise MXNetError(f"unknown L2Normalization mode {mode}")
+    return data / torch.sqrt((data * data).sum(dim=red, keepdim=True) + eps)
+
+
+@op("LRN")
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalisation across channels (NC...)."""
+    half = nsize // 2
+    sq = (data * data).movedim(1, -1)
+    padded = F.pad(sq, (half, half))
+    ssum = padded.unfold(-1, nsize, 1).sum(-1).movedim(-1, 1)
+    return data / torch.pow(knorm + alpha / nsize * ssum, beta)
+
+
+@op("rms_norm")
+def rms_norm(data, gamma, axis=-1, eps=1e-6):
+    x32 = data.float()
+    ms = (x32 * x32).mean(dim=axis, keepdim=True)
+    y = (x32 * torch.rsqrt(ms + eps)).to(data.dtype)
+    bshape = [1] * data.dim()
+    bshape[axis] = data.shape[axis]
+    return y * gamma.reshape(bshape)
+
+
+_MORE_ACTS = {
+    "sigmoid": torch.sigmoid, "softrelu": F.softplus,
+    "softsign": lambda x: x / (1 + x.abs()),
+    "log_sigmoid": F.logsigmoid,
+    "mish": lambda x: x * torch.tanh(F.softplus(x)),
+    "silu": F.silu, "swish": F.silu}
+
+
+@op("Activation")
+def Activation(data, act_type="relu"):
+    """Every act_type of the reference's `_act`."""
+    fn = _MORE_ACTS.get(act_type)
+    return fn(data) if fn is not None else activation(data, act_type)
+
+
+@op("LeakyReLU")
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334):
+    x = data
+    if act_type == "leaky":
+        return torch.where(x > 0, x, slope * x)
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() < x.dim():
+            g = g.reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x > 0, x, g * x)
+    if act_type == "elu":
+        return torch.where(x > 0, x, slope * torch.expm1(x))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+    if act_type == "gelu":
+        return F.gelu(x)
+    if act_type == "rrelu":
+        if _ag.is_training():
+            s = torch.rand(x.shape, device=x.device,
+                           generator=_rng.generator(x.device))
+            s = (s * (upper_bound - lower_bound) + lower_bound).to(x.dtype)
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(x > 0, x, s * x)
+    raise MXNetError(f"unknown LeakyReLU act_type {act_type}")
+
+
+op("gelu")(gelu)
+softplus = op("softplus")(lambda x: F.softplus(x))
+silu = op("silu")(lambda x: F.silu(x))
+hard_sigmoid = op("hard_sigmoid")(
+    lambda x, alpha=0.2, beta=0.5: torch.clamp(alpha * x + beta, 0, 1))
+log_sigmoid = op("log_sigmoid")(lambda x: F.logsigmoid(x))
+
+
+@op("softmax")
+def softmax(data, length=None, axis=-1, temperature=None, use_length=False):
+    x = data
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    if length is not None:
+        pos = torch.arange(x.shape[axis], device=x.device)
+        bshape = [1] * x.dim()
+        bshape[axis] = x.shape[axis]
+        mask = pos.reshape(bshape) < length.reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+        x = x.masked_fill(~mask, -math.inf)
+        out = torch.softmax(x, dim=axis)
+        return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                                  device=out.device))
+    return torch.softmax(x, dim=axis)
+
+
+@op("log_softmax")
+def log_softmax(data, axis=-1, temperature=None):
+    x = data
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    return torch.log_softmax(x, dim=axis)
+
+
+@op("masked_softmax")
+def masked_softmax(data, mask, axis=-1, temperature=1.0):
+    x = data / temperature if temperature != 1.0 else data
+    mask = mask.bool()
+    out = torch.softmax(x.masked_fill(~mask, -math.inf), dim=axis)
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
+
+
+@op("softmin")
+def softmin(data, axis=-1):
+    return torch.softmax(-data, dim=axis)
+
+
+@op("softmax_cross_entropy")
+def softmax_cross_entropy(data, label):
+    lsm = torch.log_softmax(data, dim=-1)
+    return -torch.gather(lsm, -1, label.long()[..., None])[..., 0].sum()
+
+
+@op("SoftmaxOutput")
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1,
+                  multi_output=False, use_ignore=False, preserve_shape=False,
+                  normalization="null", out_grad=False, smooth_alpha=0.0):
+    return torch.softmax(data, dim=-1)
+
+
+@op("Dropout")
+def Dropout(data, p=0.5, mode="training", axes=None, cudnn_off=False):
+    """Inverted dropout, active under autograd training (or
+    mode='always'), from the current generator."""
+    if p <= 0 or (mode != "always" and not _ag.is_training()):
+        return data
+    shape = data.shape
+    if axes:
+        shape = tuple(1 if i in axes else s for i, s in enumerate(shape))
+    u = torch.rand(shape, device=data.device,
+                   generator=_rng.generator(data.device))
+    return torch.where(u < 1.0 - p, data / (1.0 - p),
+                       torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+@op("Pooling")
+def Pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True, cudnn_off=False, layout=None):
+    return pooling(data, kernel, pool_type, global_pool, stride, pad,
+                   pooling_convention, count_include_pad)
+
+
+@op("UpSampling")
+def UpSampling(data, scale=2, sample_type="nearest", num_args=1):
+    if sample_type != "nearest":
+        raise MXNetError("UpSampling bilinear: use BilinearResize2D")
+    return data.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                  dim=3)
+
+
+@op("BilinearResize2D")
+def BilinearResize2D(data, height=None, width=None, scale_height=None,
+                     scale_width=None, mode="size", align_corners=True):
+    """Half-pixel bilinear resize (jax.image.resize's; antialiased when it
+    shrinks, as jax's is)."""
+    h, w = data.shape[2], data.shape[3]
+    if height is None:
+        height, width = int(h * scale_height), int(w * scale_width)
+    return F.interpolate(data, size=(height, width), mode="bilinear",
+                         align_corners=False,
+                         antialias=height < h or width < w)
+
+
+@op("dot_product_attention")
+def _dot_product_attention_op(q, k, v, mask=None, scale=None, causal=False,
+                              dropout_p=0.0, impl="auto", layout="BHTD"):
+    """dot_product_attention with the reference's rule: dropout only
+    under autograd training."""
+    return dot_product_attention(
+        q, k, v, mask, scale, causal,
+        dropout_p if _ag.is_training() else 0.0, impl, layout)

@@ -207,7 +207,9 @@ def test_dot_product_attention_routes(jax_pair):
     """A key-padding call goes to the fused function (its plain version
     on the CPU); a per-query mask goes to the plain softmax attention,
     which matches the reference's 'xla' path, and raises where 'fused'
-    is asked for; unported impls raise."""
+    is asked for; 'flash' takes the fused function like 'auto' (its
+    route is held to the reference in test_torch_gluon.py); unported
+    impls raise."""
     r = np.random.default_rng(4)
     q, k, v = (r.standard_normal((2, 16, 2, 64)).astype(np.float32)
                for _ in range(3))
@@ -224,7 +226,11 @@ def test_dot_product_attention_routes(jax_pair):
                                         layout="BTHD")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    for impl in ("flash", "ring", "ulysses"):
+    got = port_nn.dot_product_attention(tq, tk, tv, kp, impl="flash",
+                                        layout="BTHD")
+    assert torch.equal(got, fa.fused_attention(tq, tk, tv, mask=kp,
+                                               layout="BTHD"))
+    for impl in ("ring", "ulysses"):
         with pytest.raises(MXNetError, match="not ported"):
             port_nn.dot_product_attention(tq, tk, tv, impl=impl,
                                           layout="BTHD")
@@ -284,12 +290,17 @@ def test_adamw_bf16_master_matches_jax():
 
 
 def test_unported_optimizers_raise():
+    """Every optimizer name of the reference is ported now (their eager
+    updates are held in test_torch_optimizer.py); what still raises is an
+    unknown name and the functional update (TrainStep's) of an optimizer
+    that has none, as in the reference."""
     assert isinstance(create("adamw", learning_rate=0.1), AdamW)
     assert isinstance(create("sgd", learning_rate=0.1), SGD)
-    with pytest.raises(MXNetError, match="not ported"):
-        create("lamb")
-    with pytest.raises(MXNetError, match="not ported"):
-        AdamW().update(0, None, None, None)
+    assert type(create("lamb")).__name__ == "LAMB"
+    with pytest.raises(MXNetError):
+        create("nosuch")
+    with pytest.raises(MXNetError, match="no functional update"):
+        create("nag").init_state_arrays(torch.zeros(2))
 
 
 # ---------------------------------------------------------------------------
