@@ -203,9 +203,10 @@ no engine outlives its phase:
               of ms per dispatch on each side, and their ratio.
   5j. gpt2_router  ServingRouter over replicas of the same model (phase
               5's engine geometry each, at most three alive at once),
-              the float32 weights re-seeded first: phase 5's 8 greedy
-              prompts and 8 sampled requests (phase 5h's first 8 prompts,
-              temperature 0.8, seeds 100-107), 32 tokens each. Every case
+              the float32 weights re-seeded first: phase 5's first 4
+              greedy prompts and 4 sampled requests (phase 5h's first 4
+              prompts, temperature 0.8, seeds 100-103; ROUTER_TRAFFIC,
+              one engine's 8 slots), 32 tokens each. Every case
               holds every stream to one engine's serve of the same
               requests, all finished: (a) two replicas, the one owning
               the first request with 3 tokens (read from the router's
@@ -217,7 +218,7 @@ no engine outlives its phase:
               3 tokens, mark_warm, rejoin(0), 4 new requests, some placed
               on replica 0; (c) three replicas hedging after ten
               dispatches' time: hedges = won + wasted; (d)
-              ServingFrontend over two replicas, 8 SSE clients, the
+              ServingFrontend over two replicas, 4 SSE clients, the
               owner of a request with 3 tokens killed mid-stream. In
               every case: the dtype's span family 12 times a dispatch
               summed over the replicas and nothing else, its plain
@@ -496,6 +497,28 @@ no engine outlives its phase:
               backward, clip, Trainer.step, the card synchronised after
               each); the first loss within 1e-2 of a float32 forward's
               on the same dropout stream.
+  7g2. bert_resume  BERT-base MLM (init_params seed 0, bfloat16, float32
+              masters, dropout 0.1) at bench_bert's traffic under
+              TrainStep(loss_scale="dynamic", scale_window=2), BERT_RESUME:
+              (a) 6 steps twice from the same weights (losses, scales,
+              final parameters, their spread; the tensor-core pair 12
+              times a step); (b) 3 steps, an asynchronous
+              checkpoint.TrainCheckpoint save, one step while it writes,
+              a restore into a new net from other weights and a new step,
+              3 more steps: losses, scales and parameters equal (a)'s
+              within its spread; save blocking / durable ms, GB, restore
+              seconds; (c) the scale state at 2^127, one step as it is
+              (recorded) and one whose forward overflows: that step keeps
+              every parameter and state bitwise, the scale 2^126;
+              (d) no host sync added by the scaling (torch's sync debug
+              mode); (e) ms a step with and without scaling; (f) the
+              eager gluon flow under amp (convert_model, LAMB Trainer,
+              init_trainer, scale_loss, dropout 0): 2 steps,
+              save_parameters / save_states, a new net loaded, 2 steps
+              equal 4 uninterrupted; its route (CUDA-core: q is float32).
+  7g3. np_control  the CPU tests' cases of control flow, mx.np, a
+              register_op with a custom gradient and functional.grad on
+              the card, each held to its CPU result.
   7h. flash   dot_product_attention(impl="flash") at bench_longcontext's
               cell (B 1, H 12, T 8192, D 64, causal, bfloat16, BHTD):
               the tensor-core fused forward and backward once each, the
@@ -515,7 +538,8 @@ no engine outlives its phase:
               phases 7d-7f, the forward entries with the lockstep cells of
               7e and 7f; each fused entry with its launches in phase
               7g's eager steps, the tensor-core pair with phase 7h's
-              flash cell; the NMS kernel with its launches in phase 7c2's
+              flash cell and 7g2's dynamic-scale steps, the CUDA-core
+              pair with 7g2's eager amp steps; the NMS kernel with its launches in phase 7c2's
               detect), errors, times, bound and library times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
@@ -629,6 +653,11 @@ BERT_TRAFFIC = dict(B=32, T=512, M=76)
 BERT_GLUON = dict(lr=1e-4, wd=0.01, max_update=1000, warmup_steps=10,
                   warmup_begin_lr=1e-6, f32_steps=3, bf16_warmup=2,
                   bf16_steps=10, clip=1.0)
+# phase 7g2: BERT-base MLM under dynamic loss scaling, checkpointed after
+# save_at of `steps` steps and resumed; the window of 2 moves the scale
+# during the run, so the checkpoint has to carry it
+BERT_RESUME = dict(steps=6, save_at=3, scale_window=2, timed_steps=5,
+                   gluon_steps=2)
 # the 'flash' route's cell: bench.py bench_longcontext's shape (B, H, T,
 # D; causal, bfloat16, BHTD)
 FLASH_CELL = dict(B=1, H=12, T=8192, D=64)
@@ -3377,6 +3406,9 @@ def phase_gpt2_http(torch, ra, card, model, cfg):
 # ---------------------------------------------------------------------------
 
 ROUTER_SAMPLED = dict(temperature=0.8, seed0=100)
+# phases 5j / 5k's traffic: the first 4 greedy and 4 sampled prompts, one
+# engine's 8 slots at once (16 took two waves of dispatches)
+ROUTER_TRAFFIC = dict(greedy=4, sampled=4)
 
 
 def router_requests(Request, greedy, sampled, n_new, tag=""):
@@ -3477,10 +3509,10 @@ def router_migrations(telemetry, engines):
 
 
 def router_http(torch, fe, router, prompts, n_new, ReplicaFaultPlan):
-    """8 SSE clients at once against a frontend over `router`; once a
-    request has 3 tokens, a ReplicaFaultPlan kills the replica that owns
-    it. Returns each client's (status, events), the victim, the plan's
-    counts and the wall seconds."""
+    """An SSE client a prompt, all at once, against a frontend over
+    `router`; once a request has 3 tokens, a ReplicaFaultPlan kills the
+    replica that owns it. Returns each client's (status, events), the
+    victim, the plan's counts and the wall seconds."""
     host, port = fe.host, fe.port
     killed = {}
 
@@ -3535,8 +3567,8 @@ def phase_gpt2_router(torch, ra, card, model, cfg):
     from mxnet_tpu_torch.telemetry import cost
 
     t_phase = time.perf_counter()
-    greedy = gpt2_traffic(cfg.vocab_size)
-    sampled = robust_traffic(cfg.vocab_size)[:8]
+    greedy = gpt2_traffic(cfg.vocab_size)[:ROUTER_TRAFFIC["greedy"]]
+    sampled = robust_traffic(cfg.vocab_size)[:ROUTER_TRAFFIC["sampled"]]
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
     out = {"phase": "gpt2_router", "card": card,
@@ -3919,8 +3951,8 @@ def phase_gpt2_fleet(torch, ra, card, model, cfg):
     from mxnet_tpu_torch.telemetry import cost
 
     t_phase = time.perf_counter()
-    greedy = gpt2_traffic(cfg.vocab_size)
-    sampled = robust_traffic(cfg.vocab_size)[:8]
+    greedy = gpt2_traffic(cfg.vocab_size)[:ROUTER_TRAFFIC["greedy"]]
+    sampled = robust_traffic(cfg.vocab_size)[:ROUTER_TRAFFIC["sampled"]]
     n_new = 32
     ekw = dict(num_slots=8, max_length=1024, page_size=64, chunk_tokens=64)
     # int8 codes depend on where chunks end: a budget no dispatch reaches
@@ -5062,6 +5094,438 @@ def phase_bert_gluon(torch, fa, card, bert):
             f"{first_rel} from float32's {first32}")
     del tr, net
     torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7g2: BERT-base MLM with dynamic loss scaling, checkpointed and
+# resumed
+# ---------------------------------------------------------------------------
+
+def resume_run(torch, step, batch, steps):
+    """`steps` steps: each loss and the scale after it, read from the card
+    once at the end (no host sync between steps)."""
+    losses, scales = [], []
+    for _ in range(steps):
+        losses.append(step(*batch))
+        scales.append(step._scale_state[0].clone())
+    return [float(x) for x in losses], [float(x) for x in scales]
+
+
+def within_spread(got, ref, spread):
+    """Equal to `ref` bit for bit where the uninterrupted runs agreed, and
+    within their spread where they did not."""
+    return all(abs(a - b) <= s for a, b, s in zip(got, ref, spread))
+
+
+def count_syncs(torch, fn):
+    """The synchronising calls fn() makes, as torch's sync debug mode
+    reports them (one warning each)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def phase_bert_resume(torch, fa, card):
+    """BERT-base MLM at bench_bert's traffic in bfloat16 (init_params seed
+    0, std 0.02; AdamW(1e-4, wd 0.01) with float32 masters; dropout and
+    attention dropout 0.1) under TrainStep(loss_scale="dynamic",
+    scale_window=2), so the scale moves during the run. (a) 6 steps from
+    the same weights, twice: each run's losses, scales and final
+    parameters, and their spread; the tensor-core fused pair 12 times a
+    step. (b) 3 steps, an asynchronous TrainCheckpoint save (its blocking
+    ms, the ms until the write is durable, the GB), one more step while
+    the write is in flight, then a new net from other seeded weights and
+    a new step (another dropout seed) restored from it (seconds): step
+    count 3, the cursor back, and 3 more steps whose losses, scales and
+    final parameters equal (a)'s within (a)'s spread. (c) the scale state
+    set to 2^127: one step as it is (recorded: the scaled loss is inf but
+    the gradients stay finite, so it is not an overflow), then one whose
+    forward overflows (an inf added after the embedding LayerNorm): that
+    step is skipped with every parameter, master and optimizer state
+    bitwise kept, the scale 2^126, the step count one up, and the next
+    loss finite. (d) the synchronising
+    calls of one step with loss_scale None and "dynamic" (torch's sync
+    debug mode): scaling adds none. (e) ms a step of both, 5 timed steps
+    each, recorded. (f) the eager gluon flow: amp.init("bfloat16"),
+    amp.convert_model, gluon.Trainer + LAMB, amp.init_trainer and
+    amp.scale_loss, dropout 0: 4 uninterrupted steps, twice, for their
+    spread; 2 steps, save_parameters + save_states, a new net and
+    Trainer, load_parameters + load_states, 2 steps equal to the 4
+    uninterrupted ones within that spread; the route those steps
+    launched (the kept
+    float32 LayerNorm makes the activations, so q, float32: the CUDA-core
+    pair)."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, gluon, rng
+    from mxnet_tpu_torch.checkpoint import TrainCheckpoint
+    from mxnet_tpu_torch.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import (BertForMaskedLM, bert_base_config,
+                                        init_params)
+    from mxnet_tpu_torch.optimizer import AdamW
+    from mxnet_tpu_torch.parallel import TrainStep
+
+    R = BERT_RESUME
+    n, k = R["steps"], R["save_at"]
+    tc = FAMILY_KEYS["tensor_core"]
+
+    def model_of(seed):
+        cfg = bert_base_config(dropout=0.1, attention_dropout=0.1)
+        require(cfg.num_layers == BERT_LAYERS, "base config changed")
+        model = init_params(BertForMaskedLM(cfg, device=DEV), seed=seed,
+                            std=0.02)
+        return model.to(torch.bfloat16), cfg
+
+    def step_of(model, loss_scale="dynamic", seed=0):
+        rng.seed(seed)     # the base of the per-step dropout seeds
+        return TrainStep(model, SoftmaxCrossEntropyLoss(),
+                         AdamW(learning_rate=1e-4, wd=0.01), n_net_inputs=4,
+                         loss_scale=loss_scale,
+                         scale_window=R["scale_window"])
+
+    def tc_launches(launches, steps):
+        return launches == {key: (BERT_LAYERS * steps if key in tc else 0)
+                            for key in launches}
+
+    out = {"phase": "bert_resume", "card": card, "loss_scale": "dynamic",
+           "scale_window": R["scale_window"], "steps": n, "save_at": k}
+    model, cfg = model_of(0)
+    batch, _ = bert_batch(torch, cfg, **BERT_TRAFFIC)
+
+    # (a) the uninterrupted run, twice
+    runs = []
+    for i in range(2):
+        if i:
+            model, _ = model_of(0)
+        step = step_of(model)
+        fa.reset_launches()
+        losses, scales = resume_run(torch, step, batch, n)
+        launches = dict(fa.LAUNCHES)
+        require(tc_launches(launches, n), f"the dynamic steps launched "
+                f"{launches}, not {BERT_LAYERS} x {n} of the tensor-core "
+                "pair alone")
+        runs.append((losses, scales, {name: p.detach().clone()
+                                      for name, p in model.named_parameters()}))
+        del step, model
+        torch.cuda.empty_cache()
+    (ref, ref_scales, ref_params), (again, again_scales, again_params) = runs
+    loss_spread = [abs(a - b) for a, b in zip(ref, again)]
+    param_spread = {name: float((p.float() - again_params[name].float())
+                                .abs().max()) for name, p in ref_params.items()}
+    del again_params
+    require(ref_scales == again_scales, f"the scale sequences differ: "
+            f"{ref_scales}, {again_scales}")
+    require(all(np.isfinite(ref)), f"non-finite losses {ref}")
+    out["uninterrupted"] = {
+        "losses": ref, "losses_again": again, "scales": ref_scales,
+        "launches": launches, "loss_spread": loss_spread,
+        "params_differing": sorted(nm for nm, v in param_spread.items() if v),
+        "param_spread_max": max(param_spread.values()),
+        "bitwise_deterministic": not any(loss_spread)
+        and not any(param_spread.values())}
+
+    # (b) interrupted: save at step k, one step while it writes, restore
+    # into a new net and step, resume
+    tmp = tempfile.mkdtemp(prefix="bert_resume_")
+    try:
+        model, _ = model_of(0)
+        step = step_of(model)
+        fa.reset_launches()
+        first, first_scales = resume_run(torch, step, batch, k)
+        ck = TrainCheckpoint(tmp, max_to_keep=2)
+        ck.save(k, step, data_cursor={"step": k})
+        blocking = ck.last_save["blocking_s"]
+        t0 = time.perf_counter()
+        inflight, _ = resume_run(torch, step, batch, 1)
+        inflight_s = time.perf_counter() - t0
+        ck.wait_until_finished()
+        saved = dict(ck.last_save)
+        del step, model
+        torch.cuda.empty_cache()
+        model, _ = model_of(1)          # other weights, another seed
+        step = step_of(model, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cursor = ck.restore(step)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(step.step_count == k, f"restored step count "
+                f"{step.step_count}, not {k}")
+        require(cursor == {"step": k}, f"restored cursor {cursor}")
+        resumed, resumed_scales = resume_run(torch, step, batch, n - k)
+        launches = dict(fa.LAUNCHES)
+        require(tc_launches(launches, n + 1), f"the interrupted run "
+                f"launched {launches}, not {BERT_LAYERS} x {n + 1} of the "
+                "tensor-core pair alone")
+        param_diff = {name: float((p.detach().float() - ref_params[name].float())
+                                  .abs().max())
+                      for name, p in model.named_parameters()}
+        over = sorted(nm for nm, v in param_diff.items()
+                      if v > param_spread[nm])
+        got = first + resumed
+        out["interrupted"] = {
+            "losses": got, "inflight_loss": inflight[0],
+            "scales": first_scales + resumed_scales, "launches": launches,
+            "save_blocking_ms": blocking * 1e3,
+            "save_durable_ms": saved["durable_s"] * 1e3,
+            "save_gb": saved["bytes"] / 1e9,
+            "inflight_step_ms": inflight_s * 1e3,
+            "write_outlived_the_step": saved["durable_s"]
+            > blocking + inflight_s,
+            "restore_s": restore_s, "cursor": cursor,
+            "param_diff_max": max(param_diff.values()),
+            "params_over_spread": over}
+        require(within_spread(got, ref, loss_spread),
+                f"resumed losses {got} against {ref}, spread {loss_spread}")
+        require(within_spread(inflight, ref[k:k + 1], loss_spread[k:]),
+                f"the step during the write lost {inflight[0]}, not "
+                f"{ref[k]}")
+        require(first_scales + resumed_scales == ref_scales,
+                f"resumed scales {first_scales + resumed_scales}, not "
+                f"{ref_scales}")
+        require(not over, f"parameters {over[:4]} differ from the "
+                "uninterrupted run's beyond its spread")
+        del ref_params
+
+        # (c) an overflowing step on the card. The scale alone does not
+        # overflow: the scaled loss is inf, but its gradients are
+        # 2^127 x dL/dw, finite while |dL/dw| < 2; so first one step at
+        # 2^127 as it is (recorded), then one whose forward overflows (an
+        # inf after the embedding LayerNorm, as a float16 activation
+        # overflows), again from 2^127
+        step._scale_state = (torch.tensor(2.0 ** 127, device=DEV),
+                             step._scale_state[1])
+        plain_loss = float(step(*batch))
+        plain = {"loss": plain_loss, "scale_after": step.loss_scale}
+        before = ([p.detach().clone() for p in model.parameters()],
+                  [[s.clone() for s in st] for st in step._states])
+        t_before = step.step_count
+        step._scale_state = (torch.tensor(2.0 ** 127, device=DEV),
+                             step._scale_state[1])
+        hook = model.backbone.embed_ln.register_forward_hook(
+            lambda mod, args, y: y + float("inf"))
+        try:
+            skipped = float(step(*batch))
+        finally:
+            hook.remove()
+        scale_after = step.loss_scale
+        kept = all(torch.equal(a.detach(), b)
+                   for a, b in zip(model.parameters(), before[0])) and all(
+            torch.equal(a, b) for st, old in zip(step._states, before[1])
+            for a, b in zip(st, old))
+        del before
+        count_after = step.step_count
+        nxt = float(step(*batch))
+        out["overflow"] = {"scale_2e127_alone": plain,
+                           "loss": skipped, "kept_bitwise": kept,
+                           "scale_after": scale_after,
+                           "step_count_before": t_before,
+                           "step_count_after": count_after,
+                           "next_loss": nxt, "next_scale": step.loss_scale}
+        require(kept, "the overflow step changed a parameter or state")
+        require(scale_after == 2.0 ** 126, f"scale {scale_after} after the "
+                "overflow, not 2^126")
+        require(count_after == t_before + 1, "the overflow step did not "
+                "count")
+        require(np.isfinite(nxt), f"the step after the overflow lost {nxt}")
+        ck.close()
+        del step
+        torch.cuda.empty_cache()
+
+        # (d) host syncs and (e) the cost of scaling, on the same net
+        cost = {}
+        for mode in (None, "dynamic"):
+            step = step_of(model, loss_scale=mode)
+            step(*batch)                          # warm-up
+            syncs = count_syncs(torch, lambda: step(*batch))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(R["timed_steps"]):
+                step(*batch)
+            torch.cuda.synchronize()
+            cost[str(mode)] = {"ms_per_step": (time.perf_counter() - t0)
+                               / R["timed_steps"] * 1e3,
+                               "syncs": len(syncs), "sync_calls": syncs}
+            del step
+            torch.cuda.empty_cache()
+        out["cost"] = dict(cost, card=card, dynamic_over_none=cost[
+            "dynamic"]["ms_per_step"] / cost["None"]["ms_per_step"])
+        require(cost["dynamic"]["syncs"] == cost["None"]["syncs"],
+                f"loss scaling added host syncs: {cost}")
+        del model
+        torch.cuda.empty_cache()
+
+        # (f) the eager gluon flow under amp, saved and loaded mid-run
+        amp.init("bfloat16")
+        lfn = gluon.loss.SoftmaxCrossEntropyLoss()
+        nd = [mx.nd.NDArray(t) for t in batch]
+
+        def amp_net():
+            net, _ = gluon_bert(mx, dropout=0.0, attention_dropout=0.0)
+            amp.convert_model(net)
+            tr = gluon.Trainer(net.collect_params(), "lamb",
+                               dict(learning_rate=BERT_GLUON["lr"],
+                                    wd=BERT_GLUON["wd"]))
+            amp.init_trainer(tr)
+            return net, tr
+
+        def amp_steps(net, tr, steps):
+            losses = []
+            for _ in range(steps):
+                with autograd.record():
+                    loss = lfn(net(*nd[:4]), nd[4]).mean()
+                    with amp.scale_loss(loss, tr) as scaled:
+                        autograd.backward(scaled)
+                tr.step(1)
+                losses.append(loss)
+            return [float(x.asscalar()) for x in losses]
+
+        # two uninterrupted runs: their spread gates the reloaded one
+        m = R["gluon_steps"]
+        net, tr = amp_net()
+        fa.reset_launches()
+        whole = amp_steps(net, tr, 2 * m)
+        amp_launches = dict(fa.LAUNCHES)
+        del net, tr
+        net, tr = amp_net()
+        whole_again = amp_steps(net, tr, 2 * m)
+        amp_spread = [abs(a - b) for a, b in zip(whole, whole_again)]
+        del net, tr
+        net, tr = amp_net()
+        part = amp_steps(net, tr, m)
+        fp, fs = os.path.join(tmp, "bert.params"), os.path.join(tmp, "states")
+        net.save_parameters(fp)
+        tr.save_states(fs)
+        del net, tr
+        net, tr = amp_net()
+        net.load_parameters(fp)
+        tr.load_states(fs)
+        part += amp_steps(net, tr, m)
+        route = [fam for fam, keys in FAMILY_KEYS.items()
+                 if any(amp_launches[key] for key in keys)]
+        out["gluon_amp"] = {"losses_whole": whole,
+                            "losses_whole_again": whole_again,
+                            "loss_spread": amp_spread,
+                            "losses_resumed": part,
+                            "launches": amp_launches, "route": route,
+                            "params_bytes": os.path.getsize(fp),
+                            "states_bytes": os.path.getsize(fs)}
+        require(all(np.isfinite(whole)), f"non-finite amp losses {whole}")
+        require(within_spread(part, whole, amp_spread),
+                f"the reloaded eager run lost {part}, not {whole}")
+        require(amp_launches == {
+            key: (BERT_LAYERS * 2 * m if key in FAMILY_KEYS["cuda_core"]
+                  else 0) for key in amp_launches},
+            f"the amp eager steps launched {amp_launches}, not the "
+            "CUDA-core pair 12 times a step")
+        out["amp_launches"] = amp_launches
+        out["launches"] = out["uninterrupted"]["launches"]
+        del net, tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7g3: control flow, mx.np, a custom op and functional on the card
+# ---------------------------------------------------------------------------
+
+def np_control_cases(torch, mx):
+    """The CPU tests' cases of control flow, mx.np, register_op with a
+    custom gradient and functional.grad, on the default device: {case:
+    numpy result}."""
+    from mxnet_tpu_torch import functional, operator
+    r = np.random.default_rng(0)
+    A = r.standard_normal((3, 4)).astype(np.float32)
+    M = (A.T @ A + 3 * np.eye(4)).astype(np.float32)
+    out = {"device": mx.nd.array(A).context.device_type}
+    data = mx.nd.array(np.arange(12, dtype=np.float32).reshape(4, 3))
+    ys, final = mx.nd.contrib.foreach(lambda x, s: (s + x, s + x), data,
+                                      mx.nd.zeros((3,)))
+    out["foreach"], out["foreach_final"] = ys.asnumpy(), final.asnumpy()
+    ys, (_, s) = mx.nd.contrib.while_loop(
+        lambda i, s: i < 5, lambda i, s: (s + i, [i + 1, s + i]),
+        [mx.nd.zeros(()), mx.nd.zeros(())], max_iterations=10)
+    out["while_loop"], out["while_loop_final"] = ys.asnumpy(), s.asnumpy()
+    a = mx.nd.array(A)
+    out["cond"] = mx.nd.contrib.cond(a.sum() > 100.0, lambda: a * 10.0,
+                                     lambda: a - 1.0).asnumpy()
+    x = mx.nd.array(A)
+    x.attach_grad()
+    with mx.autograd.record():
+        _, s = mx.nd.contrib.foreach(lambda xt, s: (s, s * xt + xt), x,
+                                     mx.nd.ones((4,)))
+        s.sum().backward()
+    out["foreach_grad"] = x.grad.asnumpy()
+    np_ = mx.np
+    for name in ("sin", "exp", "tanh", "cumsum", "sort", "argsort",
+                 "nanmean", "median", "amax", "ptp"):
+        out[f"np.{name}"] = getattr(np_, name)(a).asnumpy()
+    out["np.sum_axis"] = np_.sum(a, axis=1, keepdims=True).asnumpy()
+    out["np.einsum"] = np_.einsum("ij,kj->ik", a, a).asnumpy()
+    out["np.linalg.inv"] = np_.linalg.inv(mx.nd.array(M)).asnumpy()
+    out["np.fmax"] = np_.fmax(a, 0.0).asnumpy()
+    out["np.unique"] = np_.unique(mx.nd.array(np.asarray([3, 1, 3, 2],
+                                                         np.int32)),
+                                  size=3).asnumpy()
+    clip = operator.register_op(
+        "chip_smoke_st_clip", lambda t: torch.clamp(t, -0.5, 0.5),
+        grad=(lambda t: (torch.clamp(t, -0.5, 0.5), None),
+              lambda res, g: (3.0 * g,)), register_global=False)
+    x = mx.nd.array(A)
+    x.attach_grad()
+    with mx.autograd.record():
+        y = clip(x)
+        y.sum().backward()
+    out["custom_op"], out["custom_op_grad"] = y.asnumpy(), x.grad.asnumpy()
+    out["functional.grad"] = functional.grad(
+        lambda t: (mx.nd.sin(t) * t * t).sum())(mx.nd.array(A)).asnumpy()
+    return out
+
+
+def phase_np_control(torch):
+    """np_control_cases on the card, each held to its CPU result: shapes
+    and dtypes equal, values within 1e-5 relative (1e-4 for the
+    inverse; sorts, indices and integer results exactly)."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    card = np_control_cases(torch, mx)
+    with mx.cpu():
+        cpu = np_control_cases(torch, mx)
+    where = (card.pop("device"), cpu.pop("device"))
+    require(where == ("gpu", "cpu"), f"the cases ran on {where}, not on "
+            "the card and the CPU")
+    worst = {}
+    for name, want in cpu.items():
+        got = card[name]
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{name}: {got.shape} {got.dtype} on the card, "
+                f"{want.shape} {want.dtype} on the CPU")
+        if want.dtype.kind in "iub" or name in ("np.sort", "np.argsort"):
+            require(np.array_equal(got, want), f"{name} differs")
+            worst[name] = 0.0
+            continue
+        tol = 1e-4 if "inv" in name else 1e-5
+        err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                           1e-3)))
+        require(err <= tol, f"{name}: {err} relative, over {tol}")
+        worst[name] = err
+    out = {"phase": "np_control", "cases": len(worst),
+           "rel_err": worst, "seconds": time.perf_counter() - t0}
     emit(out)
     return out
 
@@ -6796,7 +7260,8 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
 
 
 def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
-                  nmt_translate, generate, card, bert_gluon, flash):
+                  nmt_translate, generate, card, bert_gluon, flash,
+                  bert_resume):
     """The fused kernels' four kernels-line entries at the BERT-base BTHD
     cell (the main path's shape), the BHTD and GPT-2 cells beside: the
     CUDA-core pair (float32, with the split-TF32 bound beside; bfloat16
@@ -6811,7 +7276,9 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
     774M's decode (BHTD, one row over 256 paged keys); each with its
     launches in phase 7g's eager gluon steps of its dtype, and the
     tensor-core pair with phase 7h's 'flash' cell (BHTD, causal, T 8192:
-    its launches, times, errors and bound)."""
+    its launches, times, errors and bound); the tensor-core pair with its
+    launches in phase 7g2's uninterrupted dynamic-scale steps, the
+    CUDA-core pair with those of 7g2's eager amp steps."""
     main = fused["bert_bthd"]
     f32, b16 = main["float32"], main["bfloat16"]
     cells = ("bert_bhtd", "gpt2_774m_causal")
@@ -6841,6 +7308,11 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
         src = bert_gluon["launches_bf16" if key.endswith("_tc")
                          else "launches"]
         extra = {"bert_gluon_launches": src[key]}
+        if key.endswith("_tc"):
+            extra["bert_resume_launches"] = bert_resume["launches"][key]
+        else:
+            extra["bert_resume_amp_launches"] = \
+                bert_resume["amp_launches"][key]
         if key.endswith("_tc"):
             r = flash["bfloat16"]
             fwd = "fwd" in key
@@ -6996,6 +7468,8 @@ def main():
     bert = timed("bert", phase_bert, torch, fa, card)
     bert_gluon = timed("bert_gluon", phase_bert_gluon, torch, fa, card,
                        bert)
+    bert_resume = timed("bert_resume", phase_bert_resume, torch, fa, card)
+    timed("np_control", phase_np_control, torch)
     flash = timed("flash", phase_flash, torch, F, fa)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
     timed("resnet50", phase_resnet50, torch, card)
@@ -7017,7 +7491,7 @@ def main():
         span_sq1_ms_bf16=decode["bfloat16"]["span_sq1_ms"]))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
                              gpt2_train, nmt_train, nmt_translate, generate,
-                             card, bert_gluon, flash)
+                             card, bert_gluon, flash, bert_resume)
     kernels.append(nms_entry(ssd, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds, "card": card})

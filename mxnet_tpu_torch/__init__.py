@@ -8,10 +8,13 @@ is a CUDA kernel written for Hopper (`csrc/`, built at first use by
 `import mxnet_tpu_torch as mx` gives the reference's namespace: mx.nd
 (NDArray and the op registry), mx.autograd, mx.gluon (Block,
 Parameter, nn, loss, Trainer, utils), mx.init / mx.initializer,
-mx.optimizer, mx.lr_scheduler, mx.random, mx.rng, mx.cpu() / mx.gpu()
+mx.optimizer, mx.lr_scheduler, mx.random, mx.rng, mx.amp, mx.np /
+mx.npx, mx.checkpoint, mx.operator, mx.functional, mx.cpu() / mx.gpu()
 (the default device is the card; without one, placing an array there
-raises). Below it: GPT-2 serving over a ragged paged KV cache
-(`serving`, `models`), training steps (`parallel.TrainStep`), BERT,
+raises); `mxnet_tpu_torch.serialization` reads and writes the
+reference's `.params` files. Below it: GPT-2 serving over a ragged
+paged KV cache (`serving`, `models`), training steps
+(`parallel.TrainStep`, `checkpoint.TrainCheckpoint`), BERT,
 GPT-2, NMT, ResNet and SSD models, and the hand-written kernels
 (`ops.fused_attention`, `ops.ragged_attention`, `ops.detection`).
 ROADMAP.md lists what is still to come.
@@ -42,7 +45,13 @@ _LAZY = {"gluon": "mxnet_tpu_torch.gluon",
          "parallel": "mxnet_tpu_torch.parallel",
          "serving": "mxnet_tpu_torch.serving",
          "telemetry": "mxnet_tpu_torch.telemetry",
-         "context": "mxnet_tpu_torch.device"}
+         "context": "mxnet_tpu_torch.device",
+         "amp": "mxnet_tpu_torch.amp",
+         "np": "mxnet_tpu_torch.numpy",
+         "npx": "mxnet_tpu_torch.numpy_extension",
+         "checkpoint": "mxnet_tpu_torch.checkpoint",
+         "operator": "mxnet_tpu_torch.operator",
+         "functional": "mxnet_tpu_torch.functional"}
 
 
 def __getattr__(name):

@@ -22,8 +22,11 @@ tied ones once. Deferred shapes: a block whose parameters have an
 unknown (0) dimension fills them at its first call through
 `infer_shape(*inputs)`, then initialises them if `initialize()` was
 called. `hybridize()` records its flags and stays eager (a CUDA graph of
-a hybridized block is later work). `export`, `SymbolBlock`,
-`save_parameters` and `load_parameters` are not ported yet.
+a hybridized block is later work). `save_parameters` /
+`load_parameters` write and read the reference's `.npz` format
+(serialization.py), keyed by structure path as in the reference, so a
+file crosses between the packages; `export` and `SymbolBlock` are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -153,10 +156,18 @@ class Block(nn.Module):
         self.collect_params().reset_ctx(ctx)
 
     def save_parameters(self, filename, deduplicate=False):
-        raise not_ported("Block.save_parameters (serialization)")
+        from ..serialization import save_parameter_dict
+        save_parameter_dict(filename, self.collect_params())
 
-    def load_parameters(self, filename, *args, **kwargs):
-        raise not_ported("Block.load_parameters (serialization)")
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Parameters land on `ctx`, else where each already lives, else
+        on the default device (deferred or uninitialised ones too)."""
+        from ..serialization import load_parameter_dict
+        load_parameter_dict(filename, self.collect_params(), ctx=ctx,
+                            allow_missing=allow_missing,
+                            ignore_extra=ignore_extra, cast_dtype=cast_dtype)
 
     # -- hooks -----------------------------------------------------------------
     def register_forward_hook(self, hook, *args, **kwargs):

@@ -371,10 +371,15 @@ class ParameterDict(dict):
             p.reset_ctx(ctx)
 
     def save(self, filename, strip_prefix=""):
-        raise not_ported("ParameterDict.save (serialization)")
+        from ..serialization import save_parameter_dict
+        save_parameter_dict(filename, self, strip_prefix=strip_prefix)
 
-    def load(self, filename, *args, **kwargs):
-        raise not_ported("ParameterDict.load (serialization)")
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, cast_dtype=False, dtype_source="current"):
+        from ..serialization import load_parameter_dict
+        load_parameter_dict(filename, self, ctx=ctx,
+                            allow_missing=allow_missing,
+                            ignore_extra=ignore_extra, cast_dtype=cast_dtype)
 
     def get(self, name, **kwargs):
         if name in self:

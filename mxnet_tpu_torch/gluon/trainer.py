@@ -9,9 +9,12 @@ the updater's state indices follow that order; after its update a
 'write' parameter's gradient is zeroed, as the reference does.
 
 One process, one device: kvstore None, "device" or "local" reduce
-nothing; another kvstore raises, and so does the amp loss scaler
-(`amp.init_trainer` is not ported yet). The telemetry instruments are
-the reference's: `trainer_step_seconds`, `trainer_steps_total`,
+nothing; another kvstore raises. With `amp.init_trainer`, `step` also
+divides by the loss scale (unless `amp.unscale` already did), and for a
+scaler that is not a no-op checks the gradients for overflow, adjusts
+the scale, and on overflow zeroes the gradients and skips the update.
+The telemetry instruments are the reference's: `trainer_step_seconds`,
+`trainer_steps_total`, `trainer_amp_skipped_steps_total`,
 `trainer_nonfinite_steps_total` (the NaN/Inf sentinel, armed by
 `telemetry.flight.install(watch_trainer=True)`), the eager step's host
 wall under `cost.note_dispatch("trainer.step", ...)` and the optimizer
@@ -41,6 +44,9 @@ _step_seconds = telemetry.histogram(
     "trainer_step_seconds", "eager Trainer.step host wall time")
 _steps_total = telemetry.counter(
     "trainer_steps_total", "eager Trainer.step calls")
+_updates_skipped = telemetry.counter(
+    "trainer_amp_skipped_steps_total",
+    "steps skipped by dynamic loss scaling on gradient overflow")
 _nonfinite_steps = telemetry.counter(
     "trainer_nonfinite_steps_total",
     "steps whose global gradient norm was NaN/Inf (flight-recorder "
@@ -127,13 +133,27 @@ class Trainer:
     # -- the step ------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce (nothing on one device) and the update with the
-        gradients scaled by 1 / batch_size."""
-        if getattr(self, "_amp_loss_scaler", None) is not None:
-            raise not_ported("amp.init_trainer's loss scaler")
+        gradients scaled by 1 / batch_size (and 1 / the amp loss scale)."""
         t0 = time.perf_counter()
-        self._optimizer.rescale_grad = self._scale / batch_size
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        scale = self._scale / batch_size
+        if scaler is not None:
+            if not getattr(scaler, "_unscaled", False):
+                scale /= scaler.loss_scale
+            scaler._unscaled = False
+        self._optimizer.rescale_grad = scale
         try:
             self.allreduce_grads()
+            if scaler is not None and not scaler.is_noop:
+                overflow = scaler.has_overflow(
+                    [p for p in self._params if p.grad_req != "null"])
+                scaler.update_scale(overflow)
+                if overflow:
+                    self.zero_grad()
+                    _updates_skipped.inc()
+                    return
+            # the NaN/Inf sentinel runs after the amp check: loss scaling
+            # expects overflows, a non-finite norm here is an anomaly
             if _flight.trainer_sentinel_enabled():
                 norm_sq = _grad_norm_sq(self._params)
                 if not math.isfinite(norm_sq):

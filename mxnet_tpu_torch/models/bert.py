@@ -18,7 +18,6 @@ Not ported yet: `BertForPretraining` (the next-sentence head).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..base import MXNetError, not_ported, resolve_device
@@ -142,7 +141,8 @@ class _MLMHead(TensorBlock):
         else:
             h = _ops.activation(h, self._act)
         h = self.transform_ln(h)
-        return F.linear(h, self._word_embed.weight, self.decoder_bias)
+        return _ops.fully_connected(h, self._word_embed.weight,
+                                    self.decoder_bias)
 
 
 class BertForMaskedLM(TensorBlock):

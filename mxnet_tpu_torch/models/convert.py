@@ -15,7 +15,8 @@ surface: it fills `block.collect_params()` by name, so it also takes a
 user's Block with its own Parameters and layers whose shapes are still
 deferred or not yet initialised (they land on `ctx`, else where the
 parameter lives, else the default device); a missing, extra or
-mis-shaped name raises.
+mis-shaped name raises. `block` may also be a dict of name -> Parameter
+(a ParameterDict), and the arrays torch tensors (bfloat16 among them).
 
 `init_params(model, seed, std)` draws weights from N(0, std) with a
 generator seeded on the model's own device (gamma 1; beta, biases and
@@ -53,23 +54,25 @@ def load_jax_params(model, arrays):
 
 def load_gluon_params(block, arrays, ctx=None):
     from .. import device as _device
-    params = block.collect_params()
+    params = block.collect_params() if hasattr(block, "collect_params") \
+        else block
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
     if missing or extra:
         raise MXNetError(f"load_gluon_params: missing {missing}, "
                          f"unexpected {extra}")
     for name, p in params.items():
-        a = np.asarray(arrays[name])
-        known = p._shape_is_known
-        if tuple(a.shape) != p.shape and (known or len(a.shape) != len(
-                p.shape) or any(s and s != t for s, t in zip(p.shape,
-                                                               a.shape))):
+        a = arrays[name]
+        t = a if isinstance(a, torch.Tensor) else \
+            torch.from_numpy(np.array(a))
+        shape = tuple(t.shape)
+        if shape != p.shape and (p._shape_is_known or len(shape) != len(
+                p.shape) or any(s and s != u for s, u in zip(p.shape,
+                                                               shape))):
             raise MXNetError(f"load_gluon_params: {name} has shape "
-                             f"{tuple(a.shape)}, the block wants {p.shape}")
+                             f"{shape}, the block wants {p.shape}")
         dev = _device.to_torch(ctx) if ctx is not None else (
             p.var.device if not p.var.is_meta else None)
-        t = torch.from_numpy(np.array(a))
         if p.var.is_meta and p._deferred_init is None:
             p._deferred_init = (None, dev if dev is not None
                                 else _device.to_torch(None), False)

@@ -3,7 +3,8 @@
 Generated from the op registry, as the reference generates it: every
 registered op under its own name and its lower-cased registry key, the
 reference's aliases of the op modules (broadcast_add, Concat, ...), the
-creation ops, `random`, and `array` / `waitall`.
+creation ops, `random`, `contrib` (control flow and detection),
+`sparse`, `Custom` (operator.py), and `array` / `waitall`.
 """
 from .ndarray import NDArray, array, from_torch, newaxis, waitall  # noqa: F401
 from ..ops import init, math, random, tensor  # noqa: F401
@@ -11,6 +12,7 @@ from ..ops import nn as _nn_ops
 from ..ops.init import (arange, empty, eye, full, indices,  # noqa: F401
                         linspace, meshgrid, ones, tri, zeros)
 from ..ops.registry import OPS
+from . import contrib, sparse  # noqa: F401,E402
 
 
 def _populate():
@@ -36,6 +38,12 @@ del _populate
 
 
 def __getattr__(name):
+    # ops registered after import (operator.register_op) still resolve
+    # as mx.nd.<name>; mx.nd.Custom is the legacy custom-op entry
+    if name == "Custom":
+        from ..operator import Custom
+        globals()["Custom"] = Custom
+        return Custom
     try:
         fn = OPS.get(name)
     except Exception:

@@ -38,9 +38,18 @@ def fully_connected(x, weight, bias=None, scale=None):
     its per-out-tile float32 `scale`: y[..., o] = (x @ codes.T)[..., o] *
     scale[o // tile], before the bias (the reference's
     `_w8_dequant_matmul`). The codes are cast to x's dtype for the
-    product, which writes a float copy of the weight on every call."""
+    product, which writes a float copy of the weight on every call.
+
+    Mixed dtypes (an amp-converted weight under a float32 activation)
+    promote as the reference's matmul does: the product in the promoted
+    dtype, then the bias added with promotion."""
     if weight.dtype != torch.int8:
-        return F.linear(x, weight, bias)
+        if x.dtype == weight.dtype and (bias is None
+                                        or bias.dtype == x.dtype):
+            return F.linear(x, weight, bias)
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        y = F.linear(x.to(dt), weight.to(dt))
+        return y if bias is None else y + bias
     if scale is None:
         raise MXNetError("an int8 weight reached fully_connected without "
                          "its w8 scales")

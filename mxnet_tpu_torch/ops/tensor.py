@@ -691,8 +691,46 @@ def _prep_key(key, device):
     return key
 
 
+def _positive_steps(key, shape):
+    """A basic-indexing key (slices, ints, None, Ellipsis) with its
+    negative-step slices made positive, and the output dims to flip
+    afterwards (torch slices take positive steps only)."""
+    items = list(key) if isinstance(key, tuple) else [key]
+    if any(isinstance(k, torch.Tensor) for k in items) or not any(
+            isinstance(k, builtins.slice) and k.step is not None
+            and k.step < 0 for k in items):
+        return key, ()
+    used = sum(k is not None and k is not Ellipsis for k in items)
+    out, flips, dim, odim = [], [], 0, 0
+    for k in items:
+        if k is Ellipsis:
+            n = len(shape) - used
+            out.append(k)
+            dim, odim = dim + n, odim + n
+        elif k is None:
+            out.append(k)
+            odim += 1
+        elif isinstance(k, builtins.slice):
+            r = range(*k.indices(shape[dim]))
+            if k.step is not None and k.step < 0:
+                out.append(builtins.slice(r[-1], r[0] + 1, -k.step)
+                           if len(r) else builtins.slice(0, 0))
+                flips.append(odim)
+            else:
+                out.append(k)
+            dim, odim = dim + 1, odim + 1
+        else:   # an int drops the dim
+            out.append(k)
+            dim += 1
+    return tuple(out), tuple(flips)
+
+
 def _getitem(arr, key):
     key = _prep_key(key, arr._data.device)
+    key, flips = _positive_steps(key, arr.shape)
+    if flips:
+        return apply_op("getitem", lambda x: torch.flip(x[key], flips),
+                        [arr])
     return apply_op("getitem", lambda x: x[key], [arr])
 
 

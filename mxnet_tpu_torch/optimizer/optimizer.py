@@ -174,7 +174,12 @@ class Optimizer:
     def _grad(self, g, w):
         """The rescaled and clipped gradient in the weight's dtype."""
         c = self._clipval()
-        return (g * self.rescale_grad).clamp(-c, c).to(w.dtype)
+        g = g * self.rescale_grad
+        # a bound the dtype cannot hold (float16 at _BIG) clips nothing,
+        # as the reference's weakly typed bound turns to inf there
+        if c <= torch.finfo(g.dtype).max:
+            g = g.clamp(-c, c)
+        return g.to(w.dtype)
 
     # -- eager interface ---------------------------------------------------------
     def create_state(self, index, weight):

@@ -363,11 +363,13 @@ def test_train_step_options(jax_pair):
     assert torch.equal(frozen.detach(), before)
     assert not torch.equal(net.backbone.embed_ln.beta.detach(),
                            torch.tensor(arrays["backbone.embed_ln.beta"]))
-    for kw in ({"mesh": object()}, {"compression": "2bit"},
-               {"loss_scale": "dynamic"}):
+    for kw in ({"mesh": object()}, {"compression": "2bit"}):
         with pytest.raises(MXNetError, match="not ported"):
             TrainStep(net, SoftmaxCrossEntropyLoss(), AdamW(),
                       n_net_inputs=4, **kw)
+    # loss scaling is ported (tests/test_torch_loss_scale.py)
+    assert TrainStep(net, SoftmaxCrossEntropyLoss(), AdamW(), n_net_inputs=4,
+                     loss_scale="dynamic").loss_scale == 2.0 ** 16
 
 
 def test_dropout_is_seeded_per_step_and_off_in_eval(jax_pair):

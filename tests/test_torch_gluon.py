@@ -282,7 +282,7 @@ def test_deferred_shapes_and_initialize():
     assert not torch.equal(net[0].weight, w)
 
 
-def test_hooks_hybridize_summary(capsys):
+def test_hooks_hybridize_summary(capsys, tmp_path):
     net = nn.HybridSequential()
     net.add(nn.Dense(4, in_units=3), nn.Dense(2, in_units=4))
     net.initialize(ctx=CPU)
@@ -304,8 +304,11 @@ def test_hooks_hybridize_summary(capsys):
     assert "Total params: 26" in capsys.readouterr().out
     with pytest.raises(MXNetError, match="not ported"):
         net.export("x")
-    with pytest.raises(MXNetError, match="not ported"):
-        net.save_parameters("x")
+    # parameters save and load (tests/test_torch_serialization.py)
+    f = str(tmp_path / "net.params")
+    net.save_parameters(f)
+    net.load_parameters(f)
+    np.testing.assert_array_equal(net(x).asnumpy(), a)
 
 
 def test_grad_req_lr_mult_on_the_torch_parameter():
