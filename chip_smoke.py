@@ -325,14 +325,15 @@ no engine outlives its phase:
               peak memory and bert_base_mlm_mfu; then one more bfloat16
               step under torch.profiler (the fused kernels' share of
               device time).
-  7b. gpt2_train  GPT-2 774M at full width (seeded random weights) on
+  7b. gpt2_train  GPT-2 774M at full width, its first 12 of 36 layers
+              (GPT2_TRAIN_LAYERS; seeded random weights) on
               the cache=None training path: one forward and backward of
               the next-token loss, B=2, T=1024, dropout and attention
               dropout 0.1, float32 and bfloat16, kernel path against the
               plain path from the same weights and dropout generator
               (losses within 1e-5 relative in float32, 1e-4 in
               bfloat16); each kernel pass launches its family's fused
-              forward and backward exactly 36 times (float32 the
+              forward and backward exactly 12 times (float32 the
               "cuda_core" pair, bfloat16 the tensor-core pair) and
               nothing else; the kernel path's ms a pass (median of 3)
               and one profiled pass (busy share, time by kernel class).
@@ -456,7 +457,8 @@ no engine outlives its phase:
               self-attention at B * beam = 80, H 8, 128 keys of the
               contiguous cache, and the cross-attention over 64 source
               keys padded from the sources' valid lengths.
-  7f. gpt2_generate  GPT-2 774M (seeded random weights) through
+  7f. gpt2_generate  GPT-2 774M (seeded random weights, the first 6 of
+              its 36 layers: GENERATE_LAYERS) through
               GPT2ForCausalLM.generate on bench.py bench_gpt2_decode's
               traffic (B 8, prompt 128, 128 greedy tokens), float32 and
               bfloat16: kernels over a lockstep paged cache (pages of 64)
@@ -464,7 +466,7 @@ no engine outlives its phase:
               the prompt's forward takes the plain softmax attention (its
               (1, 1, 128, 256) mask is not key padding), each
               single-token forward the family's fused forward once a layer
-              in BHTD (36 x 128 a generate) and nothing else. Streams
+              in BHTD (6 x 128 a generate) and nothing else. Streams
               (stream_gate): kernel against plain and paged against
               contiguous equal, except at a first differing token where
               the other path's top-2 gap is below 1e-4 (float32) or twice
@@ -519,6 +521,40 @@ no engine outlives its phase:
   7g3. np_control  the CPU tests' cases of control flow, mx.np, a
               register_op with a custom gradient and functional.grad on
               the card, each held to its CPU result.
+  7g4. bert_mesh  the parallel slice on the card, every mesh a repeated
+              device list (["cuda:0"] * N: shards run one after another):
+              (a) dryrun_multichip's step at BERT-base width on bench_bert's
+              traffic: megatron_dense_rules, TrainStep over a dp 2 x sp 2
+              x tp 2 mesh, attention routed by impl='auto' to Ulysses;
+              3 float32 steps (TF32 off) against 3 single-device steps
+              from the same weights (losses 1e-4 relative, every
+              parameter within 3 x lr, largest and median apart), every
+              Ulysses shard attention one fused forward and backward;
+              one Ulysses shard's attention as the step called it (B 16,
+              H 6, T 512, D 64, key padding), the kernels against the
+              plain version, forward and gradients, in float32 and
+              bfloat16 at phase 6's tolerances; one SGD step (lr 1) from
+              the same weights, mesh against single, the update within
+              1e-3 relative for the tp-sharded and for the replicated
+              parameters; 3
+              bfloat16 steps (masters) within 1e-2 of the float32 mesh
+              run, ms a step mesh and single with a trace's host share,
+              peak memory, comm_report's bytes by collective; (b)
+              compression='2bit' on a dp 2 mesh, 8 steps beside the
+              uncompressed run (it trains; the uncompressed loss at most
+              1e-3 above it; the wire 1/16 of float32's); (c)
+              kvstore.create('nccl') and a one-rank NCCL dist_sync group
+              from init_distributed's env: pushpull keeps the value, a
+              gluon Trainer(kvstore='dist_sync') step equals a 'device'
+              step to the bit; (d) PPTrainStep at GPT-2 774M width (12
+              layers, 2 stages, 4 microbatches), both schedules, an
+              SGD step (lr 1): its loss against the model's own, and its
+              parameters after the step against the model's own SGD
+              update (1e-3 relative, by embeddings, each stage's blocks
+              and the final LayerNorm); (e) MoEFFN (768 -> 3072,
+              8 experts, top-2) on a dp 2 x ep 2 mesh against the
+              unsharded step, and equal to the dense FFN with identical
+              experts.
   7h. flash   dot_product_attention(impl="flash") at bench_longcontext's
               cell (B 1, H 12, T 8192, D 64, causal, bfloat16, BHTD):
               the tensor-core fused forward and backward once each, the
@@ -539,12 +575,14 @@ no engine outlives its phase:
               7e and 7f; each fused entry with its launches in phase
               7g's eager steps, the tensor-core pair with phase 7h's
               flash cell and 7g2's dynamic-scale steps, the CUDA-core
-              pair with 7g2's eager amp steps; the NMS kernel with its launches in phase 7c2's
+              pair with 7g2's eager amp steps, each with 7g4's mesh
+              steps; the NMS kernel with its launches in phase 7c2's
               detect), errors, times, bound and library times.
   9. total    the whole script's seconds, and each phase's.
 Then the last line: {"ok": true, "device": {...}}.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -614,7 +652,13 @@ REPLACES[SPAN_TC] = REPLACES[SPAN]
 REPLACES[INT8_TC] = REPLACES[INT8]
 REPLACES["fused_attention_fwd_tc"] = REPLACES["fused_attention_fwd"]
 REPLACES["fused_attention_bwd_tc"] = REPLACES["fused_attention_bwd"]
-GPT2_LAYERS = 36       # the 774M config's depth: gpt2_train, gpt2_generate
+GPT2_LAYERS = 36       # the 774M config's depth
+# gpt2_train (7b) and gpt2_generate (7f) run the 774M model at full width
+# cut to its first layers, as the serving phases: a pass is ~0.3 s a
+# layer-set and the decode host-bound (~1.7 ms a layer a token), and
+# the cuts pay for phase 7g4's seconds
+GPT2_TRAIN_LAYERS = 12
+GENERATE_LAYERS = 6
 # the serving phases (5-5l) run the 774M model at full width cut to its
 # first 12 layers: their dispatches are host-bound, about 1.4 ms a layer,
 # and the whole script has to stay well inside its time limit
@@ -658,6 +702,24 @@ BERT_GLUON = dict(lr=1e-4, wd=0.01, max_update=1000, warmup_steps=10,
 # during the run, so the checkpoint has to carry it
 BERT_RESUME = dict(steps=6, save_at=3, scale_window=2, timed_steps=5,
                    gluon_steps=2)
+# phase 7g4: the parallel slice. (a) dryrun_multichip's mesh at BERT-base
+# width on bench_bert's traffic (hidden dropout 0.1, attention dropout 0,
+# as the dryrun; the hidden masks are drawn for the global batch, so the
+# mesh draws the single device's); (b) the 2-bit dp step (dropout 0; a
+# threshold below BERT-base's typical gradient, so codes fire from the
+# first step); (d) PPTrainStep at GPT-2 774M width; (e) MoEFFN at
+# BERT-base width (dense_B rows for the identical-experts check)
+MESH_BERT_CFG = dict(dropout=0.1, attention_dropout=0.0)
+MESH_MAIN = dict(axes={"dp": 2, "sp": 2, "tp": 2}, steps=3, lr=1e-4)
+# (a)'s and (d)'s SGD update against the single device's: relative to
+# the update, over each group of parameters (float32 sums in another
+# order move it by ~1e-6; a reduction off by a factor, by >= 1e-1)
+MESH_SGD_LR = 1.0
+MESH_SGD_TOL = 1e-3
+MESH_COMP = dict(steps=8, threshold=1e-4)
+MESH_PP = dict(layers=12, stages=2, micro=4, B=4, T=1024)
+MESH_MOE = dict(units=768, hidden=3072, experts=8, top_k=2, B=8, T=512,
+                dense_B=2)
 # the 'flash' route's cell: bench.py bench_longcontext's shape (B, H, T,
 # D; causal, bfloat16, BHTD)
 FLASH_CELL = dict(B=1, H=12, T=8192, D=64)
@@ -5531,6 +5593,634 @@ def phase_np_control(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 7g4: the parallel slice — BERT-base MLM on a dp x sp x tp mesh
+# ---------------------------------------------------------------------------
+
+def mesh_devices(n):
+    """A mesh of n shards on the one card (a repeated device list)."""
+    return [f"{DEV}:0" if DEV == "cuda" else DEV] * n
+
+
+def param_spread(torch, a, b):
+    """Largest and median |a - b| over every parameter element of two
+    nets of one structure (float32)."""
+    diffs = [(p.detach().float() - q.detach().float()).abs().reshape(-1)
+             for p, q in zip(a.parameters(), b.parameters())]
+    flat = torch.cat(diffs)
+    return float(flat.max()), float(flat.median())
+
+
+def mesh_bert(torch, dtype=None, **kw):
+    from mxnet_tpu_torch.models import (BertForMaskedLM, bert_base_config,
+                                        init_params)
+    cfg = bert_base_config(**dict(MESH_BERT_CFG, **kw))
+    require(cfg.num_layers == BERT_LAYERS, "base config changed")
+    model = init_params(BertForMaskedLM(cfg, device=DEV), seed=0, std=0.02)
+    if dtype is not None:
+        model.to(dtype)
+    return model, cfg
+
+
+def timed_steps(torch, step, batch, n):
+    """n more steps after the caller's: ms a step (host wall, the card
+    synchronised at both ends) and the losses."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(*batch) for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, [float(x) for x in losses]
+
+
+def shard_attention_check(torch, fa, attention, call):
+    """One Ulysses shard's attention as the mesh step called it (`call`:
+    its q, k, v, key-padding mask and keywords, detached): `attention`
+    (ops.nn.local_attention, so the kernels) against the plain version
+    on the same inputs, forward and the three gradients, at phase 6's
+    tolerances; the family must launch once each way."""
+    (q, k, v, mask), kw = call
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    do = torch.tensor(np.random.default_rng(7).standard_normal(
+        tuple(q.shape)), dtype=q.dtype, device=q.device)
+    f32 = q.dtype == torch.float32
+    name = f"ulysses shard attention {tuple(q.shape)} {q.dtype}"
+    family = FAMILY_KEYS["cuda_core" if f32 else "tensor_core"]
+    fa.reset_launches()
+    o = attention(*leaves, mask, **kw)
+    g = torch.autograd.grad(o, leaves, do)
+    launches = dict(fa.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    want.update(dict.fromkeys(family, 1))
+    require(launches == want, f"{name}: launches {launches}")
+    o_ref = fa.fused_attention(*leaves, mask=mask, scale=kw.get("scale"),
+                               causal=kw.get("causal", False),
+                               layout="BHTD", impl="torch")
+    g_ref = torch.autograd.grad(o_ref, leaves, do)
+    err = (o.float() - o_ref.float()).abs().max().item()
+    rel = err / o_ref.float().abs().max().item()
+    gabs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(g, g_ref)]
+    grel = [e / b.float().abs().max().item() for e, b in zip(gabs, g_ref)]
+    tol = 1e-5 if f32 else BF16_REL_TOL
+    gtol = 1e-4 if f32 else BF16_REL_TOL
+    out = {"shape": {"B": q.shape[0], "H": q.shape[1], "T": q.shape[2],
+                     "D": q.shape[3], "layout": "BHTD",
+                     "key_padding": mask is not None, "dropout": 0.0},
+           "dtype": str(q.dtype).replace("torch.", ""),
+           "max_abs_err": err, "rel_err": rel, "tol": tol,
+           "tol_kind": "absolute" if f32 else "relative",
+           "grad_max_abs_err": gabs, "grad_rel_err": grel, "grad_tol": gtol}
+    require((err if f32 else rel) <= tol,
+            f"{name}: forward err {err} (relative {rel}) > {tol}")
+    require(max(grel) <= gtol, f"{name}: gradient rel errs {grel} > {gtol}")
+    require(bool(torch.isfinite(o).all()) and all(
+        bool(torch.isfinite(x).all()) for x in g), f"{name}: non-finite")
+    return out
+
+
+def update_spread(torch, groups):
+    """Each group's |new - want| / |want - old| over all its elements
+    (norms in float64): `groups` maps a name to a list of (old, new,
+    want) tensors, `want` the reference's parameters after the same
+    update from `old`."""
+    out = {}
+    for name, trios in groups.items():
+        num = den = 0.0
+        for old, new, want in trios:
+            num += float((new.double() - want.double()).square().sum())
+            den += float((want.double() - old.double()).square().sum())
+        out[name] = math.sqrt(num / den) if den else (0.0 if not num
+                                                       else math.inf)
+    return out
+
+
+def phase_bert_mesh(torch, fa, card):
+    """(a) dryrun_multichip's step at BERT-base width: megatron tp rules,
+    TrainStep over a dp 2 x sp 2 x tp 2 mesh of 8 shards on the card,
+    attention routed by impl='auto' to Ulysses; (b) compression='2bit'
+    on a dp 2 mesh; (c) the kvstore over a one-rank NCCL group; (d)
+    PPTrainStep at GPT-2 774M width; (e) MoEFFN on a dp 2 x ep 2 mesh."""
+    import threading
+
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch import rng
+    from mxnet_tpu_torch.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import nn as opnn
+    from mxnet_tpu_torch.optimizer import SGD, AdamW
+    from mxnet_tpu_torch.parallel import PartitionSpec as P
+    from mxnet_tpu_torch.parallel import TrainStep
+    t_phase = time.perf_counter()
+    lr, steps = MESH_MAIN["lr"], MESH_MAIN["steps"]
+    mesh = par.make_mesh(MESH_MAIN["axes"], devices=mesh_devices(8))
+    n_sp = mesh.shape["sp"]
+    specs = (P("dp", "sp"), P("dp", "sp"), P("dp"), P("dp"), P("dp"))
+
+    def make_step(model, on_mesh, optimizer=None):
+        if on_mesh:
+            par.apply_sharding_rules(model,
+                                     par.megatron_dense_rules(tp_axis="tp"))
+        rng.seed(0)          # the same dropout stream on both paths
+        return TrainStep(model, SoftmaxCrossEntropyLoss(),
+                         optimizer or AdamW(learning_rate=lr, wd=0.01),
+                         n_net_inputs=4, mesh=mesh if on_mesh else None,
+                         batch_specs=specs if on_mesh else None)
+
+    # Ulysses' per-shard attention calls, by sp shard: each Ulysses call
+    # runs its shards' attentions in order on one thread; the first call
+    # of each dtype is kept (detached) for the kernel-against-plain check
+    per_shard = [0] * n_sp
+    calls = threading.local()
+    lock = threading.Lock()
+    local_attention = opnn.local_attention
+    first_call = {}
+
+    def counted(*a, **k):
+        i = getattr(calls, "i", 0)
+        calls.i = i + 1
+        with lock:
+            per_shard[i % n_sp] += 1
+            if a[0].dtype not in first_call:
+                first_call[a[0].dtype] = (tuple(
+                    None if x is None else x.detach() for x in a), dict(k))
+        return local_attention(*a, **k)
+
+    model, cfg = mesh_bert(torch)
+    batch, lens = bert_batch(torch, cfg, **BERT_TRAFFIC)
+    B, T = batch[0].shape
+    out = {"phase": "bert_mesh", "card": card, "mesh": mesh.shape,
+           "devices": str(mesh.device_list[0]) + " x 8",
+           "config": "bert_base_config", "layers": cfg.num_layers,
+           "units": cfg.units, "heads": cfg.num_heads,
+           "dropout": cfg.dropout,
+           "attention_dropout": cfg.attention_dropout,
+           "traffic": {"batch": B, "seq_len": T,
+                       "masked_per_row": batch[3].shape[1]}}
+
+    # (a) float32, TF32 off: the mesh step against the single device
+    single = make_step(model, False)
+    t0 = time.perf_counter()
+    want = [float(single(*batch)) for _ in range(steps)]
+    single_s = time.perf_counter() - t0
+    mmodel, _ = mesh_bert(torch)
+    mstep = make_step(mmodel, True)
+    fa.reset_launches()
+    opnn.local_attention = counted
+    try:
+        t0 = time.perf_counter()
+        got = [float(mstep(*batch)) for _ in range(steps)]
+        mesh_s = time.perf_counter() - t0
+    finally:
+        opnn.local_attention = local_attention
+    launches = dict(fa.LAUNCHES)
+    calls_f32 = list(per_shard)
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    mstep.sync_params()
+    largest, median = param_spread(torch, model, mmodel)
+    out["float32"] = {
+        "single_losses": want, "mesh_losses": got, "loss_rel_diff": rel,
+        "loss_tol": 1e-4, "param_diff_largest": largest,
+        "param_diff_median": median, "param_tol": 3 * lr,
+        "single_ms_per_step": single_s / steps * 1e3,
+        "mesh_ms_per_step": mesh_s / steps * 1e3,
+        "launches": launches, "ulysses_calls_by_sp_shard": calls_f32}
+    emit({"phase": "bert_mesh_a_float32", **out["float32"]})
+    require(all(np.isfinite(got)), f"non-finite mesh losses {got}")
+    require(max(rel) <= 1e-4, f"mesh losses {got} differ from the single "
+            f"device's {want} by {rel} relative")
+    require(largest <= 3 * lr, f"a parameter moved {largest} away from the "
+            f"single device's after {steps} steps (over 3 x lr)")
+    fwd_key, bwd_key = FAMILY_KEYS["cuda_core"]
+    require(min(calls_f32) > 0 and launches[fwd_key] == sum(calls_f32)
+            and launches[bwd_key] == sum(calls_f32),
+            f"the mesh steps launched {launches} for Ulysses calls "
+            f"{calls_f32} by sp shard: not one fused forward and backward "
+            "each")
+    require(sum(calls_f32) == BERT_LAYERS * mesh.shape["dp"] * n_sp
+            * steps, f"Ulysses ran {calls_f32} shard attentions, not "
+            f"{BERT_LAYERS} layers x dp x sp x {steps} steps")
+    out["launches"] = launches
+    del single, mstep, model, mmodel
+    release_device(torch)
+    out["shard_check"] = {"float32": shard_attention_check(
+        torch, fa, local_attention, first_call.pop(torch.float32))}
+    emit({"phase": "bert_mesh_a_shard_float32",
+          **out["shard_check"]["float32"]})
+
+    # (a) one SGD step (lr 1, wd 0) from the same weights, mesh against
+    # single: the update is -lr x the reduced gradient, so a dp or tp
+    # reduction off by a constant factor shows here, where AdamW's
+    # normalised first steps hide it. Held by group: the parameters the
+    # tp rules shard (reduce-scattered) and the replicated ones (psum'd)
+    sgd = {}
+    for on_mesh in (False, True):
+        m, _ = mesh_bert(torch)
+        if not on_mesh:
+            old = [p.detach().clone() for p in m.parameters()]
+        st = make_step(m, on_mesh, SGD(learning_rate=MESH_SGD_LR))
+        st(*batch)
+        st.sync_params()
+        sgd[on_mesh] = m
+        del st
+    sharded = [getattr(p, "sharding", None) is not None
+               and any(a is not None for a in p.sharding)
+               for p in sgd[True].parameters()]
+    groups = {"tp_sharded": [], "replicated": []}
+    for w0, new, want, sh in zip(old, sgd[True].parameters(),
+                                 sgd[False].parameters(), sharded):
+        groups["tp_sharded" if sh else "replicated"].append(
+            (w0, new.detach(), want.detach()))
+    spread = update_spread(torch, groups)
+    out["float32"]["sgd_update_rel_diff"] = spread
+    out["float32"]["sgd_update_tol"] = MESH_SGD_TOL
+    emit({"phase": "bert_mesh_a_sgd", "lr": MESH_SGD_LR,
+          "groups": {k: len(v) for k, v in groups.items()},
+          "update_rel_diff": spread, "tol": MESH_SGD_TOL})
+    require(all(groups.values()), f"an empty group: "
+            f"{ {k: len(v) for k, v in groups.items()} }")
+    require(max(spread.values()) <= MESH_SGD_TOL, f"the mesh SGD update "
+            f"differs from the single device's by {spread} (relative)")
+    del sgd, old, groups
+    release_device(torch)
+
+    # (a) bfloat16 with float32 masters, for time: mesh against single
+    per_shard[:] = [0] * n_sp
+    m16, _ = mesh_bert(torch, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    mstep = make_step(m16, True)
+    fa.reset_launches()
+    opnn.local_attention = counted
+    try:
+        first = float(mstep(*batch))
+        mesh_ms, rest = timed_steps(torch, mstep, batch, steps - 1)
+    finally:
+        opnn.local_attention = local_attention
+    launches16 = dict(fa.LAUNCHES)
+    calls16 = list(per_shard)
+    mesh_peak = torch.cuda.max_memory_allocated() / 1e9
+    out["shard_check"]["bfloat16"] = shard_attention_check(
+        torch, fa, local_attention, first_call.pop(torch.bfloat16))
+    emit({"phase": "bert_mesh_a_shard_bfloat16",
+          **out["shard_check"]["bfloat16"]})
+    losses16 = [first] + rest
+    comm = par.comm.bytes_by_kind(mstep)
+    report = par.comm_report(mstep)
+    mesh_trace = trace_step(torch, mstep, batch)
+    del mstep, m16
+    release_device(torch)
+    s16, _ = mesh_bert(torch, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    sstep = make_step(s16, False)
+    sstep(*batch)
+    single_ms, _ = timed_steps(torch, sstep, batch, steps - 1)
+    single_peak = torch.cuda.max_memory_allocated() / 1e9
+    single_trace = trace_step(torch, sstep, batch)
+    del sstep, s16
+    release_device(torch)
+    rel16 = [abs(a - b) / abs(b) for a, b in zip(losses16, got)]
+
+    def host_share(tr):
+        dev = tr.get("device_ms")
+        return "not measured" if dev is None else \
+            1.0 - dev / (tr["wall_s"] * 1e3)
+
+    out["bfloat16"] = {
+        "losses": losses16, "rel_to_float32_mesh": rel16, "tol": 1e-2,
+        "mesh_ms_per_step": mesh_ms, "single_ms_per_step": single_ms,
+        "mesh_over_single": mesh_ms / single_ms,
+        "mesh_peak_memory_gb": mesh_peak,
+        "single_peak_memory_gb": single_peak,
+        "mesh_trace": {k: mesh_trace.get(k) for k in (
+            "wall_s", "device_ms", "device_busy_share", "cuda_launches",
+            "device_ms_by_class")},
+        "single_trace": {k: single_trace.get(k) for k in (
+            "wall_s", "device_ms", "device_busy_share", "cuda_launches",
+            "device_ms_by_class")},
+        "mesh_host_share": host_share(mesh_trace),
+        "single_host_share": host_share(single_trace),
+        "launches": launches16, "ulysses_calls_by_sp_shard": calls16,
+        "comm_bytes_by_kind": {k: {"payload": p, "ring_wire": w}
+                               for k, (p, w) in comm.items()},
+        "comm_report": report.splitlines()}
+    emit({"phase": "bert_mesh_a_bfloat16", **out["bfloat16"]})
+    require(all(np.isfinite(losses16)), f"non-finite losses {losses16}")
+    require(max(rel16) <= 1e-2, f"bfloat16 mesh losses {losses16} differ "
+            f"from the float32 mesh run's {got} by {rel16}")
+    fwd16, bwd16 = FAMILY_KEYS["tensor_core"]
+    require(min(calls16) > 0 and launches16[fwd16] == sum(calls16)
+            and launches16[bwd16] == sum(calls16),
+            f"bfloat16 mesh steps launched {launches16} for Ulysses calls "
+            f"{calls16} by sp shard")
+    for kind in ("all_to_all", "all_reduce", "reduce_scatter",
+                 "all_gather"):
+        require(comm.get(kind, (0, 0))[0] > 0,
+                f"no {kind} bytes in the mesh step: {comm}")
+    out["launches_bf16"] = launches16
+
+    out["compression"] = mesh_compression(torch, par, TrainStep, AdamW,
+                                          SoftmaxCrossEntropyLoss, fa)
+    out["kvstore"] = mesh_kvstore(torch)
+    out["pipeline"] = mesh_pipeline(torch, par, fa)
+    out["moe"] = mesh_moe(torch, par)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "bert_mesh", **{k: v for k, v in out.items()
+                                   if k not in ("float32", "bfloat16")}})
+    return out
+
+
+def mesh_compression(torch, par, TrainStep, AdamW, Loss, fa):
+    """(b) BERT-base (bfloat16, masters, dropout 0) on a dp 2 mesh,
+    MESH_COMP["steps"] steps with compression='2bit' and without, from
+    the same weights on the same batch."""
+    from mxnet_tpu_torch import rng
+    cfg = MESH_COMP
+    mesh = par.make_mesh(dp=2, devices=mesh_devices(2))
+    runs = {}
+    for comp in ("2bit", None):
+        model, bcfg = mesh_bert(torch, torch.bfloat16, dropout=0.0)
+        batch, _ = bert_batch(torch, bcfg, **BERT_TRAFFIC)
+        rng.seed(0)
+        step = TrainStep(model, Loss(), AdamW(learning_rate=MESH_MAIN["lr"],
+                                              wd=0.01),
+                         mesh=mesh, n_net_inputs=4, compression=comp,
+                         compression_threshold=cfg["threshold"])
+        t0 = time.perf_counter()
+        losses = [float(step(*batch)) for _ in range(cfg["steps"])]
+        dt = (time.perf_counter() - t0) / cfg["steps"] * 1e3
+        n_params = sum(p.numel() for p in step._params)
+        rows = step.last_collectives
+        if comp:
+            wire = sum(r["bytes"] // r["group"] for r in rows
+                       if r["kind"] == "all_gather")
+            residual = float(sum(r.abs().sum() for r in step._residuals))
+        else:
+            wire = sum(r["bytes"] for r in rows if r["kind"] == "all_reduce"
+                       and r["bytes"] > 4)
+            residual = None
+        runs[comp or "none"] = {"losses": losses, "ms_per_step": dt,
+                                "wire_bytes_per_shard": wire,
+                                "float32_grad_bytes": n_params * 4,
+                                "residual_abs_sum": residual}
+        del step, model
+        release_device(torch)
+    c, u = runs["2bit"], runs["none"]
+    ratio = c["wire_bytes_per_shard"] / c["float32_grad_bytes"]
+    res = {"threshold": cfg["threshold"], "steps": cfg["steps"],
+           "compressed": c, "uncompressed": u, "wire_ratio": ratio}
+    emit({"phase": "bert_mesh_b_2bit", **res})
+    require(all(np.isfinite(c["losses"])), f"non-finite {c['losses']}")
+    require(c["losses"][-1] < c["losses"][0],
+            f"the 2-bit run did not train: {c['losses']}")
+    require(u["losses"][-1] < c["losses"][-1] + 1e-3,
+            f"the uncompressed run ended at {u['losses'][-1]}, above the "
+            f"2-bit run's {c['losses'][-1]} + 1e-3")
+    require(1 / 16 <= ratio <= 1 / 16 * 1.001, f"the 2-bit wire moves "
+            f"{ratio} of float32's gradient bytes, not 1/16")
+    require(c["residual_abs_sum"] > 0, "no error-feedback residual")
+    return res
+
+
+def mesh_kvstore(torch):
+    """(c) create("nccl"), and a one-rank NCCL dist_sync group formed
+    from init_distributed's env: pushpull keeps the value; a gluon
+    Trainer(kvstore="dist_sync") step on BERT-base (float32, dropout 0)
+    equals a kvstore="device" step to the bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"DMLC_PS_ROOT_URI": "127.0.0.1", "DMLC_PS_ROOT_PORT": str(port),
+           "DMLC_NUM_WORKER": "1", "DMLC_WORKER_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        r = np.random.default_rng(0)
+        v = mx.nd.array(r.standard_normal((4, 1024)).astype(np.float32))
+        local = mx.kv.create("nccl")
+        local.init("w", mx.nd.zeros((4, 1024)))
+        o = mx.nd.zeros((4, 1024))
+        local.pushpull("w", v, out=o)
+        require(np.array_equal(o.asnumpy(), v.asnumpy()),
+                "create('nccl') pushpull changed the value")
+        store = mx.kv.create("dist_sync")
+        backend = str(dist.get_backend())
+        require(store._group and store.num_workers == 1,
+                "the dist_sync group did not form")
+        store.init("w", mx.nd.zeros((4, 1024)))
+        o2 = mx.nd.zeros((4, 1024))
+        store.pushpull("w", v, out=o2)
+        require(np.array_equal(o2.asnumpy(), v.asnumpy()),
+                "the one-rank NCCL pushpull changed the value")
+        lfn = gluon.loss.SoftmaxCrossEntropyLoss()
+        result = {}
+        for kind in ("dist_sync", "device"):
+            net, cfg = gluon_bert(mx, dropout=0.0, attention_dropout=0.0)
+            batch, _ = bert_batch(torch, cfg, **BERT_TRAFFIC)
+            tr = gluon.Trainer(net.collect_params(), "adamw",
+                               {"learning_rate": MESH_MAIN["lr"],
+                                "wd": 0.01}, kvstore=kind)
+            t0 = time.perf_counter()
+            loss = gluon_steps(mx, net, tr, lfn, batch, 1)
+            dt = time.perf_counter() - t0
+            result[kind] = (loss, [p.data()._data.detach().clone()
+                                   for p in net.collect_params().values()],
+                            dt, tr._kvstore is not None)
+            del net, tr
+            release_device(torch)
+        (ls, ps, dts, on_kv), (ld, pd, dtd, _) = result["dist_sync"], \
+            result["device"]
+        equal = all(torch.equal(a, b) for a, b in zip(ps, pd))
+        res = {"backend": backend, "nccl_pushpull_equal": True,
+               "trainer_loss": ls, "device_loss": ld,
+               "trainer_step_s": dts, "device_step_s": dtd,
+               "trainer_used_kvstore": on_kv, "params_equal": equal,
+               "params": len(ps)}
+        emit({"phase": "bert_mesh_c_kvstore", **res})
+        require(on_kv, "Trainer(kvstore='dist_sync') kept no store")
+        require(equal and ls == ld, "the dist_sync Trainer step differs "
+                "from the kvstore='device' step")
+        return res
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+
+
+def mesh_pipeline(torch, par, fa):
+    """(d) GPT-2 774M width cut to MESH_PP["layers"] layers, split by
+    gpt2_pp_functions into 2 stages on a pp 2 mesh, 4 microbatches:
+    one PPTrainStep SGD step under each schedule against the model's
+    own forward and backward on the same weights (float32, TF32 off):
+    the loss, and the parameters after the step against the single
+    device's SGD update, by group (embeddings with the tied wte, each
+    stage's blocks, the final LayerNorm)."""
+    from mxnet_tpu_torch.models import GPT2ForCausalLM, gpt2_774m_config
+    from mxnet_tpu_torch.models.gpt2 import gpt2_pp_functions
+    from mxnet_tpu_torch.optimizer import SGD
+    cell = MESH_PP
+    cfg = gpt2_774m_config(num_layers=cell["layers"], dropout=0.0,
+                           attention_dropout=0.0)
+    model = GPT2ForCausalLM(cfg, device=DEV)
+    r = np.random.default_rng(0)
+    x = torch.tensor(r.integers(0, cfg.vocab_size, (cell["B"], cell["T"])),
+                     dtype=torch.int32, device=DEV)
+    y = torch.tensor(r.integers(0, cfg.vocab_size, (cell["B"], cell["T"])),
+                     dtype=torch.int32, device=DEV)
+    logp = torch.log_softmax(model(x).float(), -1)
+    loss = -logp.gather(-1, y.long()[..., None]).mean()
+    want = float(loss.detach())
+    params = dict(model.named_parameters())
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    del logp, loss
+    bb = model.backbone
+    names = {id(p): n for n, p in params.items()}
+    blocks = bb.blocks()
+    k = len(blocks) // cell["stages"]
+    fns = gpt2_pp_functions(model, cell["stages"])
+    lr = MESH_SGD_LR
+
+    def sgd(t):
+        """The single device's SGD update of parameter tensor t."""
+        return t.detach() - lr * grads[names[id(t)]]
+
+    def trios(e, b, h):
+        """(old, PP's new, single device's new) by group."""
+        groups = {"embed": [(bb.word_embed.weight, e["wte"]),
+                            (bb.position_embed.weight, e["wpe"])],
+                  "head": [(bb.ln_f.gamma, h["g"]), (bb.ln_f.beta, h["b"])]}
+        for s in range(cell["stages"]):
+            groups[f"stage{s}"] = [
+                (p, b[i][n][s]) for i in range(k)
+                for n, p in blocks[s * k + i].named_parameters()]
+        return {g: [(p.detach(), new, sgd(p)) for p, new in pairs]
+                for g, pairs in groups.items()}
+    mesh = par.make_mesh(pp=cell["stages"],
+                         devices=mesh_devices(cell["stages"]))
+    res = {"config": f"gpt2_774m_config(num_layers={cell['layers']})",
+           "stages": cell["stages"], "microbatches": cell["micro"],
+           "batch": cell["B"], "seq_len": cell["T"],
+           "single_device_loss": want, "sgd_lr": lr,
+           "update_tol": MESH_SGD_TOL}
+    for schedule in ("1f1b", "gpipe"):
+        step = par.PPTrainStep(*fns[:6], SGD(learning_rate=lr),
+                               cell["micro"], mesh=mesh, schedule=schedule,
+                               tied=fns[6])
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = float(step(x, y))
+        dt = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        e, b, h = step.params
+        res[schedule] = {"loss": got, "rel_diff": abs(got - want) / want,
+                         "step_s": dt, "launches": launches,
+                         "collectives": len(step.last_collectives),
+                         "update_rel_diff": update_spread(torch,
+                                                          trios(e, b, h)),
+                         "tied_head_mirrors_embed": bool(torch.equal(
+                             h["wte"], e["wte"]))}
+        del step, e, b, h
+        release_device(torch)
+    del model, fns, grads, params
+    release_device(torch)
+    emit({"phase": "bert_mesh_d_pipeline", **res})
+    for schedule in ("1f1b", "gpipe"):
+        got = res[schedule]
+        require(got["rel_diff"] <= 1e-4, f"PPTrainStep({schedule}) loss "
+                f"{got['loss']} against the single device's {want}")
+        require(max(got["update_rel_diff"].values()) <= MESH_SGD_TOL,
+                f"PPTrainStep({schedule}) parameters after the step differ "
+                f"from the single device's SGD update by "
+                f"{got['update_rel_diff']} (relative)")
+        require(got["tied_head_mirrors_embed"],
+                f"PPTrainStep({schedule}): the head's wte is not the "
+                "embed's after the step")
+        require(got["launches"]["fused_attention_fwd"] > 0
+                and got["launches"]["fused_attention_bwd"] > 0,
+                f"the {schedule} pipeline launched no fused attention")
+    return res
+
+
+def mesh_moe(torch, par):
+    """(e) MoEFFN at BERT-base width (768 -> 3072, 8 experts, top-2),
+    float32: 2 TrainStep steps on a dp 2 x ep 2 mesh (ep_rules) against
+    the unsharded step from the same weights; with identical experts and
+    ample capacity, the dense FFN."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.optimizer import Adam
+    cell = MESH_MOE
+
+    def make(**kw):
+        net = nn.MoEFFN(cell["units"], cell["hidden"], cell["experts"],
+                        top_k=cell["top_k"], **kw)
+        mx.random.seed(0)
+        net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0)
+                       if DEV == "cuda" else mx.cpu())
+        return net
+
+    r = np.random.default_rng(0)
+    shape = (cell["B"], cell["T"], cell["units"])
+    x = torch.tensor(r.standard_normal(shape), dtype=torch.float32,
+                     device=DEV)
+    y = torch.tensor(r.standard_normal(shape) * 0.02, dtype=torch.float32,
+                     device=DEV)
+    single, sharded = make(), make()
+    par.apply_sharding_rules(sharded, par.ep_rules())
+    mesh = par.make_mesh(dp=2, ep=2, devices=mesh_devices(4))
+    s1 = par.TrainStep(single, gloss.L2Loss(), Adam(learning_rate=1e-3))
+    s2 = par.TrainStep(sharded, gloss.L2Loss(), Adam(learning_rate=1e-3),
+                       mesh=mesh, batch_specs=(par.PartitionSpec("dp"),
+                                               par.PartitionSpec("dp")))
+    want = [float(s1(x, y)) for _ in range(2)]
+    got = [float(s2(x, y)) for _ in range(2)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    largest, median = param_spread(torch, single, sharded)
+    blocks = len(next(mp for mp in s2.mesh_params
+                      if mp.name == "expert_w1").devices)
+    del s1, s2, single, sharded
+    # identical experts, capacity for every token: the dense FFN
+    dense_net = make(capacity_factor=cell["experts"] / cell["top_k"])
+    params = dense_net.collect_params()
+    with torch.no_grad():
+        for name in ("expert_w1", "expert_b1", "expert_w2", "expert_b2"):
+            t = params[name].data()._data
+            if "_b" in name:
+                t.normal_(0.0, 0.02)
+            t[1:].copy_(t[:1].expand_as(t[1:]))
+        xs = x[:cell["dense_B"]]
+        out = dense_net(xs)
+        w = {n: params[n].data()._data for n in params}
+        h = torch.nn.functional.gelu(xs @ w["expert_w1"][0]
+                                     + w["expert_b1"][0], approximate="tanh")
+        dense = h @ w["expert_w2"][0] + w["expert_b2"][0]
+        dense_err = float((out - dense).abs().max() / dense.abs().max())
+    del dense_net
+    release_device(torch)
+    res = {"units": cell["units"], "hidden": cell["hidden"],
+           "experts": cell["experts"], "top_k": cell["top_k"],
+           "tokens": cell["B"] * cell["T"], "mesh": {"dp": 2, "ep": 2},
+           "single_losses": want, "mesh_losses": got, "loss_rel_diff": rel,
+           "param_diff_largest": largest, "param_diff_median": median,
+           "expert_w1_positions": blocks, "dense_rel_err": dense_err}
+    emit({"phase": "bert_mesh_e_moe", **res})
+    require(max(rel) <= 1e-5, f"ep-sharded MoE losses {got} against {want}")
+    require(largest <= 3e-3, f"ep-sharded MoE weights {largest} apart")
+    require(blocks == 4, "expert_w1 is not stored over the 4 positions")
+    require(dense_err <= 1e-5, f"identical experts {dense_err} from the "
+            "dense FFN")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 7h: the 'flash' route at bench_longcontext's shape
 # ---------------------------------------------------------------------------
 
@@ -5580,8 +6270,9 @@ def phase_flash(torch, F, fa):
 
 def phase_gpt2_train(torch, fa, card):
     """One forward and backward of GPT-2 774M's causal LM loss at full
-    width on the cache=None path, B = 2, T = 1024, dropout and attention
-    dropout 0.1 (train() mode), float32 and bfloat16: the kernel path
+    width (GPT2_TRAIN_LAYERS of its 36 layers) on the cache=None path,
+    B = 2, T = 1024, dropout and attention dropout 0.1 (train() mode),
+    float32 and bfloat16: the kernel path
     (attention_impl "auto") against the plain path ("torch") from the
     same weights and the same dropout generator. Each kernel pass must
     launch its family's fused forward and backward once a layer and
@@ -5592,13 +6283,16 @@ def phase_gpt2_train(torch, fa, card):
     from mxnet_tpu_torch.models import (GPT2ForCausalLM, gpt2_774m_config,
                                         init_params)
     B, T = GPT2_TRAIN["B"], GPT2_TRAIN["T"]
-    out = {"phase": "gpt2_train", "card": card, "config": "gpt2_774m_config",
+    out = {"phase": "gpt2_train", "card": card,
+           "config": f"gpt2_774m_config(num_layers={GPT2_TRAIN_LAYERS})",
            "batch": B, "seq_len": T, "dropout": 0.1}
 
     def make(dtype, impl):
-        cfg = gpt2_774m_config(dropout=0.1, attention_dropout=0.1,
-                               attention_impl=impl, dtype=dtype)
-        require(cfg.num_layers == GPT2_LAYERS, "774M config changed")
+        require(gpt2_774m_config().num_layers == GPT2_LAYERS,
+                "774M config changed")
+        cfg = gpt2_774m_config(num_layers=GPT2_TRAIN_LAYERS, dropout=0.1,
+                               attention_dropout=0.1, attention_impl=impl,
+                               dtype=dtype)
         model = init_params(GPT2ForCausalLM(cfg, device=DEV), seed=0,
                             std=0.02)
         model.train()
@@ -5632,7 +6326,7 @@ def phase_gpt2_train(torch, fa, card):
             fa.reset_launches()
             loss, ms = fwd_bwd(model, ids)
             launches = dict(fa.LAUNCHES)
-            want = {k: (GPT2_LAYERS if impl == "auto"
+            want = {k: (GPT2_TRAIN_LAYERS if impl == "auto"
                         and k in FAMILY_KEYS[family] else 0)
                     for k in launches}
             require(launches == want, f"gpt2_train {dtype} impl={impl}: "
@@ -7063,7 +7757,8 @@ def stream_gate(got, want, logits_got, logits_want, f32, label):
 
 
 def phase_gpt2_generate(torch, F, fa, card):
-    """GPT-2 774M (seeded random weights) generating bench.py
+    """GPT-2 774M (seeded random weights; GENERATE_LAYERS of its 36
+    layers) generating bench.py
     bench_gpt2_decode's traffic (GPT2_GENERATE: B = 8, prompt 128, 128
     greedy tokens) with GPT2ForCausalLM.generate, float32 then bfloat16:
     through the kernels over a lockstep paged cache (pages of 64: the
@@ -7071,7 +7766,7 @@ def phase_gpt2_generate(torch, F, fa, card):
     versions over pages. The prompt's forward takes the plain softmax
     attention ((1, 1, 128, 256) mask, no kernel, as in the reference);
     each single-token forward launches the family's fused forward once a
-    layer in BHTD, 36 x 128 a generate, and nothing else. Gates
+    layer in BHTD, 6 x 128 a generate, and nothing else. Gates
     (stream_gate): kernel against plain, paged against contiguous.
     Tokens/s and ms a token (bench_gpt2_decode's: the whole generate over
     the new tokens), and the decode call's kernel cell: B 8, H 20, one
@@ -7079,16 +7774,19 @@ def phase_gpt2_generate(torch, F, fa, card):
     from mxnet_tpu_torch.models import (GPT2ForCausalLM, gpt2_774m_config,
                                         init_params)
     c = GPT2_GENERATE
-    cfg = gpt2_774m_config(dropout=0.0, attention_dropout=0.0)
-    require(cfg.num_layers == GPT2_LAYERS, "774M config changed")
+    require(gpt2_774m_config().num_layers == GPT2_LAYERS,
+            "774M config changed")
+    cfg = gpt2_774m_config(num_layers=GENERATE_LAYERS, dropout=0.0,
+                           attention_dropout=0.0)
     model = init_params(GPT2ForCausalLM(cfg, device=DEV), seed=0, std=0.02)
     B, T0, n, S = c["B"], c["prompt"], c["new"], c["page_size"]
     ids = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, T0)), dtype=torch.int32, device=DEV)
     out = {"phase": "gpt2_generate", "card": card,
-           "config": "gpt2_774m_config", "batch": B, "prompt": T0,
+           "config": f"gpt2_774m_config(num_layers={GENERATE_LAYERS})",
+           "batch": B, "prompt": T0,
            "new_tokens": n, "page_size": S, "decoding": "greedy"}
-    want_calls = {"BHTD_tq1": GPT2_LAYERS * n}
+    want_calls = {"BHTD_tq1": GENERATE_LAYERS * n}
     for dtype, family in (("float32", "cuda_core"),
                           ("bfloat16", "tensor_core")):
         if dtype == "bfloat16":
@@ -7116,7 +7814,7 @@ def phase_gpt2_generate(torch, F, fa, card):
             launches = dict(fa.LAUNCHES)
             want = dict.fromkeys(launches, 0)
             if impl == "auto":
-                want[FAMILY_KEYS[family][0]] = GPT2_LAYERS * n
+                want[FAMILY_KEYS[family][0]] = GENERATE_LAYERS * n
             require(launches == want and calls.calls == (
                 want_calls if impl == "auto" else {}),
                 f"gpt2_generate {dtype} {label}: launches {launches}, calls "
@@ -7261,7 +7959,7 @@ def span_entries(span, span8, gpt2, gpt2_int8, spec, tier, robust, http,
 
 def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
                   nmt_translate, generate, card, bert_gluon, flash,
-                  bert_resume):
+                  bert_resume, bert_mesh):
     """The fused kernels' four kernels-line entries at the BERT-base BTHD
     cell (the main path's shape), the BHTD and GPT-2 cells beside: the
     CUDA-core pair (float32, with the split-TF32 bound beside; bfloat16
@@ -7278,7 +7976,10 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
     tensor-core pair with phase 7h's 'flash' cell (BHTD, causal, T 8192:
     its launches, times, errors and bound); the tensor-core pair with its
     launches in phase 7g2's uninterrupted dynamic-scale steps, the
-    CUDA-core pair with those of 7g2's eager amp steps."""
+    CUDA-core pair with those of 7g2's eager amp steps; each with its
+    launches in phase 7g4's mesh steps of its dtype (Ulysses' per-shard
+    attention, BHTD) and the errors of one such shard's attention
+    against the plain version."""
     main = fused["bert_bthd"]
     f32, b16 = main["float32"], main["bfloat16"]
     cells = ("bert_bhtd", "gpt2_774m_causal")
@@ -7307,7 +8008,23 @@ def fused_entries(fused, launches, launches16, gpt2_train, nmt_train,
         """Launches in phase 7g's eager steps, and the flash cell."""
         src = bert_gluon["launches_bf16" if key.endswith("_tc")
                          else "launches"]
-        extra = {"bert_gluon_launches": src[key]}
+        extra = {"bert_gluon_launches": src[key],
+                 "bert_mesh_launches": bert_mesh[
+                     "launches_bf16" if key.endswith("_tc")
+                     else "launches"][key]}
+        # one Ulysses shard's attention of phase 7g4 against the plain
+        # version (its forward errors in a forward's entry, its worst
+        # gradient's in a backward's)
+        sc = bert_mesh["shard_check"][
+            "bfloat16" if key.endswith("_tc") else "float32"]
+        is_fwd = "fwd" in key
+        extra["bert_mesh_shard_check"] = {
+            "shape": sc["shape"], "dtype": sc["dtype"],
+            "max_abs_err": sc["max_abs_err"] if is_fwd
+            else max(sc["grad_max_abs_err"]),
+            "rel_err": sc["rel_err"] if is_fwd else max(sc["grad_rel_err"]),
+            "tol": sc["tol"] if is_fwd else sc["grad_tol"],
+            "tol_kind": sc["tol_kind"] if is_fwd else "relative"}
         if key.endswith("_tc"):
             extra["bert_resume_launches"] = bert_resume["launches"][key]
         else:
@@ -7470,6 +8187,7 @@ def main():
                        bert)
     bert_resume = timed("bert_resume", phase_bert_resume, torch, fa, card)
     timed("np_control", phase_np_control, torch)
+    bert_mesh = timed("bert_mesh", phase_bert_mesh, torch, fa, card)
     flash = timed("flash", phase_flash, torch, F, fa)
     gpt2_train = timed("gpt2_train", phase_gpt2_train, torch, fa, card)
     timed("resnet50", phase_resnet50, torch, card)
@@ -7491,7 +8209,7 @@ def main():
         span_sq1_ms_bf16=decode["bfloat16"]["span_sq1_ms"]))
     kernels += fused_entries(fused, bert["launches"], bert["launches_bf16"],
                              gpt2_train, nmt_train, nmt_translate, generate,
-                             card, bert_gluon, flash, bert_resume)
+                             card, bert_gluon, flash, bert_resume, bert_mesh)
     kernels.append(nms_entry(ssd, card))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds, "card": card})

@@ -9,7 +9,8 @@ is a CUDA kernel written for Hopper (`csrc/`, built at first use by
 (NDArray and the op registry), mx.autograd, mx.gluon (Block,
 Parameter, nn, loss, Trainer, utils), mx.init / mx.initializer,
 mx.optimizer, mx.lr_scheduler, mx.random, mx.rng, mx.amp, mx.np /
-mx.npx, mx.checkpoint, mx.operator, mx.functional, mx.cpu() / mx.gpu()
+mx.npx, mx.checkpoint, mx.operator, mx.functional, mx.kv / mx.kvstore,
+mx.cpu() / mx.gpu()
 (the default device is the card; without one, placing an array there
 raises); `mxnet_tpu_torch.serialization` reads and writes the
 reference's `.params` files. Below it: GPT-2 serving over a ragged
@@ -51,7 +52,9 @@ _LAZY = {"gluon": "mxnet_tpu_torch.gluon",
          "npx": "mxnet_tpu_torch.numpy_extension",
          "checkpoint": "mxnet_tpu_torch.checkpoint",
          "operator": "mxnet_tpu_torch.operator",
-         "functional": "mxnet_tpu_torch.functional"}
+         "functional": "mxnet_tpu_torch.functional",
+         "kv": "mxnet_tpu_torch.kvstore",
+         "kvstore": "mxnet_tpu_torch.kvstore"}
 
 
 def __getattr__(name):

@@ -18,7 +18,11 @@ are parameters), the optimizer states with their float32 masters, the
 step count, the base seed of the per-step dropout generators (so the
 resumed steps draw the same masks and fused-attention seed words), and
 the loss-scale state with a has-scale flag (a checkpoint without loss
-scaling restored into a dynamic step keeps its initial 2^16).
+scaling restored into a dynamic step keeps its initial 2^16), and under
+`compression="2bit"` each dp shard's error-feedback residuals. A mesh
+step's parameter blocks held on other devices are pulled into the net's
+tensors before a save (`sync_params`) and pushed back out after a
+restore.
 
 `save()` copies every tensor to host memory (pinned, from a card) and
 waits for the copies before it returns, so the next step may overwrite
@@ -91,6 +95,7 @@ class TrainCheckpoint:
     # -- the state ---------------------------------------------------------
     @staticmethod
     def _state_of(train_step):
+        train_step.sync_params()
         named, trainable = _named_params(train_step)
         state = {f"param/{n}": p.detach() for n, p in named.items()}
         for n, states in zip(trainable, train_step._states):
@@ -103,6 +108,8 @@ class TrainCheckpoint:
         state["has_scale"] = torch.tensor(scale is not None)
         if scale is not None:
             state["scale"], state["scale_good"] = scale
+        for n, r in zip(trainable, train_step._residuals):
+            state[f"resid/{n}"] = r
         return state
 
     @staticmethod
@@ -219,8 +226,10 @@ class TrainCheckpoint:
         want = {f"param/{n}" for n in named} | {
             f"opt/{n}/{j}" for n, states in zip(trainable,
                                                 train_step._states)
-            for j in range(len(states))}
-        have = {k for k in state if k.startswith(("param/", "opt/"))}
+            for j in range(len(states))} | {
+            f"resid/{n}" for n, _ in zip(trainable, train_step._residuals)}
+        have = {k for k in state
+                if k.startswith(("param/", "opt/", "resid/"))}
         if want != have:
             raise MXNetError(
                 f"checkpoint {path} does not match the step: missing "
@@ -232,6 +241,9 @@ class TrainCheckpoint:
             for n, states in zip(trainable, train_step._states):
                 for j, s in enumerate(states):
                     self._copy(s, state[f"opt/{n}/{j}"], f"{n} state {j}")
+            for n, r in zip(trainable, train_step._residuals):
+                self._copy(r, state[f"resid/{n}"], f"{n} residual")
+        train_step._after_restore()
         t = int(state["t"])
         train_step._t = t
         train_step.optimizer.num_update = t

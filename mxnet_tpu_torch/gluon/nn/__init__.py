@@ -5,3 +5,4 @@ from .activations import *  # noqa: F401,F403
 from .basic_layers import *  # noqa: F401,F403
 from .conv_layers import *  # noqa: F401,F403
 from .transformer import *  # noqa: F401,F403
+from .moe import MoEFFN  # noqa: F401

@@ -115,6 +115,8 @@ class Parameter:
         old = self._var
         var = torch.nn.Parameter(tensor, requires_grad=old.requires_grad)
         self._adopt(var, old._mx_grad_req, old.lr_mult, old.wd_mult)
+        if getattr(old, "sharding", None) is not None:
+            var.sharding = old.sharding
         for ref, name in self._owners:
             mod = ref()
             if mod is not None and mod._parameters.get(name) is old:
@@ -177,6 +179,17 @@ class Parameter:
     @wd_mult.setter
     def wd_mult(self, v):
         self._var.wd_mult = v
+
+    @property
+    def sharding(self):
+        """The parameter's PartitionSpec over a mesh (None: replicated);
+        an attribute of the torch parameter, where a mesh TrainStep
+        reads it."""
+        return getattr(self._var, "sharding", None)
+
+    @sharding.setter
+    def sharding(self, spec):
+        self._var.sharding = spec
 
     # -- grad_req ------------------------------------------------------------
     @property

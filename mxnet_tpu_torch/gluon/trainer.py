@@ -8,8 +8,11 @@ optimizer_params, kvstore)` with `step` (allreduce, then the update with
 the updater's state indices follow that order; after its update a
 'write' parameter's gradient is zeroed, as the reference does.
 
-One process, one device: kvstore None, "device" or "local" reduce
-nothing; another kvstore raises. With `amp.init_trainer`, `step` also
+kvstore None, "device" or "local" reduce nothing (one process); any
+other type is made by `kvstore.create` at the first step (with
+`compression_params` set on it), and a store over a worker group
+(`dist_sync` and its aliases, kvstore.py) pushpulls every gradient
+across the workers before the update; "dist_async" raises there. With `amp.init_trainer`, `step` also
 divides by the loss scale (unless `amp.unscale` already did), and for a
 scaler that is not a no-op checks the gradients for overflow, adjusts
 the scale, and on overflow zeroes the gradients and skips the update.
@@ -30,7 +33,7 @@ import torch
 
 from .. import optimizer as _opt
 from .. import telemetry
-from ..base import MXNetError, not_ported
+from ..base import MXNetError
 from ..telemetry import cost as _cost
 from ..telemetry import flight as _flight
 from ..telemetry import ledger as _ledger
@@ -75,10 +78,6 @@ class Trainer:
         if not isinstance(params, (list, tuple)):
             raise MXNetError("first argument must be a list/dict of "
                              f"Parameters, got {type(params)}")
-        if kvstore not in (None, "device", "local"):
-            raise not_ported(f"Trainer kvstore={kvstore!r}")
-        if compression_params:
-            raise not_ported("Trainer gradient compression")
         self._params = []
         self._param2idx = {}
         for i, p in enumerate(params):
@@ -88,6 +87,10 @@ class Trainer:
             self._param2idx[p.name] = i
         self._scale = 1.0
         self._kvstore_type = kvstore
+        self._compression_params = compression_params
+        self._kvstore = None
+        self._kv_initialized = False
+        self._kv_inited_keys = set()
         self._update_on_kvstore = update_on_kvstore
         self._init_optimizer(optimizer, optimizer_params or {})
         _ledger.register(f"trainer/{next(_trainer_ids)}", self._hbm_ledger)
@@ -170,7 +173,38 @@ class Trainer:
             _cost.note_dispatch("trainer.step", dt)
 
     def allreduce_grads(self):
-        """One device: nothing to reduce."""
+        """Sum every gradient across the kvstore's workers (in place), when
+        the Trainer has a worker-group store; nothing otherwise."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is None:
+            return
+        for i, p in enumerate(self._params):
+            if p.grad_req == "null":
+                continue
+            if i not in self._kv_inited_keys:
+                # the reference's Trainer init()s each key before its
+                # first pushpull
+                self._kvstore.init(i, p.data())
+                self._kv_inited_keys.add(i)
+            self._kvstore.pushpull(i, p.grad(), out=p.grad())
+
+    def _init_kvstore(self):
+        """The reference's `_init_kvstore`: a store for any type but None /
+        "device" / "local", kept when it spans a worker group (a group of
+        one worker too: its all_reduce is the identity, on the group's
+        backend)."""
+        from .. import kvstore as kv
+        self._kvstore = None
+        self._kv_inited_keys = set()
+        kvt = self._kvstore_type
+        if kvt not in (None, "device", "local"):
+            store = kvt if isinstance(kvt, kv.KVStore) else kv.create(kvt)
+            if self._compression_params:
+                store.set_gradient_compression(self._compression_params)
+            if store.num_workers > 1 or getattr(store, "_group", False):
+                self._kvstore = store
+        self._kv_initialized = True
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update without allreduce."""

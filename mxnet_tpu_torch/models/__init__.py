@@ -2,7 +2,8 @@
 BERT MLM, Transformer NMT)."""
 from .bert import (BertConfig, BertForMaskedLM, BertModel, bert_base_config,
                    bert_large_config)
-from .convert import init_params, load_gluon_params, load_jax_params
+from .convert import (init_params, load_gluon_params, load_jax_params,
+                      load_jax_tree)
 from .gpt2 import (AdapterBatch, GPT2Config, GPT2ForCausalLM, GPT2Model,
                    gpt2_774m_config, gpt2_medium_config, gpt2_small_config,
                    gpt2_xl_config)
@@ -16,5 +17,5 @@ __all__ = ["AdapterBatch", "BertConfig", "BertForMaskedLM", "BertModel", "GPT2Co
            "bert_large_config",
            "gpt2_774m_config", "gpt2_medium_config", "gpt2_small_config",
            "gpt2_xl_config", "init_params", "load_gluon_params",
-           "load_jax_params",
+           "load_jax_params", "load_jax_tree",
            "gather_kv_pages", "nmt_base_config", "scatter_kv_pages"]

@@ -18,6 +18,17 @@ parameter lives, else the default device); a missing, extra or
 mis-shaped name raises. `block` may also be a dict of name -> Parameter
 (a ParameterDict), and the arrays torch tensors (bfloat16 among them).
 
+`load_jax_tree(tree, like=None, device=None)` carries a tree of arrays
+across (dicts, lists and tuples of numpy arrays, as
+`jax.tree_util.tree_map(np.asarray, t)` gives them): the pipeline's
+embed, head and stacked stage parameters (parallel.stack_stage_params,
+models.gpt2.gpt2_pp_functions). With `like` (the port's tree of the
+same structure, e.g. its own gpt2_pp_functions' stacked parameters) the
+keys, shapes and dtypes are checked against it and taken from it; a
+missing, extra or mis-shaped leaf raises. MoEFFN's stacked expert
+weights (`expert_w1` (E, C, H) ...) cross as any Block's do, through
+`load_gluon_params` (or `load_jax_params` once initialised).
+
 `init_params(model, seed, std)` draws weights from N(0, std) with a
 generator seeded on the model's own device (gamma 1; beta, biases and
 BERT's `decoder_bias` 0, as the reference's `init="zeros"`; BatchNorm's
@@ -31,7 +42,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["load_jax_params", "load_gluon_params", "init_params"]
+__all__ = ["load_jax_params", "load_gluon_params", "load_jax_tree",
+           "init_params"]
 
 
 def load_jax_params(model, arrays):
@@ -78,6 +90,36 @@ def load_gluon_params(block, arrays, ctx=None):
                                 else _device.to_torch(None), False)
         p.set_data(t if dev is None else t.to(dev))
     return block
+
+
+def load_jax_tree(tree, like=None, device=None, _path="tree"):
+    """A nested dict / list / tuple of arrays as the same structure of
+    torch tensors (on `device`, or on the `like` leaf's device in its
+    dtype)."""
+    if isinstance(tree, dict):
+        if like is not None and (not isinstance(like, dict)
+                                 or set(like) != set(tree)):
+            raise MXNetError(f"load_jax_tree: {_path} has keys "
+                             f"{sorted(tree)}, the port's tree does not")
+        return {k: load_jax_tree(v, None if like is None else like[k],
+                                 device, f"{_path}.{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if like is not None and (not isinstance(like, (list, tuple))
+                                 or len(like) != len(tree)):
+            raise MXNetError(f"load_jax_tree: {_path} has {len(tree)} "
+                             f"entries, the port's does not match")
+        return type(tree)(
+            load_jax_tree(v, None if like is None else like[i], device,
+                          f"{_path}[{i}]") for i, v in enumerate(tree))
+    t = torch.from_numpy(np.array(tree))
+    if like is None:
+        return t if device is None else t.to(device)
+    if tuple(t.shape) != tuple(like.shape):
+        raise MXNetError(f"load_jax_tree: {_path} has shape "
+                         f"{tuple(t.shape)}, the port's "
+                         f"{tuple(like.shape)}")
+    return t.to(like.device, like.dtype)
 
 
 def init_params(model, seed=0, std=0.02):

@@ -65,7 +65,7 @@ from .kv_cache import KVCache, PagedKVCache
 
 __all__ = ["GPT2Config", "GPT2Model", "GPT2ForCausalLM", "gpt2_small_config",
            "gpt2_medium_config", "gpt2_774m_config", "gpt2_xl_config",
-           "AdapterBatch", "tp_forward"]
+           "AdapterBatch", "tp_forward", "gpt2_pp_functions"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -589,3 +589,68 @@ class GPT2ForCausalLM(TensorBlock):
             done = done | (tok == eos)
             tok = select(logits[:, -1])
         return out
+
+
+def gpt2_pp_functions(model, n_stages):
+    """A GPT2ForCausalLM split into the (embed_fn, stage_fn,
+    head_loss_fn) triple parallel.PPTrainStep takes, with its parameter
+    trees: returns (embed_fn, stage_fn, head_loss_fn, embed_params,
+    stacked_body_params, head_params, tied) (parity:
+    mxnet_tpu/models/gpt2.py `gpt2_pp_functions`).
+
+    Stage s owns num_layers / n_stages consecutive blocks (a list of
+    per-block dicts of name -> tensor, stacked over the stages); the
+    token + position embedding runs on stage 0 and the final LayerNorm,
+    the tied LM head and the causal cross-entropy (float32) on the last.
+    tied = [("wte", "wte")]: PPTrainStep sums the two wte gradients and
+    mirrors the embed copy into the head. The blocks run through
+    torch.func.functional_call on the model's own modules (the fused
+    attention kernel on the card). Dropout must be 0: the 1F1B backward
+    recomputes each stage."""
+    from ..parallel.pp import stack_stage_params
+    c = model.config
+    if c.dropout or c.attention_dropout:
+        raise MXNetError("gpt2_pp_functions: build the model with "
+                         "dropout=0 (pipeline recompute must be "
+                         "deterministic)")
+    backbone = model.backbone
+    blocks = backbone.blocks()
+    L = len(blocks)
+    if L % n_stages:
+        raise MXNetError(f"{L} layers not divisible by {n_stages} stages")
+    k = L // n_stages
+
+    def block_params(b):
+        return {n: p.detach() for n, p in b.named_parameters()}
+
+    stacked = stack_stage_params(
+        [[block_params(b) for b in blocks[s * k:(s + 1) * k]]
+         for s in range(n_stages)])
+    template = blocks[:k]
+
+    def stage_fn(stage_params, h):
+        for i in range(k):
+            h, _ = torch.func.functional_call(template[i], stage_params[i],
+                                              (h, None, i))
+        return h
+
+    wte = backbone.word_embed.weight.detach()
+    embed_params = {"wte": wte,
+                    "wpe": backbone.position_embed.weight.detach()}
+    head_params = {"g": backbone.ln_f.gamma.detach(),
+                   "b": backbone.ln_f.beta.detach(), "wte": wte}
+    eps = c.layer_norm_eps
+
+    def embed_fn(ep, ids):
+        t = ids.shape[1]
+        return ep["wte"][ids.long()] + ep["wpe"][:t][None]
+
+    def head_loss_fn(hp, h, labels):
+        x32 = h.float()
+        xn = torch.nn.functional.layer_norm(
+            x32, x32.shape[-1:], hp["g"].float(), hp["b"].float(), eps)
+        logp = torch.log_softmax(xn @ hp["wte"].float().t(), -1)
+        return -logp.gather(-1, labels.long()[..., None]).mean()
+
+    return (embed_fn, stage_fn, head_loss_fn, embed_params, stacked,
+            head_params, [("wte", "wte")])

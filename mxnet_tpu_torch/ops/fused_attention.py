@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -70,9 +71,17 @@ _LAYOUTS = ("BHTD", "BTHD")
 _U32 = 0xFFFFFFFF
 
 
+_count_lock = threading.Lock()   # a mesh step launches from shard threads
+
+
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _count(name):
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +350,7 @@ class _FusedAttention(torch.autograd.Function):
         if err:
             raise _build.KernelError(f"fused_attention forward: kernel "
                                      f"launch failed (cudaError {err})")
-        LAUNCHES["fused_attention_fwd_tc" if tc else "fused_attention_fwd"] \
-            += 1
+        _count("fused_attention_fwd_tc" if tc else "fused_attention_fwd")
         ctx.save_for_backward(q, k, v, o if o32 is None else o32, bias,
                               seed, stats)
         ctx.args = (scale, p_drop, causal, layout, inv_keep, route)
@@ -387,8 +395,7 @@ class _FusedAttention(torch.autograd.Function):
         if err:
             raise _build.KernelError(f"fused_attention backward: kernel "
                                      f"launch failed (cudaError {err})")
-        LAUNCHES["fused_attention_bwd_tc" if tc else "fused_attention_bwd"] \
-            += 1
+        _count("fused_attention_bwd_tc" if tc else "fused_attention_bwd")
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -27,7 +27,15 @@ from . import fused_attention as _fa
 
 __all__ = ["fully_connected", "convolution", "batch_norm", "layer_norm",
            "activation", "gelu", "dropout", "pooling",
-           "dot_product_attention", "flash_eligible"]
+           "dot_product_attention", "local_attention", "flash_eligible"]
+
+
+def _shard_context():
+    """The running mesh-step shard (parallel.mesh.shard_context), or None
+    (imported here: the parallel package imports the models, which
+    import this module)."""
+    from ..parallel.mesh import shard_context
+    return shard_context()
 
 
 def fully_connected(x, weight, bias=None, scale=None):
@@ -110,7 +118,20 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
     g32 = torch.ones_like(gamma, dtype=torch.float32) if fix_gamma \
         else gamma.float()
     training = training and not use_global_stats
-    if training:
+    ctx = _shard_context() if training else None
+    if ctx is not None and ctx.spans_batch:
+        # a mesh step's batch shard: the statistics of the global batch,
+        # from sums psum'd over the shards inside the forward
+        x32 = x.float()
+        count = x32.numel() // x32.shape[axis] * ctx.size
+        mean = ctx.psum(x32.sum(dim=red)) / count
+        if x.dtype == torch.bfloat16:
+            var = (ctx.psum((x32 * x32).sum(dim=red)) / count
+                   - mean * mean).clamp_min(0.0)
+        else:
+            var = ctx.psum((x32 - mean.reshape(bshape)).square()
+                           .sum(dim=red)) / count
+    elif training:
         x32 = x.float()
         mean = x32.mean(dim=red)
         if x.dtype == torch.bfloat16:
@@ -166,8 +187,19 @@ def dropout(x, p):
     drawn from the current generator of x's device."""
     if p <= 0:
         return x
-    u = torch.rand(x.shape, device=x.device,
-                   generator=_rng.generator(x.device))
+    ctx = _shard_context()
+    if ctx is not None and ctx.spans_batch and x.dim() > 0:
+        # a mesh step's batch shard: the mask of the global batch (dim 0
+        # over the shards), drawn from the step's one stream and sliced,
+        # so the shards draw the single-device step's masks
+        b = x.shape[0]
+        u = torch.rand((b * ctx.size,) + tuple(x.shape[1:]),
+                       device=x.device,
+                       generator=_rng.generator(x.device)
+                       )[ctx.rank * b:(ctx.rank + 1) * b]
+    else:
+        u = torch.rand(x.shape, device=x.device,
+                       generator=_rng.generator(x.device))
     return torch.where(u < 1.0 - p, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
 
@@ -278,20 +310,87 @@ def dot_product_attention(q, k, v, mask=None, scale=None, causal=False,
     float dtype): the fused kernel is tiled and takes any T, so an
     eligible call it supports goes there; any other call takes the plain
     softmax attention, which gives the values of the reference's
-    blockwise scan. 'ring' and 'ulysses' are not ported.
+    blockwise scan. 'ring' and 'ulysses' are the sequence-parallel
+    routes over the active mesh's "sp" axis (parallel/sp.py), and
+    'auto' takes one of them whenever the mesh has a real sp axis and
+    the call allows it (`_sp_auto_impl`, the reference's rule), so a
+    model needs no change to run sequence-parallel; they refuse
+    attention dropout, as the reference does.
 
     mask: (B, Tk) key padding, or a boolean mask broadcastable to
     (B, H, Tq, Tk); True = attend. Fully masked rows yield zeros.
     dropout_p applies as given: pass 0 outside training."""
-    if impl in ("ring", "ulysses"):
-        raise not_ported(f"dot_product_attention impl={impl!r}")
-    if impl not in _ATTN_IMPLS:
+    if impl not in _ATTN_IMPLS + ("ring", "ulysses"):
         raise MXNetError(f"unknown attention impl {impl!r}")
     if layout not in ("BHTD", "BTHD"):
         raise MXNetError(f"unknown attention layout {layout!r}")
     if mask is not None and mask.dim() == 2:
         # (B, Tk) key padding -> canonical (B, 1, 1, Tk) for every path
         mask = mask[:, None, None, :]
+    bhtd = (lambda x: x.transpose(1, 2)) if layout == "BTHD" \
+        else (lambda x: x)
+    if impl == "auto":
+        sp_impl = _sp_auto_impl(bhtd(q), bhtd(k), mask, dropout_p > 0)
+        if sp_impl is not None:
+            impl = sp_impl
+    if impl in ("ring", "ulysses"):
+        from ..parallel import sp as _sp
+        if dropout_p > 0:
+            raise MXNetError(
+                f"impl={impl!r} does not support attention-probability "
+                "dropout (the mask would need to be consistent across "
+                "devices); set attention dropout to 0 under sequence "
+                "parallelism")
+        fn = _sp.ring_attention if impl == "ring" else _sp.ulysses_attention
+        return bhtd(fn(bhtd(q), bhtd(k), bhtd(v), mask=mask, causal=causal,
+                       scale=scale))
+    return _attention(q, k, v, mask, scale, causal, dropout_p, impl, layout)
+
+
+def local_attention(q, k, v, mask=None, scale=None, causal=False):
+    """The attention of one sequence-parallel shard, (B, H, T, D): the
+    'auto' route without the sp step (the fused kernel on a CUDA tensor
+    it supports, its plain version on the CPU)."""
+    if mask is not None and mask.dim() == 2:
+        mask = mask[:, None, None, :]
+    return _attention(q, k, v, mask, scale, causal, 0.0, "auto", "BHTD")
+
+
+def _sp_auto_impl(q, k, mask, train_drop):
+    """The sequence-parallel route impl='auto' takes on (B, H, T, D)
+    operands, or None (parity: mxnet_tpu/ops/nn.py `_sp_auto_impl`): an
+    active mesh with a real sp axis, self-attention with T divisible by
+    sp, no attention dropout, a key-padding mask or none; 'ulysses' when
+    the per-device heads (H / tp) divide by sp and T <= 4096, else
+    'ring'. Inside a mesh step's batch shard the rows are the shard's
+    already, so the dp check is the reference's on the global batch."""
+    from ..parallel.mesh import AXIS_SP, current_mesh, shard_context
+    from ..parallel.sp import sp_enabled
+    mesh = current_mesh()
+    if train_drop or not sp_enabled(mesh):
+        return None
+    n_sp = mesh.shape[AXIS_SP]
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[-2]
+    if Tq != Tk or Tq % n_sp:
+        return None
+    if mask is not None and (mask.dim() != 4 or mask.shape[1] != 1
+                             or mask.shape[-2] != 1):
+        return None
+    ctx = shard_context()
+    if ctx is not None and ctx.mesh is mesh:
+        B = B * ctx.size
+    for ax, dim in (("dp", B), ("tp", H)):
+        if ax in mesh.axis_names and dim % mesh.shape[ax]:
+            return None
+    n_tp = mesh.shape["tp"] if "tp" in mesh.axis_names else 1
+    if (H // n_tp) % n_sp == 0 and Tq <= 4096:
+        return "ulysses"
+    return "ring"
+
+
+def _attention(q, k, v, mask, scale, causal, dropout_p, impl, layout):
+    """dot_product_attention's routes on one device."""
     if impl == "flash":
         if flash_eligible(q, dropout_p) and _fa.supported(q, k, mask,
                                                           layout=layout):

@@ -94,6 +94,9 @@ class Optimizer:
     """Base optimizer (parity: mx.optimizer.Optimizer)."""
 
     fused_supported = False
+    # the update reads the whole parameter (LAMB's trust ratio): a mesh
+    # step applies it to the whole tensor, never to a stored block
+    whole_tensor_update = False
     _MP_DTYPES = (torch.bfloat16, torch.float16)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
@@ -595,6 +598,7 @@ class LAMB(Optimizer):
     by the trust ratio |w| / |r| (|w| clipped to [lower, upper])."""
 
     fused_supported = True
+    whole_tensor_update = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-6, lower_bound=None, upper_bound=None,

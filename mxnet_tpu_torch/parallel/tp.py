@@ -22,6 +22,7 @@ from torch import nn
 from ..base import MXNetError
 from ..models.gpt2 import GPT2Model
 from ..nn import Dense
+from . import collectives as _coll
 from .mesh import place
 from .rules import split_kind
 
@@ -38,18 +39,15 @@ class TPGroup:
         self.size = len(self.devices)
 
     def all_reduce(self, parts):
-        """The sum of one partial per shard, on every shard's device: summed
-        on shard 0's device in shard order (parts[0] + parts[1] + ...), in
-        the partials' dtype, as psum does. Shards on shard 0's device get
-        the one sum tensor itself (no copy)."""
+        """The sum of one partial per shard, on every shard's device
+        (collectives.psum): summed on shard 0's device in shard order
+        (parts[0] + parts[1] + ...), in the partials' dtype, as psum
+        does. Shards on shard 0's device get the one sum tensor itself
+        (no copy)."""
         if len(parts) != self.size:
             raise MXNetError(f"all_reduce got {len(parts)} partials for "
                              f"{self.size} shards")
-        d0 = self.devices[0]
-        acc = parts[0]
-        for p in parts[1:]:
-            acc = acc + place(p, d0)
-        return [place(acc, d) for d in self.devices]
+        return _coll.psum(parts, self.devices)
 
     def broadcast(self, t):
         """`t` placed on every shard's device (a replicated operand)."""

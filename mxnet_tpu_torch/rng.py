@@ -78,8 +78,17 @@ def seed_words(device):
     """Two int32 seed words drawn from the current generator, as a (2,)
     int32 tensor on `device` (no host round trip on a card)."""
     device = torch.device(device)
-    return torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
-                         device=device, generator=generator(device))
+    words = torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
+                          device=device, generator=generator(device))
+    from .parallel.mesh import shard_context
+    ctx = shard_context()
+    if ctx is not None and ctx.spans_batch and ctx.rank:
+        # a mesh step's shards draw the same words from one stream; the
+        # kernel hashes the row inside the shard, so fold the shard's
+        # rank in (the counterpart of fold_in(key, axis_index))
+        words = words ^ torch.tensor([0, ctx.rank], dtype=torch.int32,
+                                     device=device)
+    return words
 
 
 def _splitmix64(x):

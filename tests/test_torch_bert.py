@@ -231,7 +231,7 @@ def test_dot_product_attention_routes(jax_pair):
     assert torch.equal(got, fa.fused_attention(tq, tk, tv, mask=kp,
                                                layout="BTHD"))
     for impl in ("ring", "ulysses"):
-        with pytest.raises(MXNetError, match="not ported"):
+        with pytest.raises(MXNetError, match="needs an active mesh"):
             port_nn.dot_product_attention(tq, tk, tv, impl=impl,
                                           layout="BTHD")
     with pytest.raises(MXNetError, match="does not take this call"):
@@ -363,8 +363,10 @@ def test_train_step_options(jax_pair):
     assert torch.equal(frozen.detach(), before)
     assert not torch.equal(net.backbone.embed_ln.beta.detach(),
                            torch.tensor(arrays["backbone.embed_ln.beta"]))
-    for kw in ({"mesh": object()}, {"compression": "2bit"}):
-        with pytest.raises(MXNetError, match="not ported"):
+    # a mesh is a parallel.Mesh; 2-bit compression needs its dp axis
+    for kw, msg in (({"mesh": object()}, "parallel.Mesh"),
+                    ({"compression": "2bit"}, "dp axis")):
+        with pytest.raises(MXNetError, match=msg):
             TrainStep(net, SoftmaxCrossEntropyLoss(), AdamW(),
                       n_net_inputs=4, **kw)
     # loss scaling is ported (tests/test_torch_loss_scale.py)

@@ -282,8 +282,9 @@ def test_trainer_rules():
     np.testing.assert_array_equal(params["weight"].grad().asnumpy(), 0)
     tr.set_learning_rate(0.05)
     assert tr.learning_rate == 0.05
-    with pytest.raises(MXNetError, match="not ported"):
-        gluon.Trainer(params, "sgd", kvstore="dist_sync")
+    tr_async = gluon.Trainer(params, "sgd", kvstore="dist_async")
+    with pytest.raises(MXNetError, match="dist_async"):
+        tr_async.allreduce_grads()
     with pytest.raises(MXNetError):
         gluon.Trainer(params, mx.optimizer.SGD(), {"learning_rate": 1.0})
 
